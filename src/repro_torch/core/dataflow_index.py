@@ -1,0 +1,81 @@
+"""Versioned extension indices for the BiGJoin dataflow.
+
+A :class:`VersionedIndex` is the multi-region structure of §4.3 flattened to
+tensors: *positive* regions contribute extensions (compacted base, committed
+inserts, uncommitted inserts) and *negative* regions subtract membership
+(committed / uncommitted deletes):
+
+    static:  pos=(base,)                 neg=()
+    old:     pos=(base, cins)            neg=(cdel,)
+    new:     pos=(base, cins, uins)      neg=(cdel, udel)
+
+Counts and proposals come from positive regions only; deletions are applied
+as signed membership.  Membership of every region goes through the
+multi-region kernel wrapper in one call.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.csr import IndexData, index_range
+from repro_torch.kernels.intersect.ops import signed_member
+
+
+@dataclasses.dataclass
+class VersionedIndex:
+    pos: Tuple[IndexData, ...]
+    neg: Tuple[IndexData, ...]
+
+    @classmethod
+    def static(cls, data: IndexData) -> "VersionedIndex":
+        return cls((data,), ())
+
+    # ---- queries (vectorized over probe batch [B]) ------------------------
+
+    def ranges(self, qkey: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(starts [B,R], counts [B,R]) over positive regions."""
+        ss, cs = [], []
+        for reg in self.pos:
+            s, c = index_range(reg, qkey)
+            ss.append(s)
+            cs.append(c)
+        return torch.stack(ss, -1), torch.stack(cs, -1)
+
+    def count(self, qkey: torch.Tensor) -> torch.Tensor:
+        """Positive-region extension count [B] (exact when no deletions)."""
+        _, c = self.ranges(qkey)
+        return c.sum(-1, dtype=torch.int32)
+
+    def gather(self, starts: torch.Tensor, counts: torch.Tensor,
+               k: torch.Tensor) -> torch.Tensor:
+        """k-th extension across concatenated positive regions
+        (starts/counts: [B, R] rows gathered per probe; k: [B])."""
+        val = torch.zeros(k.shape, dtype=torch.int32, device=k.device)
+        off = k
+        for r, reg in enumerate(self.pos):
+            in_r = (off >= 0) & (off < counts[..., r])
+            p = (starts[..., r] + off).clamp(0, reg.capacity - 1).long()
+            val = torch.where(in_r, reg.val[p], val)
+            off = off - counts[..., r]
+        return val
+
+    def signed_member(self, qkey: torch.Tensor, qval: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(membership, deletion) bits in ONE pass over all regions."""
+        wpos, wneg = signed_member(self.pos, self.neg, qkey, qval)
+        return (wpos - wneg) > 0, wneg > 0
+
+    def member(self, qkey: torch.Tensor, qval: torch.Tensor) -> torch.Tensor:
+        return self.signed_member(qkey, qval)[0]
+
+    def deleted(self, qkey: torch.Tensor, qval: torch.Tensor
+                ) -> torch.Tensor:
+        if not self.neg:
+            return torch.zeros(qkey.shape, dtype=torch.bool,
+                               device=qkey.device)
+        _, wneg = signed_member((), self.neg, qkey, qval)
+        return wneg > 0

@@ -1,0 +1,140 @@
+// Shared device helpers of the streaming-session kernels.
+//
+// A sorted region is the torch IndexData layout: key [cap] int32 or int64
+// (nondecreasing, sentinel-padded), val [cap] int32, n: a device int32
+// scalar of live entries.  Kernels read n from device memory, so a launch
+// never waits on the host.  Region descriptors travel by value in the
+// kernel's parameter space (five int64 words each on the host side: key
+// pointer, val pointer, n pointer, capacity, key-is-int64).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef long long i64;
+
+// Launch on the caller's stream.
+#ifndef REPRO_LAUNCH
+#define REPRO_LAUNCH(kernel, grid, block, stream, ...) \
+  kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
+#endif
+
+#define REPRO_MAX_REGIONS 8
+#define REPRO_THREADS 256
+
+struct Region {
+  const void* key;
+  const int* val;
+  const int* n;
+  int cap;
+  int k64;
+};
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+inline Region region_from(const int64_t* d) {
+  Region r;
+  r.key = (const void*)d[0];
+  r.val = (const int*)d[1];
+  r.n = (const int*)d[2];
+  r.cap = (int)d[3];
+  r.k64 = (int)d[4];
+  return r;
+}
+
+inline int grid_for(long long n, int threads) {
+  return (int)((n + threads - 1) / threads);
+}
+
+// Key load, promoted to int64 (mixed widths promote, never truncate).
+__device__ __forceinline__ i64 load_key(const void* p, int k64, int i) {
+  return k64 ? ((const i64*)p)[i] : (i64)((const int*)p)[i];
+}
+
+// Live entries: min(cap, n).
+__device__ __forceinline__ int live_of(const Region& r) {
+  return imin(r.cap, *r.n);
+}
+
+// Lexicographic (key, val) bound over the first `hi` entries: the count of
+// entries < (qk, qv) (right == false) or <= it (right == true).  This is
+// csr.lex_searchsorted_cols: on sorted entries the plain bisection and the
+// reference's fixed-depth loop stop at the same partition point.
+template <typename K>
+__device__ __forceinline__ int lex_bound_t(const K* key, const int* val,
+                                           int hi, i64 qk, int qv,
+                                           bool right) {
+  int lo = 0;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    i64 mk = (i64)key[mid];
+    int mv = val[mid];
+    bool less = mk < qk || (mk == qk && (mv < qv || (right && mv == qv)));
+    if (less) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int lex_bound(const Region& r, int hi, i64 qk,
+                                         int qv, bool right) {
+  return r.k64 ? lex_bound_t<i64>((const i64*)r.key, r.val, hi, qk, qv,
+                                  right)
+               : lex_bound_t<int>((const int*)r.key, r.val, hi, qk, qv,
+                                  right);
+}
+
+// Key-only bound over the FULL capacity (csr.index_range: the sentinel
+// padding sorts above every real key).
+template <typename K>
+__device__ __forceinline__ int key_bound_t(const K* key, int cap, i64 qk,
+                                           bool right) {
+  int lo = 0, hi = cap;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    i64 mk = (i64)key[mid];
+    bool less = right ? (mk <= qk) : (mk < qk);
+    if (less) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int key_bound(const Region& r, i64 qk,
+                                         bool right) {
+  return r.k64 ? key_bound_t<i64>((const i64*)r.key, r.cap, qk, right)
+               : key_bound_t<int>((const int*)r.key, r.cap, qk, right);
+}
+
+// Is (qk, qv) among the live entries of r?  (csr.index_member)
+__device__ __forceinline__ int member_of(const Region& r, i64 qk, int qv) {
+  int n = live_of(r);
+  int pos = lex_bound(r, n, qk, qv, false);
+  if (pos >= n) return 0;
+  return load_key(r.key, r.k64, pos) == qk && r.val[pos] == qv;
+}
+
+// Exclusive scan of one unsigned value per thread across the block, with
+// the block total in *total.  Every thread of the block must call it.
+// Shared memory `sh` holds blockDim.x words.
+__device__ __forceinline__ unsigned block_excl_scan(unsigned v, unsigned* sh,
+                                                    unsigned* total) {
+  int t = threadIdx.x;
+  int nt = blockDim.x;
+  sh[t] = v;
+  __syncthreads();
+  for (int off = 1; off < nt; off <<= 1) {
+    unsigned x = t >= off ? sh[t - off] : 0u;
+    __syncthreads();
+    sh[t] += x;
+    __syncthreads();
+  }
+  unsigned incl = sh[t];
+  *total = sh[nt - 1];
+  __syncthreads();
+  return incl - v;
+}
+
+#define REPRO_ERROR_STRING                                   \
+  extern "C" const char* repro_error_string(int code) {      \
+    return cudaGetErrorString((cudaError_t)code);            \
+  }

@@ -1,0 +1,83 @@
+"""Synthetic graph data — deterministic numpy generators (framework-free).
+
+The streaming session's inputs: ``rmat_graph`` (skewed power-law degrees,
+Graph500 parameters) and the dirty :class:`EdgeUpdateStream`.  Both are
+pure functions of their seed, so any run can re-derive any epoch's batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+
+def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 0,
+               a: float = 0.57, b: float = 0.19, c: float = 0.19
+               ) -> np.ndarray:
+    """R-MAT generator (Graph500 parameters by default): [E, 2] int32,
+    self-loops dropped, deduplicated."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    e = n * edge_factor
+    src = np.zeros(e, np.int64)
+    dst = np.zeros(e, np.int64)
+    for bit in range(scale):
+        r = rng.random(e)
+        # quadrant probabilities (a, b, c, d)
+        go_right = (r >= a) & (r < a + b) | (r >= a + b + c)
+        go_down = r >= a + b
+        src |= go_down.astype(np.int64) << bit
+        dst |= go_right.astype(np.int64) << bit
+    keep = src != dst
+    # distinct rows in lexicographic order (ids < 2^31, so the packed
+    # src<<32|dst words sort like the rows)
+    packed = np.unique((src[keep] << 32) | dst[keep])
+    return np.stack([packed >> 32, packed & 0xFFFFFFFF], 1).astype(np.int32)
+
+
+@dataclasses.dataclass
+class EdgeUpdateStream:
+    """Mixed insert/delete edge-update batches for streaming graph monitors.
+
+    Batches are intentionally DIRTY — duplicates, self-loops, inserts of
+    already-live edges and deletes of absent edges — because the engine's
+    ``normalize`` must net them out; ``insert_frac`` of each batch are
+    candidate inserts, the rest deletes drawn from the caller's live set
+    (plus a sprinkle of absent-edge deletes that must be no-ops).
+    """
+
+    num_vertices: int
+    batch_size: int
+    insert_frac: float = 0.75
+    skew: float = 0.0  # 0 = uniform endpoints; >1 = zipf exponent
+    seed: int = 0
+    shard: int = 0
+    num_shards: int = 1
+
+    def batch_at(self, step: int, live: np.ndarray | None = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(
+            (self.seed * 9_999_991 + step) * self.num_shards + self.shard)
+        nv = self.num_vertices
+        n_ins = int(round(self.batch_size * self.insert_frac))
+        n_del = self.batch_size - n_ins
+        if self.skew > 1.0:
+            u = (rng.zipf(self.skew, n_ins) % nv).astype(np.int32)
+            v = rng.integers(0, nv, n_ins).astype(np.int32)
+            ins = np.stack([u, v], 1)
+        else:
+            ins = rng.integers(0, nv, (n_ins, 2)).astype(np.int32)
+        parts = [ins]
+        n_live = 0
+        if n_del and live is not None and np.asarray(live).size:
+            live = np.asarray(live, np.int32).reshape(-1, 2)
+            n_live = max(n_del - n_del // 4, 1)
+            parts.append(live[rng.integers(0, live.shape[0], n_live)])
+        if n_del - n_live > 0:  # absent-edge deletes: must normalize away
+            parts.append(rng.integers(0, nv, (n_del - n_live, 2)
+                                      ).astype(np.int32))
+        upd = np.concatenate(parts, axis=0)
+        w = np.concatenate([np.ones(n_ins, np.int32),
+                            -np.ones(upd.shape[0] - n_ins, np.int32)])
+        return upd, w

@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels of the streaming session, with their plain
+PyTorch versions.
+
+Every wrapper dispatches on the device of its tensors: a CPU tensor goes to
+the plain version, a CUDA tensor launches the kernel (or raises).  There is
+no fallback from one to the other.  Each wrapper adds one to its entry in
+:data:`LAUNCHES` per call that launches its kernel, and nowhere else, so a
+run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+KERNELS = ("signed_member", "fused_extend", "rank_lt_le", "commit_fold")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def launches() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1

@@ -1,0 +1,179 @@
+"""Build and bind the CUDA kernels: ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles on first use to ``build/lib<name>.so`` at
+the repository root (``REPRO_TORCH_BUILD`` overrides the directory) for
+``sm_90a``.  Nothing here runs when the module is imported: a machine
+without ``nvcc`` can import the package and run the plain versions.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero
+code, since a refused launch never runs and a later synchronise would not
+report it.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("intersect", "extend", "merge_rank", "fold")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+DESC = ctypes.POINTER(ctypes.c_int64)
+
+# argtypes of every C entry point, by library
+SIGNATURES = {
+    "intersect": {
+        "repro_signed_member": (DESC, I, I, P, I, P, I, P, P, P),
+    },
+    "merge_rank": {
+        "repro_rank": (DESC, P, I, P, I, P, P, P),
+    },
+    "extend": {
+        "repro_extend": (DESC, DESC, I, I, I, P, P, P, P, P, P, P, P, P, P),
+        "repro_extend_scratch": (I, I),
+    },
+    "fold": {
+        "repro_commit_fold": (DESC, P, P, P, P, P, I, P, P, P, I, P),
+        "repro_commit_fold_scratch": (I, I, I),
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build"
+
+
+def nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built with the CUDA "
+            "toolkit on the machine that holds the card")
+    return exe
+
+
+def _lib_path(name: str) -> Path:
+    return build_dir() / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    out = _lib_path(name)
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir()
+                 if p.suffix in (".cu", ".cuh"))
+    return out.stat().st_mtime < newest
+
+
+def _nvcc_cmd(name: str, tmp: Path):
+    return [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+            str(CSRC / f"{name}.cu")]
+
+
+def build(names: Iterable[str] = SOURCES, force: bool = False
+          ) -> Dict[str, str]:
+    """Compile the named sources, all ``nvcc`` processes started together.
+    Returns each library's compiler output (``-Xptxas -v`` register and
+    shared-memory report); raises if any build fails."""
+    names = [n for n in names if force or _stale(n)]
+    if not names:
+        return {}
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            _nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built first if missing or stale)."""
+    with _lock:
+        got = _libs.get(name)
+        if got is None:
+            build([name])
+            got = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(got, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            got.repro_error_string.argtypes = [ctypes.c_int]
+            got.repro_error_string.restype = ctypes.c_char_p
+            _libs[name] = got
+        return got
+
+
+def check(name: str, rc: int) -> None:
+    if rc != 0:
+        msg = lib(name).repro_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel launch failed in {name}: "
+                           f"error {rc} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError("mixed CPU/CUDA operands to a CUDA kernel")
+        if not t.is_contiguous():
+            raise ValueError("CUDA kernels take contiguous tensors")
+
+
+def region_desc(regions) -> ctypes.Array:
+    """Host descriptor array of sorted regions: per region five int64 words
+    (key pointer, val pointer, n pointer, capacity, key is int64)."""
+    words = []
+    for r in regions:
+        require_cuda(r.key, r.val, r.n)
+        if r.val.dtype != torch.int32 or r.n.dtype != torch.int32:
+            raise ValueError("regions carry int32 val and n")
+        if r.key.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"unsupported key dtype {r.key.dtype}")
+        words += [ptr(r.key), ptr(r.val), ptr(r.n), r.key.shape[0],
+                  int(r.key.dtype == torch.int64)]
+    return (ctypes.c_int64 * max(len(words), 1))(*words)
+
+
+def int_array(vals) -> ctypes.Array:
+    vals = list(vals)
+    return (ctypes.c_int64 * max(len(vals), 1))(*vals)

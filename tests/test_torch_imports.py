@@ -1,0 +1,54 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``repro``."""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .replace(".__init__", "")
+    for p in PKG.rglob("*.py"))
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize(
+    "path", [p.relative_to(ROOT).as_posix() for p in sorted(PKG.rglob("*.py"))]
+    + ["chip_smoke.py"])
+def test_source_has_no_jax_or_repro_import(path):
+    src = (ROOT / path).read_text()
+    assert not _FORBIDDEN.findall(src), path
+
+
+def test_cuda_sources_are_complete():
+    """Every kernel library the build names has its source, and the
+    package lists the four kernels of the slice."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels._build import CSRC, SOURCES
+    for name in SOURCES:
+        assert (CSRC / f"{name}.cu").exists()
+    assert KERNELS == ("signed_member", "fused_extend", "rank_lt_le",
+                       "commit_fold")
