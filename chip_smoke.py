@@ -9,8 +9,9 @@ Phases, in order, each printed with its result and seconds:
               the main path's shapes (int32 and int64 keys), exact equality,
               with the kernel's, the plain version's and one library call's
               time and the least time the card could take (``bound_ms``);
-4. verify   — a GraphSession (triangle + diamond) over dirty update epochs,
-              each epoch's signed delta equal to the numpy oracle;
+4. verify   — a GraphSession over dirty update epochs, one cell per
+              (scale, queries): each epoch's signed delta equal to the numpy
+              oracle (full recomputation), compaction included;
 5. serve    — the same session at realistic graph sizes, one cell per
               (scale, queries): warm per-epoch latency, peak device memory
               and each kernel's launch count (every kernel must launch).
@@ -19,7 +20,7 @@ The second-to-last lines are the kernel table as one JSON object and the
 card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  Needs one CUDA device; run from the
-repository root: ``python3 chip_smoke.py [--serve 16:triangle,diamond]``.
+repository root: ``python3 chip_smoke.py [--serve 16:triangle,diamond@10]``.
 """
 from __future__ import annotations
 
@@ -105,12 +106,18 @@ def entry_bytes(idx) -> int:
     return idx.key.element_size() + 4
 
 
-def probe_bytes(idx, searches: int) -> float:
-    """Index bytes a batch of binary searches must read: each search's
-    probes once, capped by the live entries (data-dependent count)."""
+def search_bytes(idx, searches: int) -> float:
+    """Index bytes a batch of binary searches over the live prefix must
+    read (data-dependent count): the top floor(log2 searches) levels of the
+    search tree, which every search shares, once; below them each search's
+    own probes; never more than the live entries."""
     live = int(idx.n)
-    return min(live * entry_bytes(idx),
-               searches * depth(max(live, 2)) * entry_bytes(idx))
+    if searches <= 0 or live == 0:
+        return 0.0
+    d = depth(max(live, 2))
+    shared = min(int(np.log2(searches)), d)
+    entries = (1 << shared) - 1 + searches * (d - shared)
+    return min(live, entries) * entry_bytes(idx)
 
 
 def max_abs_err(got, want) -> int:
@@ -234,7 +241,7 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
             if narrow else qk
         lms = cuda_ms(lambda: torch.searchsorted(words, qwords), reps)
         nbytes = B * (kb + 4) + 2 * 4 * B + sum(
-            probe_bytes(r, B) for r in mregs + mnegs)
+            search_bytes(r, B) for r in mregs + mnegs)
         ops = B * sum(depth(max(int(r.n), 2)) for r in mregs + mnegs)
         record("signed_member", err, ms, pms, nbytes, ops, lms,
                f"{label} B={B} regions={len(mregs)}+{len(mnegs)} "
@@ -257,7 +264,7 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
             if narrow else q_key
         lms = cuda_ms(lambda: torch.searchsorted(awords, bq), rreps)
         Bq = q_key.shape[0]
-        nbytes = Bq * (kb + 4) + 2 * 4 * Bq + probe_bytes(a, 2 * Bq)
+        nbytes = Bq * (kb + 4) + 2 * 4 * Bq + search_bytes(a, 2 * Bq)
         ops = 2 * Bq * depth(max(int(a.n), 2))
         record("rank_lt_le", err, ms, pms, nbytes, ops, lms,
                f"{label} B={Bq} cap={a.capacity} n={int(a.n)}",
@@ -280,10 +287,13 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         err = max_abs_err(got, want)
         ms = cuda_ms(fold_k, reps)
         pms = cuda_ms(fold_p, max(reps // 10, 2))
-        nbytes = sum(r.capacity * entry_bytes(r) + 4
-                     for r in (ci, cd, ui, ud)) + 4 * ud.capacity \
+        # the fold reads the live entries of its four regions and of in_ba,
+        # and writes both outputs whole (their padding included)
+        live = [int(r.n) for r in (ci, cd, ui, ud)]
+        nbytes = sum(n * entry_bytes(r) + 4 for n, r in
+                     zip(live, (ci, cd, ui, ud))) + 4 * live[3] \
             + 2 * cc * (kb + 4) + 8
-        ops = sum(r.capacity for r in (ci, cd, ui, ud)) * 3 * depth(cc)
+        ops = sum(live) * 3 * depth(cc)
         record("commit_fold", err, ms, pms, nbytes, ops, None,
                f"{label} caps={ci.capacity}/{cd.capacity}/{ui.capacity}/"
                f"{ud.capacity} out={cc}", main=narrow)
@@ -322,13 +332,21 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         ms = cuda_ms(ext_k, reps)
         pms = cuda_ms(ext_p, max(reps // 10, 2))
         nreg = sum(len(p) + len(n) for p, n in zip(pos, neg))
+        # data-dependent work: two range searches per valid window row in
+        # every positive region; each of the P proposals gathers one value
+        # and is searched in every negative region and, at the least, in
+        # the positives of the binding that is cheaper to search
+        P = int(got[5][0])
         nbytes = (W * (2 * qks[0].element_size() + 8) + Bp * 12 + W * 8 + 8
-                  + sum(probe_bytes(r, 2 * W) for p in pos for r in p)
-                  + sum(probe_bytes(r, Bp) for p, n in zip(pos, neg)
-                        for r in p + n))
-        ops = (2 * W * sum(depth(r.capacity) for p in pos for r in p)
-               + Bp * sum(depth(max(int(r.n), 2))
-                          for p, n in zip(pos, neg) for r in p + n))
+                  + 4 * P
+                  + sum(search_bytes(r, 2 * nseed) for p in pos for r in p)
+                  + sum(search_bytes(r, P) for n in neg for r in n)
+                  + min(sum(search_bytes(r, P) for r in p) for p in pos))
+        ops = (2 * nseed * sum(depth(max(int(r.n), 2))
+                               for p in pos for r in p)
+               + P * sum(depth(max(int(r.n), 2)) for n in neg for r in n)
+               + P * min(sum(depth(max(int(r.n), 2)) for r in p)
+                         for p in pos))
         record("fused_extend", err, ms, pms, nbytes, ops, None,
                f"{label} W={W} B'={Bp} bindings=2 regions={nreg}",
                main=narrow)
@@ -363,7 +381,8 @@ def run_stream(session, handles, stream, live, epochs, check=None,
     return live, secs
 
 
-def verify_phase(scale: int, epochs: int, update_batch: int, seed: int):
+def verify_phase(scale: int, names, epochs: int, update_batch: int,
+                 seed: int):
     from repro_torch import kernels
     from repro_torch.api import GraphSession
     from repro_torch.core.delta import _unique_rows, canon_arrays, rows_isin
@@ -374,7 +393,6 @@ def verify_phase(scale: int, epochs: int, update_batch: int, seed: int):
     ratio = 0.5 * update_batch / edges.shape[0]
     session = GraphSession(edges, device=DEVICE, update_batch=update_batch,
                            compact_ratio=ratio)
-    names = ("triangle", "diamond")
     handles = {n: session.register(n) for n in names}
 
     def full(q, e):
@@ -470,24 +488,34 @@ SOURCES = {
 
 
 def parse_cell(text: str):
-    """``SCALE:query,query`` -> (scale, [queries])."""
-    scale, queries = text.split(":")
-    return int(scale), queries.split(",")
+    """``SCALE:query,query[@EPOCHS]`` -> (scale, [queries], epochs or
+    None for the phase's default)."""
+    cell, _, epochs = text.partition("@")
+    scale, queries = cell.split(":")
+    return int(scale), queries.split(","), int(epochs) if epochs else None
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", action="append", type=parse_cell,
-                    help="a serve cell SCALE:query,query (repeatable); "
-                    "default 16:triangle,diamond and 20:triangle")
-    ap.add_argument("--serve-epochs", type=int, default=20)
-    ap.add_argument("--verify-scale", type=int, default=9)
-    ap.add_argument("--verify-epochs", type=int, default=8)
+                    help="a serve cell SCALE:query,query[@EPOCHS] "
+                    "(repeatable, 20 epochs unless given); default "
+                    "16:triangle,diamond@10 and 20:triangle@20")
+    ap.add_argument("--verify", action="append", type=parse_cell,
+                    help="a verify cell SCALE:query,query[@EPOCHS] "
+                    "(repeatable, 8 epochs unless given); default "
+                    "9:triangle,diamond@8 and 14:triangle@8")
     ap.add_argument("--update-batch", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    cells = args.serve or [(16, ["triangle", "diamond"]), (20, ["triangle"])]
+    # diamond's epochs at scale 16 take seconds each on the host-bound
+    # BiGJoin loop, so that cell runs fewer of them to keep the whole
+    # script near half its time limit
+    cells = args.serve or [(16, ["triangle", "diamond"], 10),
+                           (20, ["triangle"], 20)]
+    checks = args.verify or [(9, ["triangle", "diamond"], 8),
+                             (14, ["triangle"], 8)]
 
     import torch
     if not torch.cuda.is_available():
@@ -523,18 +551,18 @@ def main() -> int:
         table = kernel_phase(graphs[top], 1 << top, args.update_batch,
                              16 * args.update_batch, args.reps, args.seed)
 
-    with phase("verify"):
-        verify_phase(args.verify_scale, args.verify_epochs,
-                     args.update_batch, args.seed)
+    for scale, queries, epochs in checks:
+        with phase(f"verify {scale}:{','.join(queries)}"):
+            verify_phase(scale, queries, epochs or 8, args.update_batch,
+                         args.seed)
 
     launches = {name: 0 for name in KERNELS}
-    for scale, queries in cells:
+    for scale, queries, epochs in cells:
         with phase(f"serve {scale}:{','.join(queries)}"):
             edges = graphs[scale]
             ratio = 8 * args.update_batch / edges.shape[0]
-            serve = serve_phase(edges, 1 << scale, queries,
-                                args.serve_epochs, args.update_batch, ratio,
-                                args.seed)
+            serve = serve_phase(edges, 1 << scale, queries, epochs or 20,
+                                args.update_batch, ratio, args.seed)
             for name in KERNELS:
                 launches[name] += serve["launches"][name]
 

@@ -16,12 +16,11 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.api.dsl import parse_pattern
 from repro_torch.core import delta as _delta
 from repro_torch.core.bigjoin import BigJoinConfig, run_bigjoin
-from repro_torch.core.csr import pow2_capacity
+from repro_torch.core.csr import pow2_capacity, resolve_device
 from repro_torch.core.plan import Plan, make_plan
 from repro_torch.core.query import (EDGE, Query, fractional_edge_cover,
                                     query_by_name)
@@ -39,10 +38,9 @@ class Sizing:
 
     batch: int  # B' — per-step proposal budget
     out_capacity: int  # collect-mode output rows per dataflow run
-    route_capacity: int  # per peer-pair request slots (mesh only)
 
 
-def auto_sizing(query: Query, num_edges: int, num_workers: int = 1,
+def auto_sizing(query: Query, num_edges: int,
                 update_batch: int = 2048) -> Sizing:
     """Capacity defaults from the AGM bound (§1.1): with |E| = IN and
     fractional edge-cover number rho*, one seed edge extends to at most
@@ -53,14 +51,9 @@ def auto_sizing(query: Query, num_edges: int, num_workers: int = 1,
     rho = fractional_edge_cover(query)
     per_seed = float(E) ** max(rho - 1.0, 0.0)
     batch = int(np.clip(_pow2(per_seed), 1024, 8192))
-    batch = max(batch // max(num_workers, 1), 256)
     out_rows = query.num_atoms * update_batch * per_seed
     out_capacity = int(np.clip(_pow2(out_rows), 1 << 14, 1 << 22))
-    return Sizing(batch, out_capacity, _route_for(batch, num_workers))
-
-
-def _route_for(batch: int, num_workers: int) -> int:
-    return max(4 * batch // max(num_workers, 1), 64)
+    return Sizing(batch, out_capacity)
 
 
 @dataclasses.dataclass
@@ -170,15 +163,7 @@ class GraphSession:
         if local is False or mesh is not None:
             raise NotImplementedError(
                 "only the local single-device session is ported")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "GraphSession runs on the card by default and CUDA is "
-                    "not available; pass device='cpu' to run the plain "
-                    "versions on the host")
-            device = "cuda"
-        self.device = torch.device(device)
-        self.w = 1
+        self.device = resolve_device(device)
         self._batch_override = batch
         self._out_override = out_capacity
         self.update_batch = update_batch
@@ -227,15 +212,14 @@ class GraphSession:
         # derived capacities
         live = self.store.base_ratchet.capacity(
             ("sizing",), self.store.max_live or self.update_batch)
-        s = auto_sizing(q, live, self.w, self.update_batch)
+        s = auto_sizing(q, live, self.update_batch)
         b = batch or self._batch_override or s.batch
         oc = out_capacity or self._out_override or s.out_capacity
         # escalation marks are floors for every rebuilt config
         r = self.store.ratchet
         b = max(b, r.peek(("cap", "batch", q.name)))
         oc = max(oc, r.peek(("cap", "out", q.name)))
-        rt = max(_route_for(b, self.w), r.peek(("cap", "route", q.name)))
-        return Sizing(b, oc, rt)
+        return Sizing(b, oc)
 
     def _make_engine(self, q: Query, batch, out_capacity
                      ) -> _delta.DeltaBigJoin:

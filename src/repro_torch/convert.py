@@ -1,6 +1,7 @@
 """Carry index state across packages: host arrays (``key``, ``val``, ``n``
 as numpy, e.g. ``np.asarray`` of another package's index fields) become the
-port's :class:`IndexData` / :class:`VersionedIndex` on a given device.
+port's :class:`IndexData` / :class:`VersionedIndex` on the device the
+caller names (``device`` is required: a conversion never picks one).
 
 Duck-typed: anything with ``key``/``val``/``n`` attributes (and an optional
 ``lo`` that must be None — composite keys are not ported) converts, so the
@@ -16,7 +17,7 @@ from repro_torch.core.csr import IndexData
 from repro_torch.core.dataflow_index import VersionedIndex
 
 
-def to_index(key, val, n, lo=None, device="cpu") -> IndexData:
+def to_index(key, val, n, lo=None, *, device) -> IndexData:
     """One region from host arrays: key [cap] int32|int64, val [cap]
     int32, n scalar live count."""
     if lo is not None:
@@ -31,7 +32,7 @@ def to_index(key, val, n, lo=None, device="cpu") -> IndexData:
                      torch.tensor(n, dtype=torch.int32, device=device))
 
 
-def index_of(region, device="cpu") -> IndexData:
+def index_of(region, *, device) -> IndexData:
     """A region object with ``key``/``val``/``n`` (``lo`` None)."""
     return to_index(np.asarray(region.key), np.asarray(region.val),
                     np.asarray(region.n),
@@ -39,10 +40,10 @@ def index_of(region, device="cpu") -> IndexData:
                     else np.asarray(region.lo), device=device)
 
 
-def versioned_of(vi, device="cpu") -> VersionedIndex:
+def versioned_of(vi, *, device) -> VersionedIndex:
     """A versioned index object with ``pos``/``neg`` region sequences."""
-    return VersionedIndex(tuple(index_of(r, device) for r in vi.pos),
-                          tuple(index_of(r, device) for r in vi.neg))
+    return VersionedIndex(tuple(index_of(r, device=device) for r in vi.pos),
+                          tuple(index_of(r, device=device) for r in vi.neg))
 
 
 def to_numpy(idx: IndexData):

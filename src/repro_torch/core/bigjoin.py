@@ -288,10 +288,10 @@ class JoinResult:
     steps: int
 
 
-def _device_of(indices: Indices, default="cuda") -> torch.device:
+def _device_of(indices: Indices) -> torch.device:
     for vi in indices.values():
         return vi.pos[0].device
-    return torch.device(default)
+    return csr.resolve_device(None)
 
 
 def run_bigjoin(plan: Plan, indices: Indices, seed: np.ndarray,
@@ -345,8 +345,10 @@ def run_bigjoin(plan: Plan, indices: Indices, seed: np.ndarray,
 
 
 def build_indices(plan: Plan, relations: Dict[str, np.ndarray],
-                  capacity_slack: float = 1.0, device="cpu") -> Indices:
-    """Static VersionedIndex per plan index id (version 'static' only)."""
+                  capacity_slack: float = 1.0, device=None) -> Indices:
+    """Static VersionedIndex per plan index id (version 'static' only), on
+    ``device`` (``None``: the card, see :func:`csr.resolve_device`)."""
+    device = csr.resolve_device(device)
     out: Indices = {}
     for index_id, rel, key_pos, ext_pos, version in plan.index_ids():
         if version != "static":

@@ -30,6 +30,20 @@ SENTINEL32 = int(2**31 - 1)
 SEG = 128
 
 
+def resolve_device(device=None) -> torch.device:
+    """The entry points' device rule: ``None`` means the card and raises
+    when CUDA is absent; the plain versions run on the host only when the
+    caller asks for ``"cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the port runs on the card by default and CUDA is not "
+                "available; pass device='cpu' to run the plain versions on "
+                "the host")
+        device = "cuda"
+    return torch.device(device)
+
+
 def round_capacity(cap: int) -> int:
     return -(-max(int(cap), 1) // SEG) * SEG
 
@@ -113,12 +127,14 @@ def single_word_hi(num_key_cols: int) -> bool:
 
 def build_index(tuples: np.ndarray, key_pos: Tuple[int, ...], ext_pos: int,
                 capacity: int | None = None, narrow: bool | None = None,
-                device="cpu") -> IndexData:
+                device=None) -> IndexData:
     """Build an IndexData from host relation tuples [T, arity].
 
     Projects to (key columns, ext column), dedups, sorts on the host and
-    uploads once.  ``narrow`` overrides the key-dtype choice (the store
-    decides it once per projection so folds keep one dtype)."""
+    uploads once to ``device`` (see :func:`resolve_device`).  ``narrow``
+    overrides the key-dtype choice (the store decides it once per
+    projection so folds keep one dtype)."""
+    device = resolve_device(device)
     tuples = np.asarray(tuples)
     if tuples.ndim != 2:
         raise ValueError("tuples must be [T, arity]")
@@ -156,7 +172,8 @@ def _unique_pairs(key: np.ndarray, val: np.ndarray):
 
 
 def empty_index(capacity: int = 1, narrow: bool = True,
-                device="cpu") -> IndexData:
+                device=None) -> IndexData:
+    device = resolve_device(device)
     cap = round_capacity(capacity)
     key, val = _empty_like_caps(torch.int32 if narrow else torch.int64, cap,
                                 device)

@@ -384,10 +384,10 @@ class RegionStore:
     queries pay one region build, one normalize and one commit per epoch.
 
     ``initial`` is an [E, 2] edge array (or ``{"edge": edges}``); all state
-    lives on ``device``."""
+    lives on ``device`` (``None``: the card, see ``csr.resolve_device``)."""
 
-    def __init__(self, initial, compact_ratio: float = 0.5, device="cuda"):
-        self.device = torch.device(device)
+    def __init__(self, initial, compact_ratio: float = 0.5, device=None):
+        self.device = csr.resolve_device(device)
         self.compact_ratio = compact_ratio
         self.projections: Dict[Projection, _Regions] = {}
         self.stats = StoreStats()
@@ -805,7 +805,7 @@ class DeltaBigJoin:
     def __init__(self, query: Query, initial_edges,
                  cfg: BigJoinConfig = BigJoinConfig(mode="collect"),
                  compact_ratio: float = 0.5,
-                 store: Optional[RegionStore] = None, device="cuda"):
+                 store: Optional[RegionStore] = None, device=None):
         self.query = query
         self.cfg = cfg
         self.plans: List[Plan] = [make_delta_plan(dq)

@@ -31,7 +31,8 @@ def pair(rng, n, narrow, nv=50, capacity=None, key_cols=(0,)):
     tup = rng.integers(0, nv, (n, 3)).astype(np.int32)
     ext = 2 if len(key_cols) == 2 else 1
     return (jcsr.build_index(tup, key_cols, ext, capacity, narrow=narrow),
-            tcsr.build_index(tup, key_cols, ext, capacity, narrow=narrow))
+            tcsr.build_index(tup, key_cols, ext, capacity, narrow=narrow,
+                             device="cpu"))
 
 
 WIDTHS = [True, False, None]
@@ -47,7 +48,7 @@ def test_build_index_matches(narrow, n):
     j, t = pair(rng, n, narrow, capacity=1000)  # padding past the live set
     same_index(t, j)
     je, te = jcsr.empty_index(300, narrow=bool(narrow)), \
-        tcsr.empty_index(300, narrow=bool(narrow))
+        tcsr.empty_index(300, narrow=bool(narrow), device="cpu")
     same_index(te, je)
     assert tcsr.pow2_capacity(n) == jcsr.pow2_capacity(n)
     assert tcsr.round_capacity(n) == jcsr.round_capacity(n)
@@ -111,7 +112,7 @@ def test_merge_and_select_match(narrow, seed):
 def test_convert_round_trip():
     rng = np.random.default_rng(3)
     j, _ = pair(rng, 90, None)
-    t = convert.index_of(j)
+    t = convert.index_of(j, device="cpu")
     same_index(t, j)
     k, v, n = convert.to_numpy(t)
     np.testing.assert_array_equal(k, np.asarray(j.key))

@@ -58,7 +58,8 @@ def test_signed_member_matches_jax_kernel(narrow, seed):
                   capacity=int(rng.integers(1, 400))) for _ in range(3)]
     neg = [region(rng, int(rng.integers(0, 60)), narrow) for _ in range(2)]
     jqk, jqv, tqk, tqv = queries(rng, 300, narrow)
-    tvi = convert.versioned_of(jdi.VersionedIndex(tuple(pos), tuple(neg)))
+    tvi = convert.versioned_of(jdi.VersionedIndex(tuple(pos), tuple(neg)),
+                               device="cpu")
     tpos, tneg = list(tvi.pos), list(tvi.neg)
     for p, n in ((pos, neg), ((), neg), (pos, ())):
         tp = tpos if p else ()
@@ -74,7 +75,7 @@ def test_signed_member_matches_jax_kernel(narrow, seed):
 def test_rank_matches_jax_kernel_and_ref(narrow, n):
     rng = np.random.default_rng(7 + n)
     j = region(rng, n, narrow, capacity=n + 40)
-    t = convert.index_of(j)
+    t = convert.index_of(j, device="cpu")
     jqk, jqv, tqk, tqv = queries(rng, 97, narrow, nv=60)
     lt, le = rank_lt_le(t.key, t.val, t.n, tqk, tqv)
     for got, want in ((lt, 0), (le, 1)):
@@ -104,7 +105,7 @@ def test_commit_fold_matches_jax_kernel_and_chain(layout, seed):
                                       packed=layout == "packed")
     lt, le = jcsr.index_ranks(base, jcsr._qcols_of(ud), ud.val)
     j_in_ba = (le > lt).astype(jnp.int32)
-    tb, tci, tcd, tui, tud = (convert.index_of(r)
+    tb, tci, tcd, tui, tud = (convert.index_of(r, device="cpu")
                               for r in (base, ci, cd, ui, ud))
     tlt, tle = tcsr.index_ranks(tb, tud.key, tud.val, plain=True)
     in_ba = (tle > tlt).to(torch.int32)
@@ -148,8 +149,8 @@ def test_fused_extend_matches_jax_kernel(narrow, seed):
                           tuple(jnp.asarray(q) for q in qks),
                           jnp.asarray(wk), jnp.asarray(valid), B)
     got = fused_extend(
-        [[convert.index_of(r) for r in p] for p in pos],
-        [[convert.index_of(r) for r in n] for n in neg],
+        [[convert.index_of(r, device="cpu") for r in p] for p in pos],
+        [[convert.index_of(r, device="cpu") for r in n] for n in neg],
         [torch.from_numpy(q) for q in qks], torch.from_numpy(wk),
         torch.from_numpy(valid), B)
     for g, w in zip(got, want):
