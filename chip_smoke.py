@@ -5,16 +5,25 @@ Phases, in order, each printed with its result and seconds:
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
 2. build    — compile the four CUDA kernels from ``src/repro_torch/csrc``;
-3. kernels  — every kernel against its plain PyTorch version on the card at
-              the main path's shapes (int32 and int64 keys), exact equality,
-              with the kernel's, the plain version's and one library call's
-              time and the least time the card could take (``bound_ms``);
+3. kernels  — every kernel, 1-word and composite (hi, lo) variant, against
+              its plain PyTorch version on the card at the main path's shapes
+              (int32 and int64 hi words), exact equality, with the kernel's
+              time (CUDA events around back-to-back calls, and its device
+              time from the profiler), the plain version's and one library
+              call's time, and the least time the card could take
+              (``bound_ms``);
 4. verify   — a GraphSession over dirty update epochs, one cell per
               (scale, queries): each epoch's signed delta equal to the numpy
-              oracle (full recomputation), compaction included;
+              oracle (full recomputation), compaction included.  A cell
+              naming an n-ary query (``4-clique-tri``, ``5-clique-quad``)
+              materialises its relation from the feeding query
+              (``triangle``, ``4-clique``), feeds it that query's delta every
+              epoch, and holds the n-ary query to its edge-only twin too;
 5. serve    — the same session at realistic graph sizes, one cell per
-              (scale, queries): warm per-epoch latency, peak device memory
-              and each kernel's launch count (every kernel must launch).
+              (scale, queries): warm per-epoch latency, peak device memory,
+              each kernel's launch count (every kernel of the cell's path
+              must launch) and the device idle share of one profiled warm
+              epoch.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's ``name, power.limit``; the last line is
@@ -103,7 +112,8 @@ def depth(cap: int) -> int:
 
 
 def entry_bytes(idx) -> int:
-    return idx.key.element_size() + 4
+    """Bytes of one entry: key, the composite lo word, val."""
+    return idx.key.element_size() + 4 + (8 if idx.lo is not None else 0)
 
 
 def search_bytes(idx, searches: int) -> float:
@@ -120,6 +130,107 @@ def search_bytes(idx, searches: int) -> float:
     return min(live, entries) * entry_bytes(idx)
 
 
+# the CUDA kernels each wrapper launches, by the names the profiler shows
+KERNEL_FUNCS = {
+    "signed_member": ("signed_member_kernel",),
+    "fused_extend": ("extend_count", "extend_budget", "extend_propose"),
+    "rank_lt_le": ("rank_kernel",),
+    "commit_fold": ("fold_masks", "scan_tiles", "scan_tile_sums",
+                    "scan_apply", "fold_scatter"),
+}
+
+
+def _device_events(prof):
+    """(name, microseconds, start, end) of every activity the profiler
+    recorded on the card, read from the raw Kineto records: building the
+    profiler's FunctionEvents for an epoch of 20,000 launches took minutes
+    on the chip machine's host."""
+    try:
+        raw = prof.profiler.kineto_results.events()
+        out = []
+        for ev in raw:
+            if ev.device_type().name == "CUDA":
+                a = ev.start_ns() / 1e3
+                b = a + ev.duration_ns() / 1e3
+                out.append((ev.name(), b - a, a, b))
+        return out
+    except AttributeError:  # a torch without the raw records
+        return [(ev.name, ev.time_range.end - ev.time_range.start,
+                 ev.time_range.start, ev.time_range.end)
+                for ev in prof.events() if ev.device_type.name == "CUDA"]
+
+
+def device_ms(fn, reps: int, kernel: str):
+    """The card's own time for one call: for each CUDA kernel the wrapper
+    launches, the mean duration of its launches that ``torch.profiler``
+    recorded over ``reps`` calls, summed over the wrapper's kernels.  The
+    profiler on that machine loses some records now and then, so the mean
+    over the recorded launches stands in for the lost ones (the log says
+    how many were recorded); None when a kernel has no record at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names = KERNEL_FUNCS[kernel.removesuffix("_lex")]
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = {n: [] for n in names}
+        for name, us, _a, _b in _device_events(prof):
+            for n in names:
+                if n in name:
+                    durs[n].append(us)
+        got = sum(len(d) for d in durs.values())
+        if all(durs.values()):
+            if got < reps * len(names):
+                log(f"  {kernel}: the profiler recorded {got} of "
+                    f"{reps * len(names)} launches")
+            return sum(float(np.mean(d)) for d in durs.values()) / 1e3
+        log(f"  {kernel}: the profiler recorded no launch of "
+            f"{[n for n, d in durs.items() if not d]}")
+    return None
+
+
+def idle_share(fn):
+    """Run ``fn`` once under the profiler (CUDA activity only): (host
+    seconds, device busy seconds, idle share, recorded launches of the
+    port's kernels, their launches by the wrappers' counts) of that window,
+    busy time being the union of every kernel and copy interval recorded on
+    the card.  Where the profiler lost records the busy time is a lower
+    bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    per_call = {k: len(v) for k, v in KERNEL_FUNCS.items()}
+    before = kernels.launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    after = kernels.launches()
+    expected = sum((after[k] - before[k]) * per_call[k.removesuffix("_lex")]
+                   for k in after)
+    evs = _device_events(prof)
+    ours = sum(1 for name, *_ in evs
+               if any(n in name for v in KERNEL_FUNCS.values() for n in v))
+    spans = sorted((a, b) for _n, _us, a, b in evs)
+    busy, end = 0.0, None
+    for a, b in spans:  # union of intervals, in microseconds
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_s = busy / 1e6
+    idle = max(0.0, 1.0 - busy_s / wall) if spans else None
+    return wall, busy_s, idle, ours, expected
+
+
 def max_abs_err(got, want) -> int:
     """Largest |kernel - plain| over every output; raises on any
     difference in dtype, shape or bits."""
@@ -127,7 +238,11 @@ def max_abs_err(got, want) -> int:
     err = 0
     for g, w in zip(got, want):
         if hasattr(g, "key"):  # IndexData
-            g, w = (g.key, g.val, g.n), (w.key, w.val, w.n)
+            if (g.lo is None) != (w.lo is None):
+                raise AssertionError("composite lo word present in one "
+                                     "output only")
+            g = (g.key, g.val, g.n) + (() if g.lo is None else (g.lo,))
+            w = (w.key, w.val, w.n) + (() if w.lo is None else (w.lo,))
         else:
             g, w = (g,), (w,)
         for a, b in zip(g, w):
@@ -145,6 +260,29 @@ def max_abs_err(got, want) -> int:
 # ---------------------------------------------------------------------------
 # phase 3: every kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
+
+def recorder(results: dict):
+    """``record(...)`` for one variant of a kernel: the table keeps the
+    times of the variant the main path runs most (``main``), and the
+    largest error over all variants."""
+    def record(name, err, ms, dev_ms, plain_ms, bytes_moved, ops,
+               library_ms, shape, main):
+        b_ms, b_by = bound(bytes_moved, ops)
+        row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                   shape=shape)
+        log(f"  {name} [{shape}] ms={ms:.4f} device_ms="
+            f"{'null' if dev_ms is None else f'{dev_ms:.4f}'} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+            f"library_ms="
+            f"{'null' if library_ms is None else f'{library_ms:.4f}'}"
+            f" max_abs_err={err}")
+        entry = results.setdefault(name, dict(max_abs_err=0))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if main:
+            entry.update(row)
+    return record
+
 
 def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
                  committed: int, reps: int, seed: int) -> dict:
@@ -178,22 +316,7 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
 
     results = {}
 
-    def record(name, err, ms, plain_ms, bytes_moved, ops, library_ms,
-               shape, main):
-        """One variant of a kernel; the table keeps the times of the
-        variant the main path runs most (``main``), and the largest error
-        over all variants."""
-        b_ms, b_by = bound(bytes_moved, ops)
-        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=library_ms, shape=shape)
-        log(f"  {name} [{shape}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) library_ms="
-            f"{'null' if library_ms is None else f'{library_ms:.4f}'}"
-            f" max_abs_err={err}")
-        entry = results.setdefault(name, dict(max_abs_err=0))
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        if main:
-            entry.update(row)
+    record = recorder(results)
 
     def packed_words(idx):
         """(key<<32 | val) int64 words of the live entries (keys that
@@ -234,6 +357,8 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         sync()
         err = max_abs_err(got, want)
         ms = cuda_ms(lambda: iops.signed_member(mregs, mnegs, qk, qv), reps)
+        dms = device_ms(lambda: iops.signed_member(mregs, mnegs, qk, qv),
+                        reps, "signed_member")
         pms = cuda_ms(lambda: iref.signed_member_ref(mregs, mnegs, qk, qv),
                       max(reps // 10, 2))
         words = packed_words(regs[0])
@@ -243,7 +368,7 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         nbytes = B * (kb + 4) + 2 * 4 * B + sum(
             search_bytes(r, B) for r in mregs + mnegs)
         ops = B * sum(depth(max(int(r.n), 2)) for r in mregs + mnegs)
-        record("signed_member", err, ms, pms, nbytes, ops, lms,
+        record("signed_member", err, ms, dms, pms, nbytes, ops, lms,
                f"{label} B={B} regions={len(mregs)}+{len(mnegs)} "
                f"cap={regs[0].capacity}", main=not narrow)
 
@@ -257,6 +382,8 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         rreps = max(reps // 10, 3)
         ms = cuda_ms(lambda: mops.rank_lt_le(a.key, a.val, a.n, q_key,
                                              q_val), rreps)
+        dms = device_ms(lambda: mops.rank_lt_le(a.key, a.val, a.n, q_key,
+                                                q_val), rreps, "rank_lt_le")
         pms = cuda_ms(lambda: mref.rank_ref(a.key, a.val, a.n, q_key, q_val),
                       2)
         awords = packed_words(a)
@@ -266,7 +393,7 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         Bq = q_key.shape[0]
         nbytes = Bq * (kb + 4) + 2 * 4 * Bq + search_bytes(a, 2 * Bq)
         ops = 2 * Bq * depth(max(int(a.n), 2))
-        record("rank_lt_le", err, ms, pms, nbytes, ops, lms,
+        record("rank_lt_le", err, ms, dms, pms, nbytes, ops, lms,
                f"{label} B={Bq} cap={a.capacity} n={int(a.n)}",
                main=narrow)
 
@@ -286,6 +413,7 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         sync()
         err = max_abs_err(got, want)
         ms = cuda_ms(fold_k, reps)
+        dms = device_ms(fold_k, reps, "commit_fold")
         pms = cuda_ms(fold_p, max(reps // 10, 2))
         # the fold reads the live entries of its four regions and of in_ba,
         # and writes both outputs whole (their padding included)
@@ -294,7 +422,7 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
                      zip(live, (ci, cd, ui, ud))) + 4 * live[3] \
             + 2 * cc * (kb + 4) + 8
         ops = sum(live) * 3 * depth(cc)
-        record("commit_fold", err, ms, pms, nbytes, ops, None,
+        record("commit_fold", err, ms, dms, pms, nbytes, ops, None,
                f"{label} caps={ci.capacity}/{cd.capacity}/{ui.capacity}/"
                f"{ud.capacity} out={cc}", main=narrow)
 
@@ -330,6 +458,7 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         sync()
         err = max_abs_err(got, want)
         ms = cuda_ms(ext_k, reps)
+        dms = device_ms(ext_k, reps, "fused_extend")
         pms = cuda_ms(ext_p, max(reps // 10, 2))
         nreg = sum(len(p) + len(n) for p, n in zip(pos, neg))
         # data-dependent work: two range searches per valid window row in
@@ -347,9 +476,207 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
                + P * sum(depth(max(int(r.n), 2)) for n in neg for r in n)
                + P * min(sum(depth(max(int(r.n), 2)) for r in p)
                          for p in pos))
-        record("fused_extend", err, ms, pms, nbytes, ops, None,
+        record("fused_extend", err, ms, dms, pms, nbytes, ops, None,
                f"{label} W={W} B'={Bp} bindings=2 regions={nreg}",
                main=narrow)
+    return results
+
+
+def kernel_phase_lex(tri: np.ndarray, quad: np.ndarray, edges: np.ndarray,
+                     update_batch: int, committed: int, reps: int,
+                     seed: int) -> dict:
+    """The composite (hi, lo) variants at the n-ary path's shapes.
+
+    ``tri``: the triangle relation of the tri serve cell (the live set of a
+    ternary relation); ``quad``: a 4-ary relation of 4-clique size, whose
+    3-column projection the composite fused extend searches, beside the
+    ``edges`` projection of the same plan level."""
+    import torch
+    from repro_torch.core import csr
+    from repro_torch.core.delta import _packed_index
+    from repro_torch.kernels.extend import ops as eops, ref as eref
+    from repro_torch.kernels.intersect import ops as iops, ref as iref
+    from repro_torch.kernels.merge import fold as mfold
+    from repro_torch.kernels.merge import ops as mops, ref as mref
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 7)
+    results = {}
+    record = recorder(results)
+    cc = csr.pow2_capacity(committed)
+
+    def rel_rows(rows, n):
+        return rows[rng.integers(0, rows.shape[0], n)]
+
+    def fresh_rows(rows, n):
+        nv = int(rows.max()) + 1
+        return rng.integers(0, nv, (n, rows.shape[1])).astype(np.int32)
+
+    def live(rows, narrow, cap=None):
+        """The live-set layout of a relation: key = all its columns."""
+        if not narrow:
+            return _packed_index(rows, dev, rows.shape[1], capacity=cap)
+        ar = rows.shape[1]
+        ext = np.concatenate([rows, np.zeros((rows.shape[0], 1), np.int32)],
+                             axis=1)
+        return csr.build_index(ext, tuple(range(ar)), ar, capacity=max(
+            int(cap or 0), csr.pow2_capacity(rows.shape[0])), narrow=True,
+            device=dev)
+
+    def pack_q(rows):
+        hi, lo = csr.pack_key(tuple(rows[:, c] for c in range(
+            rows.shape[1])))
+        return (torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev))
+
+    # -- signed membership, merge ranks, commit fold: the live set of the
+    # n-ary relation (wide hi, as the store keeps it: the main variant),
+    # the same rows with a narrow hi, and the 4-ary relation
+    for label, rows, narrow, main in (("tri i64", tri, False, True),
+                                      ("tri i32", tri, True, False),
+                                      ("quad i64", quad, False, False)):
+        base = live(rows, narrow)
+        ci = live(fresh_rows(rows, committed), narrow, cc)
+        cd = live(rel_rows(rows, committed // 3), narrow, cc)
+        ui = live(fresh_rows(rows, update_batch), narrow, update_batch)
+        ud = live(rel_rows(rows, update_batch // 4), narrow, update_batch)
+        kb = base.key.element_size()
+        # normalize: a batch of the tri epoch's size (its probe rung)
+        B = csr.pow2_capacity(8 * update_batch)
+        qrows = np.concatenate([rel_rows(rows, B // 2),
+                                fresh_rows(rows, B - B // 2)])
+        qk = pack_q(qrows)
+        if narrow:
+            qk = (qk[0].to(torch.int32), qk[1])
+        qv = torch.zeros(B, dtype=torch.int32, device=dev)
+        mregs, mnegs = [base, ci], [cd]
+
+        def mem_k():
+            return iops.signed_member(mregs, mnegs, qk, qv)
+
+        got, want = mem_k(), iref.signed_member_ref(mregs, mnegs, qk, qv)
+        sync()
+        err = max_abs_err(got, want)
+        ms = cuda_ms(mem_k, reps)
+        dms = device_ms(mem_k, reps, "signed_member_lex")
+        pms = cuda_ms(lambda: iref.signed_member_ref(mregs, mnegs, qk, qv),
+                      max(reps // 10, 2))
+        nbytes = B * (kb + 12) + 2 * 4 * B + sum(
+            search_bytes(r, B) for r in mregs + mnegs)
+        ops = B * sum(depth(max(int(r.n), 2)) for r in mregs + mnegs)
+        record("signed_member_lex", err, ms, dms, pms, nbytes, ops, None,
+               f"{label} B={B} regions=2+1 cap={base.capacity} "
+               f"n={int(base.n)}", main=main)
+
+        # -- merge ranks: compaction ranks every base entry against cdel
+        def rank_k():
+            return mops.rank_lt_le(cd.key, cd.val, cd.n, base.key, base.val,
+                                   lo=cd.lo, qlo=base.lo)
+
+        got = rank_k()
+        want = mref.rank_ref(cd.key, cd.val, cd.n,
+                             base.key.to(torch.int64), base.val, lo=cd.lo,
+                             qlo=base.lo)
+        sync()
+        err = max_abs_err(got, want)
+        rreps = max(reps // 10, 3)
+        ms = cuda_ms(rank_k, rreps)
+        dms = device_ms(rank_k, rreps, "rank_lt_le_lex")
+        pms = cuda_ms(lambda: mref.rank_ref(
+            cd.key, cd.val, cd.n, base.key.to(torch.int64), base.val,
+            lo=cd.lo, qlo=base.lo), 2)
+        Bq = base.capacity
+        nbytes = Bq * (kb + 12) + 2 * 4 * Bq + search_bytes(cd, 2 * Bq)
+        ops = 2 * Bq * depth(max(int(cd.n), 2))
+        record("rank_lt_le_lex", err, ms, dms, pms, nbytes, ops, None,
+               f"{label} B={Bq} cap={cd.capacity} n={int(cd.n)}", main=main)
+
+        # -- commit fold of the live set
+        lt, le = csr.index_ranks(base, csr._qcols_of(ud), ud.val, plain=True)
+        in_ba = (le > lt).to(torch.int32)
+
+        def fold_k():
+            return mfold.commit_fold(ci, cd, ui, ud, in_ba, cins_cap=cc,
+                                     cdel_cap=cc)
+
+        def fold_p():
+            return mfold._commit_fold_ref(ci, cd, ui, ud, in_ba, cc, cc)
+
+        got, want = fold_k(), fold_p()
+        sync()
+        err = max_abs_err(got, want)
+        ms = cuda_ms(fold_k, reps)
+        dms = device_ms(fold_k, reps, "commit_fold_lex")
+        pms = cuda_ms(fold_p, max(reps // 10, 2))
+        n4 = [int(r.n) for r in (ci, cd, ui, ud)]
+        nbytes = sum(n * entry_bytes(r) + 4 for n, r in
+                     zip(n4, (ci, cd, ui, ud))) + 4 * n4[3] \
+            + 2 * cc * entry_bytes(ci) + 8
+        ops = sum(n4) * 3 * depth(cc)
+        record("commit_fold_lex", err, ms, dms, pms, nbytes, ops, None,
+               f"{label} caps={ci.capacity}/{cd.capacity}/{ui.capacity}/"
+               f"{ud.capacity} out={cc}", main=main)
+
+    # -- fused extend: one level of a quad-seeded 5-clique-quad delta plan,
+    # a composite binding over the quad relation's 3-column projection
+    # beside a 1-word binding over the edge projection ([[3, 1]])
+    def qproj(rows, narrow, cap=None):
+        return csr.build_index(rows, (0, 1, 2), 3, capacity=cap,
+                               narrow=narrow, device=dev)
+
+    def eproj(rows, cap=None):
+        return csr.build_index(rows, (0,), 1, capacity=cap, narrow=True,
+                               device=dev)
+
+    Bp = W = 8192
+    seeds = rel_rows(quad, update_batch + update_batch // 4)
+    nseed = min(seeds.shape[0], W)
+    window = np.zeros((W, 4), np.int32)
+    window[:nseed] = seeds[:nseed]
+    wk = torch.zeros(W, dtype=torch.int32, device=dev)
+    valid = torch.arange(W, device=dev) < nseed
+    e_pos = (eproj(edges, csr.pow2_capacity(edges.shape[0])),
+             eproj(fresh_rows(edges, committed), cc))
+    e_neg = (eproj(rel_rows(edges, committed // 3), cc),)
+    for label, narrow, main in (("i32", True, True), ("i64", False, False)):
+        q_pos = (qproj(quad, narrow, csr.pow2_capacity(quad.shape[0])),
+                 qproj(fresh_rows(quad, committed), narrow, cc),
+                 qproj(fresh_rows(quad, update_batch), narrow, update_batch))
+        q_neg = (qproj(rel_rows(quad, committed // 3), narrow, cc),
+                 qproj(rel_rows(quad, update_batch // 4), narrow,
+                       update_batch))
+        pos, neg = [q_pos, e_pos], [q_neg, e_neg]
+        qh, ql = pack_q(window[:, :3])
+        qks = [(qh.to(torch.int32) if narrow else qh, ql),
+               torch.from_numpy(window[:, 3].copy()).to(dev)]
+
+        def ext_k():
+            return eops.fused_extend(pos, neg, qks, wk, valid, Bp)
+
+        def ext_p():
+            return eref.fused_extend_ref(pos, neg, qks, wk, valid, Bp)
+
+        got, want = ext_k(), ext_p()
+        sync()
+        err = max_abs_err(got, want)
+        ms = cuda_ms(ext_k, reps)
+        dms = device_ms(ext_k, reps, "fused_extend_lex")
+        pms = cuda_ms(ext_p, max(reps // 10, 2))
+        P = int(got[5][0])
+        nreg = sum(len(p) + len(n) for p, n in zip(pos, neg))
+        nbytes = (W * (qks[0][0].element_size() + 8 + 4 + 8) + Bp * 12
+                  + W * 8 + 8 + 4 * P
+                  + sum(search_bytes(r, 2 * nseed) for p in pos for r in p)
+                  + sum(search_bytes(r, P) for n in neg for r in n)
+                  + min(sum(search_bytes(r, P) for r in p) for p in pos))
+        ops = (2 * nseed * sum(depth(max(int(r.n), 2))
+                               for p in pos for r in p)
+               + P * sum(depth(max(int(r.n), 2)) for n in neg for r in n)
+               + P * min(sum(depth(max(int(r.n), 2)) for r in p)
+                         for p in pos))
+        record("fused_extend_lex", err, ms, dms, pms, nbytes, ops, None,
+               f"{label} W={W} B'={Bp} bindings=3-col+1-col "
+               f"regions={nreg} quad n={int(q_pos[0].n)} proposals={P}",
+               main=main)
     return results
 
 
@@ -357,10 +684,9 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
 # phases 4/5: the streaming session
 # ---------------------------------------------------------------------------
 
-def run_stream(session, handles, stream, live, epochs, check=None,
-               label=None):
-    """Drive ``epochs`` update epochs; returns (live, per-epoch seconds).
-    With a ``label`` every epoch's time and delta sizes are logged."""
+def run_stream(session, stream, live, epochs, label):
+    """Drive ``epochs`` edge update epochs, logging each epoch's time and
+    delta sizes; returns (live, per-epoch seconds)."""
     secs = []
     for epoch in range(epochs):
         upd, w = stream.batch_at(epoch, live)
@@ -369,69 +695,12 @@ def run_stream(session, handles, stream, live, epochs, check=None,
         res = session.update(upd, w)
         sync()
         secs.append(time.time() - t)
-        if label:
-            rows = {n: 0 if d.tuples is None else int(d.tuples.shape[0])
-                    for n, d in res.deltas.items()}
-            log(f"  {label} epoch {epoch}: {secs[-1] * 1e3:.1f} ms, "
-                f"delta rows {rows}")
-        new = res.advance(live)
-        if check is not None:
-            check(epoch, res, live, new)
-        live = new
+        rows = {n: 0 if d.tuples is None else int(d.tuples.shape[0])
+                for n, d in res.deltas.items()}
+        log(f"  {label} epoch {epoch}: {secs[-1] * 1e3:.1f} ms, "
+            f"delta rows {rows}")
+        live = res.advance(live)
     return live, secs
-
-
-def verify_phase(scale: int, names, epochs: int, update_batch: int,
-                 seed: int):
-    from repro_torch import kernels
-    from repro_torch.api import GraphSession
-    from repro_torch.core.delta import _unique_rows, canon_arrays, rows_isin
-    from repro_torch.core.generic_join import generic_join
-    from repro_torch.data.synthetic import EdgeUpdateStream, rmat_graph
-
-    edges = rmat_graph(scale, 16, seed=seed)
-    ratio = 0.5 * update_batch / edges.shape[0]
-    session = GraphSession(edges, device=DEVICE, update_batch=update_batch,
-                           compact_ratio=ratio)
-    handles = {n: session.register(n) for n in names}
-
-    def full(q, e):
-        return _unique_rows(generic_join(q, {"edge": e})[0])
-
-    prev = {n: full(h.query, edges) for n, h in handles.items()}
-
-    def check(epoch, res, live, new):
-        for n, h in handles.items():
-            cur = full(h.query, new)
-            added = cur[~rows_isin(cur, prev[n])]
-            removed = prev[n][~rows_isin(prev[n], cur)]
-            t = np.concatenate([added, removed])
-            w = np.concatenate([np.ones(added.shape[0], np.int32),
-                                -np.ones(removed.shape[0], np.int32)])
-            m = h.query.num_attrs
-            want = canon_arrays(t, w, m)
-            d = res.deltas[n]
-            got = canon_arrays(d.tuples, d.weights, m)
-            if not (np.array_equal(got[0], want[0])
-                    and np.array_equal(got[1], want[1])):
-                raise AssertionError(f"verify: epoch {epoch} {n} delta "
-                                     f"differs from the oracle")
-            prev[n] = cur
-            log(f"  verify epoch {epoch} {n}: {want[0].shape[0]} delta rows "
-                f"== oracle")
-
-    kernels.reset_launches()
-    stream = EdgeUpdateStream(1 << scale, update_batch, seed=seed + 1)
-    live, _ = run_stream(session, handles, stream, edges, epochs, check)
-    counts = kernels.launches()
-    if not np.array_equal(session.edges, live):
-        raise AssertionError("verify: live edge set differs")
-    if session.stats.compactions == 0:
-        raise AssertionError("verify: no compaction ran")
-    log(f"  verify: |E|={edges.shape[0]} epochs={epochs} "
-        f"compactions={session.stats.compactions} launches={counts}")
-    if min(counts.values()) == 0:
-        raise AssertionError(f"verify: a kernel never launched: {counts}")
 
 
 def serve_phase(edges, nv, queries, epochs, update_batch, ratio, seed):
@@ -449,15 +718,19 @@ def serve_phase(edges, nv, queries, epochs, update_batch, ratio, seed):
         f"{time.time() - t:.2f} s")
     stream = EdgeUpdateStream(nv, update_batch, seed=seed + 2)
     kernels.reset_launches()
-    live, secs = run_stream(session, handles, stream, edges, epochs,
-                            label=f"serve {edges.shape[0]} edges")
+    live, secs = run_stream(session, stream, edges, epochs,
+                            f"serve {edges.shape[0]} edges")
     counts = kernels.launches()
     n_live = session.num_edges
     if n_live != live.shape[0]:
         raise AssertionError(f"serve: live edges {n_live} != host-tracked "
                              f"{live.shape[0]}")
-    if min(counts.values()) == 0:
-        raise AssertionError(f"serve: a kernel never launched: {counts}")
+    require_launches("serve", counts, expected_kernels(handles, ()))
+    upd, w = stream.batch_at(epochs, live)
+    wall, busy, idle, rec, exp = idle_share(lambda: session.update(upd, w))
+    log(f"  serve: profiled warm epoch {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms, idle share {idle} ({rec} of {exp} kernel "
+        f"launches recorded)")
     warm = np.asarray(secs[1:]) * 1e3
     out = dict(
         epochs=epochs, edges=int(edges.shape[0]), live_edges=int(n_live),
@@ -468,10 +741,311 @@ def serve_phase(edges, nv, queries, epochs, update_batch, ratio, seed):
         compactions=session.stats.compactions,
         live_compactions=session.stats.live_compactions,
         escalations=session.stats.escalations, launches=counts,
+        profiled_epoch_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+        idle_share=idle, profiled_launches_recorded=[rec, exp],
         delta_rows={n: int(h.last_delta.tuples.shape[0]
                            if h.last_delta.tuples is not None else 0)
                     for n, h in handles.items()})
     log("  serve: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the n-ary path: a relation materialised from one query, fed its deltas
+# ---------------------------------------------------------------------------
+
+FEEDS = {"tri": "triangle", "quad": "4-clique"}  # relation <- its feeder
+PATTERNS = {"5-clique-quad": "5-clique-quad(a,b,c,d,e) := quad(a,b,c,d), "
+                             "quad(a,b,c,e), e(d,e)"}
+TWINS = {"4-clique-tri": "4-clique", "5-clique-quad": "5-clique"}
+
+
+def query_of(name: str):
+    from repro_torch.api import parse_pattern, query_by_name
+    return parse_pattern(PATTERNS[name]) if name in PATTERNS \
+        else query_by_name(name)
+
+
+def nary_relations(names):
+    """The non-edge relations the named queries read, in first-use order."""
+    rels = []
+    for n in names:
+        for atom in query_of(n).atoms:
+            if atom.rel != "edge" and atom.rel not in rels:
+                rels.append(atom.rel)
+    return rels
+
+
+def expected_kernels(handles, rels):
+    """The launch names a path must show: the four 1-word kernels; with an
+    n-ary relation its composite normalize, commit fold and ranks; and the
+    composite fused extend where a delta plan binds 3-4 columns."""
+    from repro_torch.kernels import KERNELS
+    names = list(KERNELS)
+    if rels:
+        names += ["signed_member_lex", "rank_lt_le_lex", "commit_fold_lex"]
+    if any(len(b.key_attrs) >= 3 for h in handles.values()
+           for plan in h.engine.plans for lv in plan.levels
+           for b in lv.bindings):
+        names.append("fused_extend_lex")
+    return names
+
+
+def require_launches(label, counts, names):
+    idle = [n for n in names if counts.get(n, 0) == 0]
+    if idle:
+        raise AssertionError(f"{label}: kernels never launched: {idle} "
+                             f"({counts})")
+
+
+def open_nary_session(edges, names, update_batch, ratio):
+    """A session with the edge queries, each n-ary relation materialised
+    on the card from its feeding query, then the n-ary queries.  Returns
+    (session, handles, relations, initial rows, build seconds)."""
+    from repro_torch.api import GraphSession
+    from repro_torch.core.delta import _unique_rows
+    session = GraphSession(edges, device=DEVICE, update_batch=update_batch,
+                           compact_ratio=ratio)
+    rels = nary_relations(names)
+    handles = {}
+    for n in names:
+        if not nary_relations([n]):
+            handles[n] = session.register(n)
+    rows0, build = {}, {}
+    for rel in rels:
+        feeder = FEEDS[rel]
+        if feeder not in handles:
+            handles[feeder] = session.register(feeder)
+        sync()
+        t = time.time()
+        rows, _ = handles[feeder].enumerate()
+        sync()
+        build[rel] = time.time() - t
+        rows0[rel] = _unique_rows(rows)
+        session.add_relation(rel, rows0[rel])
+        log(f"  {rel}: {rows0[rel].shape[0]} tuples from {feeder} in "
+            f"{build[rel]:.2f} s on the card")
+    for n in names:
+        if nary_relations([n]):
+            handles[n] = session.register(query_of(n), name=n)
+    return session, handles, rels, rows0, build
+
+
+def feed_of(delta, arity):
+    if delta.tuples is None:
+        return np.zeros((0, arity), np.int32), np.zeros(0, np.int32)
+    return delta.tuples, delta.weights
+
+
+def nary_epoch(session, rels, upd, w):
+    """One logical epoch: the edge batch, then each relation fed its
+    feeder's delta.  Returns (edge result, relation result or None without
+    relations, seconds of each)."""
+    sync()
+    t = time.time()
+    r1 = session.update(upd, w)
+    sync()
+    t1 = time.time()
+    if not rels:
+        return r1, None, t1 - t, 0.0
+    feeds = {rel: feed_of(r1.deltas[FEEDS[rel]], session.store.arity_of(rel))
+             for rel in rels}
+    r2 = session.update(feeds)
+    sync()
+    return r1, r2, t1 - t, time.time() - t1
+
+
+def apply_signed(rows, tuples, weights):
+    """A host relation advanced by one signed delta, netted per row first
+    (a row may come and go within one delta)."""
+    from repro_torch.core.delta import _unique_rows, canon_arrays, rows_isin
+    if tuples is None or tuples.size == 0:
+        return rows
+    tuples, net = canon_arrays(tuples, weights, rows.shape[1])
+    add = tuples[net > 0]
+    rem = tuples[net < 0]
+    kept = rows[~rows_isin(rows, rem)] if rem.size else rows
+    return _unique_rows(np.concatenate([kept, add])) if add.size else kept
+
+
+def joined(m, *deltas):
+    """Canonical signed union of several deltas of one query."""
+    from repro_torch.core.delta import canon_arrays
+    t = [d.tuples for d in deltas if d.tuples is not None]
+    w = [d.weights for d in deltas if d.weights is not None]
+    if not t:
+        return canon_arrays(None, None, m)
+    return canon_arrays(np.concatenate(t), np.concatenate(w), m)
+
+
+def verify_phase(scale: int, names, epochs: int, update_batch: int,
+                 seed: int):
+    """Every epoch: each query's delta (edge epoch + relation epoch) equal
+    to the full-recomputation oracle, each n-ary query's equal to its
+    edge-only twin's, and each relation's rows equal to the host-tracked
+    set; the live edges equal the host-tracked set, compaction runs, and
+    every n-ary relation compacts at least twice."""
+    from repro_torch import kernels
+    from repro_torch.core.delta import _unique_rows, canon_arrays, rows_isin
+    from repro_torch.core.generic_join import generic_join
+    from repro_torch.data.synthetic import EdgeUpdateStream, rmat_graph
+
+    edges = rmat_graph(scale, 16, seed=seed)
+    ratio = 0.5 * update_batch / edges.shape[0]
+    session, handles, rels, host, _ = open_nary_session(
+        edges, names, update_batch, ratio)
+
+    def relations(q, live):
+        return {a.rel: live if a.rel == "edge" else host[a.rel]
+                for a in q.atoms}
+
+    def full(q, live):
+        return _unique_rows(generic_join(q, relations(q, live))[0])
+
+    prev = {n: full(h.query, edges) for n, h in handles.items()}
+    compactions = {rel: 0 for rel in rels}
+    kernels.reset_launches()
+    stream = EdgeUpdateStream(1 << scale, update_batch, seed=seed + 1)
+    live = edges
+    for epoch in range(epochs):
+        upd, w = stream.batch_at(epoch, live)
+        r1, r2, _, _ = nary_epoch(session, rels, upd, w)
+        new = r1.advance(live)
+        for rel in rels:
+            d = r1.deltas[FEEDS[rel]]
+            host[rel] = apply_signed(host[rel], d.tuples, d.weights)
+            st = session.store._rels[rel]
+            if r2.by_rel[rel][0].size + r2.by_rel[rel][1].size and \
+                    st.n_live[1] == st.n_live[2] == 0:
+                compactions[rel] += 1
+        got = {}
+        for n, h in handles.items():
+            cur = full(h.query, new)
+            added = cur[~rows_isin(cur, prev[n])]
+            removed = prev[n][~rows_isin(prev[n], cur)]
+            m = h.query.num_attrs
+            want = canon_arrays(
+                np.concatenate([added, removed]),
+                np.concatenate([np.ones(added.shape[0], np.int32),
+                                -np.ones(removed.shape[0], np.int32)]), m)
+            got[n] = joined(m, r1.deltas[n],
+                            *(() if r2 is None else (r2.deltas[n],)))
+            if not (np.array_equal(got[n][0], want[0])
+                    and np.array_equal(got[n][1], want[1])):
+                raise AssertionError(f"verify: epoch {epoch} {n} delta "
+                                     f"differs from the oracle")
+            prev[n] = cur
+            log(f"  verify epoch {epoch} {n}: {want[0].shape[0]} delta rows "
+                f"== oracle")
+        for n, twin in TWINS.items():
+            if n in got and twin in got:
+                if not (np.array_equal(got[n][0], got[twin][0])
+                        and np.array_equal(got[n][1], got[twin][1])):
+                    raise AssertionError(f"verify: epoch {epoch} {n} != "
+                                         f"{twin}")
+                log(f"  verify epoch {epoch} {n} == {twin}")
+        for rel in rels:
+            if not np.array_equal(session.relation(rel), host[rel]):
+                raise AssertionError(f"verify: epoch {epoch} relation "
+                                     f"{rel} differs from the host set")
+        live = new
+    counts = kernels.launches()
+    if not np.array_equal(session.edges, live):
+        raise AssertionError("verify: live edge set differs")
+    if session.stats.compactions == 0:
+        raise AssertionError("verify: no compaction ran")
+    log(f"  verify: |E|={edges.shape[0]} epochs={epochs} "
+        f"compactions={session.stats.compactions} relations="
+        f"{ {rel: host[rel].shape[0] for rel in rels} } relation "
+        f"compactions={compactions} launches={counts}")
+    thin = [rel for rel, c in compactions.items() if c < 2]
+    if thin:
+        raise AssertionError(f"verify: {thin} compacted fewer than twice")
+    require_launches("verify", counts, expected_kernels(handles, rels))
+    return counts
+
+
+def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed):
+    """The n-ary path at a realistic state size: warm latency of the edge
+    epoch and of the relation epoch apart, the relation's build time on
+    the card, peak device memory, launches, and one profiled epoch."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import EdgeUpdateStream
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    session, handles, rels, host, build = open_nary_session(
+        edges, names, update_batch, ratio)
+    log(f"  serve: n-ary session over |E|={edges.shape[0]} built in "
+        f"{time.time() - t:.2f} s")
+    stream = EdgeUpdateStream(nv, update_batch, seed=seed + 2)
+    kernels.reset_launches()
+    live = edges
+    e_secs, r_secs = [], []
+    for epoch in range(epochs):
+        upd, w = stream.batch_at(epoch, live)
+        r1, r2, te, tr = nary_epoch(session, rels, upd, w)
+        e_secs.append(te)
+        r_secs.append(tr)
+        live = r1.advance(live)
+        sizes = {}
+        for rel in rels:
+            d = r1.deltas[FEEDS[rel]]
+            host[rel] = apply_signed(host[rel], d.tuples, d.weights)
+            sizes[rel] = session.num_tuples(rel)
+            if sizes[rel] != host[rel].shape[0]:
+                raise AssertionError(
+                    f"serve: {rel} holds {sizes[rel]} tuples, the host set "
+                    f"{host[rel].shape[0]}")
+        rows = {n: sum(0 if d.tuples is None else int(d.tuples.shape[0])
+                       for d in (r1.deltas[n], r2.deltas[n]))
+                for n in handles}
+        log(f"  serve n-ary epoch {epoch}: edge {te * 1e3:.1f} ms, "
+            f"{'+'.join(rels)} {tr * 1e3:.1f} ms, sizes {sizes} == host, "
+            f"delta rows {rows}")
+    counts = kernels.launches()
+    if session.num_edges != live.shape[0]:
+        raise AssertionError("serve: live edge count differs")
+    expected = expected_kernels(handles, rels)
+    require_launches("serve", counts, expected)
+    upd, w = stream.batch_at(epochs, live)
+    held = {}
+    e_prof = idle_share(lambda: held.update(r1=session.update(upd, w)))
+    d = held["r1"].deltas
+    feeds = {rel: feed_of(d[FEEDS[rel]], session.store.arity_of(rel))
+             for rel in rels}
+    r_prof = idle_share(lambda: session.update(feeds))
+    for tag, (wall, busy, idle, rec, exp) in (("edge", e_prof),
+                                              ("relation", r_prof)):
+        log(f"  serve: profiled warm {tag} epoch {wall * 1e3:.1f} ms, "
+            f"device busy {busy * 1e3:.1f} ms, idle share {idle} ({rec} of "
+            f"{exp} kernel launches recorded)")
+    ew, rw = np.asarray(e_secs[1:]) * 1e3, np.asarray(r_secs[1:]) * 1e3
+    out = dict(
+        epochs=epochs, edges=int(edges.shape[0]),
+        relations={rel: int(session.num_tuples(rel)) for rel in rels},
+        relation_build_s=build,
+        first_edge_epoch_ms=e_secs[0] * 1e3,
+        first_relation_epoch_ms=r_secs[0] * 1e3,
+        edge_warm_p50_ms=float(np.percentile(ew, 50)),
+        edge_warm_p99_ms=float(np.percentile(ew, 99)),
+        relation_warm_p50_ms=float(np.percentile(rw, 50)),
+        relation_warm_p99_ms=float(np.percentile(rw, 99)),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        compactions=session.stats.compactions,
+        live_compactions=session.stats.live_compactions,
+        escalations=session.stats.escalations, launches=counts,
+        expected_kernels=expected,
+        idle_share={"edge": e_prof[2], "relation": r_prof[2]},
+        profiled_ms={"edge": e_prof[0] * 1e3, "relation": r_prof[0] * 1e3},
+        device_busy_ms={"edge": e_prof[1] * 1e3,
+                        "relation": r_prof[1] * 1e3},
+        profiled_launches_recorded={"edge": e_prof[3:], "relation":
+                                    r_prof[3:]})
+    log("  serve: " + json.dumps(out))
+    if max(r_secs[1:]) > 15.0:
+        log("  serve: a relation epoch exceeded 15 s")
     return out
 
 
@@ -488,41 +1062,81 @@ SOURCES = {
 
 
 def parse_cell(text: str):
-    """``SCALE:query,query[@EPOCHS]`` -> (scale, [queries], epochs or
-    None for the phase's default)."""
-    cell, _, epochs = text.partition("@")
+    """``SCALE:query,query[@EPOCHS[/BATCH]]`` -> (scale, [queries], epochs
+    or None for the phase's default, update batch or None for
+    ``--update-batch``)."""
+    cell, _, depth_ = text.partition("@")
     scale, queries = cell.split(":")
-    return int(scale), queries.split(","), int(epochs) if epochs else None
+    epochs, _, batch = depth_.partition("/")
+    return (int(scale), queries.split(","), int(epochs) if epochs else None,
+            int(batch) if batch else None)
+
+
+def random_relation(n: int, arity: int, nv: int, seed: int) -> np.ndarray:
+    """``n`` random distinct rows of ``arity`` ids below ``nv`` (sorted)."""
+    from repro_torch.core.delta import _unique_rows
+    rng = np.random.default_rng(seed + 11)
+    rows = _unique_rows(rng.integers(0, nv, (n, arity)).astype(np.int32))
+    while rows.shape[0] < n:  # top up the few collisions
+        more = rng.integers(0, nv, (n - rows.shape[0], arity))
+        rows = _unique_rows(np.concatenate([rows, more.astype(np.int32)]))
+    return rows
+
+
+def relation_rows_on_card(edges, feeder: str) -> np.ndarray:
+    """The relation a feeding query materialises over ``edges``,
+    enumerated by the port on the card (with B' = 8192 and room for 2^24
+    rows: the AGM sizing's B' = 1024 and 2^22 rows make the scale-14
+    triangles a 70 s build with one escalation)."""
+    from repro_torch.api import GraphSession
+    from repro_torch.core.delta import _unique_rows
+    session = GraphSession(edges, device=DEVICE, batch=8192,
+                           out_capacity=1 << 24)
+    rows, _ = session.register(feeder).enumerate()
+    return _unique_rows(rows)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", action="append", type=parse_cell,
-                    help="a serve cell SCALE:query,query[@EPOCHS] "
+                    help="a serve cell SCALE:query,query[@EPOCHS[/BATCH]] "
                     "(repeatable, 20 epochs unless given); default "
-                    "16:triangle,diamond@10 and 20:triangle@20")
+                    "16:triangle,diamond@6, 20:triangle@20 and "
+                    "14:triangle,4-clique-tri@7")
     ap.add_argument("--verify", action="append", type=parse_cell,
-                    help="a verify cell SCALE:query,query[@EPOCHS] "
+                    help="a verify cell SCALE:query,query[@EPOCHS[/BATCH]] "
                     "(repeatable, 8 epochs unless given); default "
-                    "9:triangle,diamond@8 and 14:triangle@8")
+                    "9:triangle,diamond@8, 14:triangle@6, "
+                    "9:triangle,4-clique,4-clique-tri@8 and "
+                    "8:4-clique,5-clique,5-clique-quad@8/64")
     ap.add_argument("--update-batch", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tri-scale", type=int, default=14,
+                    help="R-MAT scale whose triangles are the composite "
+                    "kernels' ternary relation")
+    ap.add_argument("--quad-rows", type=int, default=14_599_324,
+                    help="rows of the composite kernels' 4-ary relation "
+                    "(the 4-clique count of R-MAT scale 12)")
     args = ap.parse_args()
-    # diamond's epochs at scale 16 take seconds each on the host-bound
-    # BiGJoin loop, so that cell runs fewer of them to keep the whole
-    # script near half its time limit
-    cells = args.serve or [(16, ["triangle", "diamond"], 10),
-                           (20, ["triangle"], 20)]
-    checks = args.verify or [(9, ["triangle", "diamond"], 8),
-                             (14, ["triangle"], 8)]
+    # diamond's epochs at scale 16 take 9-20 s each on the host-bound
+    # BiGJoin loop and the triangle oracle at scale 14 seconds per epoch,
+    # so those cells run fewer epochs to keep the whole script well inside
+    # its time limit on a slow host
+    cells = args.serve or [(16, ["triangle", "diamond"], 6, None),
+                           (20, ["triangle"], 20, None),
+                           (14, ["triangle", "4-clique-tri"], 7, None)]
+    checks = args.verify or [
+        (9, ["triangle", "diamond"], 8, None), (14, ["triangle"], 6, None),
+        (9, ["triangle", "4-clique", "4-clique-tri"], 8, None),
+        (8, ["4-clique", "5-clique", "5-clique-quad"], 8, 64)]
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.kernels import VARIANTS, _build
     from repro_torch.data.synthetic import rmat_graph
 
     with phase("device"):
@@ -550,30 +1164,50 @@ def main() -> int:
         top = max(graphs)
         table = kernel_phase(graphs[top], 1 << top, args.update_batch,
                              16 * args.update_batch, args.reps, args.seed)
+        tri_edges = graphs.get(args.tri_scale)
+        if tri_edges is None:
+            tri_edges = rmat_graph(args.tri_scale, 16, seed=args.seed)
+        tri = relation_rows_on_card(tri_edges, "triangle")
+        quad = random_relation(args.quad_rows, 4, 1 << 12, args.seed)
+        log(f"  composite: tri of scale {args.tri_scale} = {tri.shape[0]} "
+            f"rows, random quad rows = {quad.shape[0]}")
+        table.update(kernel_phase_lex(
+            tri, quad, rmat_graph(12, 16, seed=args.seed),
+            args.update_batch, 16 * args.update_batch, args.reps,
+            args.seed))
+        del tri, quad
 
-    for scale, queries, epochs in checks:
+    # every session run below starts its kernel counts at 0 and reads them
+    # after; the table's launches sum them over all these runs
+    launches = {name: 0 for name in VARIANTS}
+    for scale, queries, epochs, batch in checks:
         with phase(f"verify {scale}:{','.join(queries)}"):
-            verify_phase(scale, queries, epochs or 8, args.update_batch,
-                         args.seed)
+            counts = verify_phase(scale, queries, epochs or 8,
+                                  batch or args.update_batch, args.seed)
+            for name in VARIANTS:
+                launches[name] += counts[name]
 
-    launches = {name: 0 for name in KERNELS}
-    for scale, queries, epochs in cells:
+    for scale, queries, epochs, batch in cells:
         with phase(f"serve {scale}:{','.join(queries)}"):
             edges = graphs[scale]
-            ratio = 8 * args.update_batch / edges.shape[0]
-            serve = serve_phase(edges, 1 << scale, queries, epochs or 20,
-                                args.update_batch, ratio, args.seed)
-            for name in KERNELS:
+            ub = batch or args.update_batch
+            ratio = 8 * ub / edges.shape[0]
+            run = serve_nary_phase if nary_relations(queries) \
+                else serve_phase
+            serve = run(edges, 1 << scale, queries, epochs or 20, ub, ratio,
+                        args.seed)
+            for name in VARIANTS:
                 launches[name] += serve["launches"][name]
 
     rows = []
-    for name in KERNELS:
+    for name in VARIANTS:
         r = table[name]
-        src, replaces = SOURCES[name]
+        src, replaces = SOURCES[name.removesuffix("_lex")]
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=int(launches[name]),
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"]))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,7 +1,8 @@
 """GraphSession: one graph, many standing queries, one commit per epoch.
 
-The public entry point of the port: a session owns the dynamic edge graph —
-one device-resident :class:`~repro_torch.core.delta.RegionStore` holding
+The public entry point of the port: a session owns the dynamic graph — one
+device-resident :class:`~repro_torch.core.delta.RegionStore` holding the
+edge relation, any n-ary relations added with :meth:`add_relation`, and
 every multi-version index projection — and queries register against it.
 ``session.update`` runs ONE normalize → dAQ_1..dAQ_n for every registered
 query → ONE commit per epoch off the shared regions.
@@ -59,7 +60,11 @@ def auto_sizing(query: Query, num_edges: int,
 @dataclasses.dataclass
 class EpochResult:
     """What one ``session.update`` produced: the normalized batch and each
-    registered query's signed output delta (keyed by handle name)."""
+    registered query's signed output delta (keyed by handle name).
+
+    ``ins`` / ``dels`` are the edge relation's normalized rows (empty when
+    the epoch touched other relations only); ``by_rel`` carries every
+    relation's normalized ``(ins, dels)`` pair."""
 
     epoch: int
     ins: np.ndarray
@@ -195,17 +200,33 @@ class GraphSession:
                     f"query name {name!r} already registered with a "
                     "different pattern")
             return self.handles[name]
+        # declare any relation the query reads that the store does not hold
+        # yet (created empty; add_relation() seeds it), so
+        # ``update({"tri": ...})`` works right after registration
         for atom in q.atoms:
-            if atom.rel != EDGE:
-                raise NotImplementedError(
-                    f"relation {atom.rel!r}: only the edge relation is "
-                    "ported")
+            if atom.rel not in self.store.relations:
+                self.store.add_relation(
+                    atom.rel, np.zeros((0, atom.arity), np.int32))
         handle = QueryHandle(self, name, q, batch, out_capacity)
         self.handles[name] = handle
         return handle
 
     def __getitem__(self, name: str) -> QueryHandle:
         return self.handles[name]
+
+    def add_relation(self, rel: str, rows: np.ndarray,
+                     arity: Optional[int] = None):
+        """Register one more dynamic relation (e.g. a materialized ``tri``
+        relation) with its initial tuples; later ``update`` batches may
+        then address it by name."""
+        self.store.add_relation(rel, rows, arity=arity)
+
+    def relation(self, rel: str) -> np.ndarray:
+        """One relation's live tuples (host view)."""
+        return self.store.relation_rows(rel)
+
+    def num_tuples(self, rel: str) -> int:
+        return self.store.num_tuples(rel)
 
     def _sizing(self, q: Query, batch, out_capacity) -> Sizing:
         # the AGM inputs ride a ratchet so |E| jitter cannot flap the
@@ -239,8 +260,10 @@ class GraphSession:
                ) -> EpochResult:
         """Apply one update batch to the graph and every standing query:
         ONE normalize, each registered query's dAQ pipeline off the shared
-        regions, ONE commit.  Transactional: any failure between staging
-        and commit rolls the store back and re-raises."""
+        regions, ONE commit.  ``updates`` is an [N, 2] edge array (with
+        optional ``weights``) or a per-relation dict ``{"edge": (rows, w),
+        "tri": (rows, w), ...}``.  Transactional: any failure between
+        staging and commit rolls the store back and re-raises."""
         if prepared is None:
             prepared = self.store.prepare(updates, weights)
         elif updates is not None or weights is not None:

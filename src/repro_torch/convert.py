@@ -4,9 +4,9 @@ port's :class:`IndexData` / :class:`VersionedIndex` on the device the
 caller names (``device`` is required: a conversion never picks one).
 
 Duck-typed: anything with ``key``/``val``/``n`` attributes (and an optional
-``lo`` that must be None — composite keys are not ported) converts, so the
-parity tests can feed both packages identical regions without this module
-importing either framework's other package.
+composite ``lo`` word) converts, so the parity tests can feed both packages
+identical regions without this module importing either framework's other
+package.
 """
 from __future__ import annotations
 
@@ -19,21 +19,24 @@ from repro_torch.core.dataflow_index import VersionedIndex
 
 def to_index(key, val, n, lo=None, *, device) -> IndexData:
     """One region from host arrays: key [cap] int32|int64, val [cap]
-    int32, n scalar live count."""
-    if lo is not None:
-        raise NotImplementedError("composite (hi, lo) keys are not ported")
+    int32, n scalar live count, lo [cap] int64 (composite keys) or None."""
     key = np.ascontiguousarray(np.asarray(key))
     if key.dtype not in (np.int32, np.int64):
         raise TypeError(f"unsupported key dtype {key.dtype}")
     val = np.ascontiguousarray(np.asarray(val, np.int32))
     n = int(np.asarray(n))
+    if lo is not None:
+        lo = np.asarray(lo)
+        if lo.dtype != np.int64 or lo.shape != key.shape:
+            raise TypeError("a composite lo word is int64 shaped like key")
+        lo = torch.from_numpy(lo.copy()).to(device)
     return IndexData(torch.from_numpy(key.copy()).to(device),
                      torch.from_numpy(val.copy()).to(device),
-                     torch.tensor(n, dtype=torch.int32, device=device))
+                     torch.tensor(n, dtype=torch.int32, device=device), lo)
 
 
 def index_of(region, *, device) -> IndexData:
-    """A region object with ``key``/``val``/``n`` (``lo`` None)."""
+    """A region object with ``key``/``val``/``n`` and optionally ``lo``."""
     return to_index(np.asarray(region.key), np.asarray(region.val),
                     np.asarray(region.n),
                     None if getattr(region, "lo", None) is None
@@ -47,6 +50,7 @@ def versioned_of(vi, *, device) -> VersionedIndex:
 
 
 def to_numpy(idx: IndexData):
-    """(key, val, n) of a port region as host arrays."""
+    """(key, val, n) of a port region as host arrays (a composite region's
+    lo word is ``idx.lo``)."""
     return (idx.key.cpu().numpy(), idx.val.cpu().numpy(),
             np.int32(int(idx.n)))

@@ -95,9 +95,13 @@ def make_state(plan: Plan, cfg: BigJoinConfig, device,
 # ---------------------------------------------------------------------------
 
 def _pack_cols(prefix: torch.Tensor, positions: Sequence[int], dtype):
-    """Pack prefix columns into a probe key (``csr.pack_key``), cast to the
-    index key dtype."""
-    return csr.pack_key(tuple(prefix[:, p] for p in positions)).to(dtype)
+    """Pack prefix columns into a probe key (``csr.pack_key``): one tensor
+    cast to the index key dtype, or the (hi, lo) int64 pair for 3-4 bound
+    columns (composite indices)."""
+    packed = csr.pack_key(tuple(prefix[:, p] for p in positions))
+    if isinstance(packed, tuple):
+        return packed
+    return packed.to(dtype)
 
 
 def _binding_key(prefix, bound_attrs, key_attrs, idx: VersionedIndex):

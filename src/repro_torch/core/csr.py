@@ -9,13 +9,15 @@ fixed-depth lexicographic binary search over the (key, val) pairs.
 The layout, capacities and padding equal the JAX package's bit for bit, so
 regions can be carried across (``repro_torch.convert``) and compared.  The
 live count ``n`` is a 0-d int32 tensor on the index's device, so searches
-never synchronise with the host.  Only 1- and 2-column keys are ported (the
-composite (hi, lo) keys of n-ary relations come in a later slice).
+never synchronise with the host.  Keys of 3 or 4 bound columns (n-ary
+relations) are the composite (hi, lo) word pair: ``key`` holds the hi word
+and ``lo`` the int64 lo word, and every probe compares (key, lo[, val])
+lexicographically.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,16 +57,19 @@ def pow2_capacity(n: int) -> int:
 
 @dataclasses.dataclass
 class IndexData:
-    """One sorted (key, val) extension index.
+    """One sorted (key[, lo], val) extension index.
 
     key: [cap] int32 (narrow) or int64, nondecreasing, sentinel-padded
     val: [cap] int32, nondecreasing within equal keys, 0-padded
     n:   0-d int32 tensor, number of live entries
+    lo:  [cap] int64 or None — the lo word of a composite key (3-4 bound
+         columns), int64-max padded; entries sort by (key, lo, val)
     """
 
     key: torch.Tensor
     val: torch.Tensor
     n: torch.Tensor
+    lo: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -74,20 +79,25 @@ class IndexData:
     def device(self) -> torch.device:
         return self.key.device
 
+    @property
+    def composite(self) -> bool:
+        return self.lo is not None
 
-def pack_key(cols: Sequence):
-    """Pack 1..2 non-negative int32 columns (numpy or torch) into one int64
-    lexicographic key: ``c0`` or ``c0<<32 | c1``.  3-4 columns (numpy only)
-    give the composite (hi, lo) pair the host oracle uses."""
+
+# A packed probe key: one tensor (<= 2 bound columns) or a (hi, lo) pair.
+PackedKey = Union[torch.Tensor, np.ndarray, Tuple]
+
+
+def pack_key(cols: Sequence) -> PackedKey:
+    """Pack 1..4 non-negative int32 columns (numpy or torch) into a
+    lexicographic key: ``c0`` or ``c0<<32 | c1`` (int64); 3 columns give
+    the composite pair ``(c0, c1<<32|c2)`` (hi stays one column, so it may
+    be narrowed to int32), 4 columns ``(c0<<32|c1, c2<<32|c3)``."""
     cols = tuple(cols)
     if isinstance(cols[0], torch.Tensor):
-        if len(cols) == 1:
-            return cols[0].to(torch.int64)
-        if len(cols) == 2:
-            return (cols[0].to(torch.int64) << 32) | cols[1].to(torch.int64)
-        raise NotImplementedError(
-            "composite (hi, lo) device keys are not ported yet")
-    c = [np.asarray(x).astype(np.int64) for x in cols]
+        c = [x.to(torch.int64) for x in cols]
+    else:
+        c = [np.asarray(x).astype(np.int64) for x in cols]
     if len(c) == 1:
         return c[0]
     if len(c) == 2:
@@ -138,13 +148,14 @@ def build_index(tuples: np.ndarray, key_pos: Tuple[int, ...], ext_pos: int,
     tuples = np.asarray(tuples)
     if tuples.ndim != 2:
         raise ValueError("tuples must be [T, arity]")
-    if len(key_pos) > 2:
-        raise NotImplementedError(
-            "composite (hi, lo) keys are not ported yet")
     key = pack_key(tuple(tuples[:, p].astype(np.int32) for p in key_pos)) \
         if key_pos else np.zeros(tuples.shape[0], np.int64)
     val = tuples[:, ext_pos].astype(np.int32)
-    key, val = _unique_pairs(key, val)
+    lo = None
+    if isinstance(key, tuple):  # composite (hi, lo): 3-4 bound columns
+        key, lo, val = _unique_rows3(key[0], key[1], val)
+    else:
+        key, val = _unique_pairs(key, val)
     n = key.shape[0]
     cap = round_capacity(max(int(capacity or n), n, 1))
     if narrow is None:
@@ -156,9 +167,15 @@ def build_index(tuples: np.ndarray, key_pos: Tuple[int, ...], ext_pos: int,
     out_v = np.zeros(cap, np.int32)
     out_k[:n] = key.astype(kdt)
     out_v[:n] = val
+    out_lo = None
+    if lo is not None:
+        out_lo = np.full(cap, SENTINEL, np.int64)
+        out_lo[:n] = lo
+        out_lo = torch.from_numpy(out_lo).to(device)
     return IndexData(torch.from_numpy(out_k).to(device),
                      torch.from_numpy(out_v).to(device),
-                     torch.tensor(n, dtype=torch.int32, device=device))
+                     torch.tensor(n, dtype=torch.int32, device=device),
+                     out_lo)
 
 
 def _unique_pairs(key: np.ndarray, val: np.ndarray):
@@ -171,24 +188,42 @@ def _unique_pairs(key: np.ndarray, val: np.ndarray):
     return key[keep], val[keep]
 
 
+def _unique_rows3(hi: np.ndarray, lo: np.ndarray, val: np.ndarray):
+    """Sorted distinct (hi, lo, val) rows of a composite key — the rows of
+    ``np.unique(np.stack([hi, lo, val], 1), axis=0)``, by one lexsort."""
+    order = np.lexsort((val, lo, hi))
+    hi, lo, val = hi[order], lo[order], val[order]
+    keep = np.ones(hi.shape[0], bool)
+    keep[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1]) | \
+        (val[1:] != val[:-1])
+    return hi[keep], lo[keep], val[keep]
+
+
 def empty_index(capacity: int = 1, narrow: bool = True,
-                device=None) -> IndexData:
+                composite: bool = False, device=None) -> IndexData:
+    """Empty IndexData; ``narrow`` applies to the hi word only (a composite
+    ``lo`` is always int64)."""
     device = resolve_device(device)
     cap = round_capacity(capacity)
-    key, val = _empty_like_caps(torch.int32 if narrow else torch.int64, cap,
-                                device)
+    key, val, lo = _empty_like_caps(torch.int32 if narrow else torch.int64,
+                                    cap, device, composite)
     return IndexData(key, val, torch.zeros((), dtype=torch.int32,
-                                           device=device))
+                                           device=device), lo)
 
 
 def sentinel_of(dtype: torch.dtype) -> int:
     return SENTINEL32 if dtype == torch.int32 else SENTINEL
 
 
-def _empty_like_caps(key_dtype, capacity: int, device):
+def _empty_like_caps(key_dtype, capacity: int, device,
+                     composite: bool = False):
+    """(key, val, lo) padding of the IndexData layout: key sentinel by
+    dtype, val 0, lo int64-max (None unless composite)."""
     return (torch.full((capacity,), sentinel_of(key_dtype), dtype=key_dtype,
                        device=device),
-            torch.zeros(capacity, dtype=torch.int32, device=device))
+            torch.zeros(capacity, dtype=torch.int32, device=device),
+            torch.full((capacity,), SENTINEL, dtype=torch.int64,
+                       device=device) if composite else None)
 
 
 def _common(a: torch.Tensor, b: torch.Tensor):
@@ -202,12 +237,21 @@ def _common(a: torch.Tensor, b: torch.Tensor):
 # Queries (vectorized over a batch of probes).
 # ---------------------------------------------------------------------------
 
-def index_range(idx: IndexData, qkey: torch.Tensor
+def index_range(idx: IndexData, qkey: PackedKey
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(start, count) int32 of the extension list for each packed key [B].
+    """(start, count) int32 of the extension list for each packed key [B]
+    (a (hi, lo) pair for a composite index).
 
     Searches the FULL capacity: sentinel padding sorts above every real
     key, so no live-count mask is needed."""
+    if idx.lo is not None:
+        qh, ql = qkey
+        cap_n = torch.tensor(idx.capacity, dtype=torch.int32,
+                             device=idx.device)
+        cols = (idx.key, idx.lo)
+        start = lex_searchsorted_cols(cols, cap_n, (qh, ql), "left")
+        end = lex_searchsorted_cols(cols, cap_n, (qh, ql), "right")
+        return start, end - start
     key, q = _common(idx.key, qkey)
     start = torch.searchsorted(key, q, side="left")
     end = torch.searchsorted(key, q, side="right")
@@ -224,8 +268,9 @@ def lex_searchsorted_cols(cols: Tuple[torch.Tensor, ...], n: torch.Tensor,
                           qcols: Tuple[torch.Tensor, ...],
                           side: str = "left") -> torch.Tensor:
     """Lower/upper bound of each lex query among the first ``min(cap, n)``
-    rows of lex-sorted columns; ``side="left"`` counts entries strictly
-    below each query, ``side="right"`` entries <= it.  int32 [B]."""
+    rows of up to three lex-sorted columns ((key, val) or the composite
+    (key, lo, val)); ``side="left"`` counts entries strictly below each
+    query, ``side="right"`` entries <= it.  int32 [B]."""
     cap = cols[0].shape[0]
     right = side == "right"
     shape = qcols[0].shape
@@ -255,14 +300,23 @@ def lex_searchsorted(key, val, n, qk, qv, side: str = "left"):
     return lex_searchsorted_cols((key, val), n, (qk, qv), side)
 
 
-def index_member(idx: IndexData, qkey: torch.Tensor, qval: torch.Tensor
+def index_member(idx: IndexData, qkey: PackedKey, qval: torch.Tensor
                  ) -> torch.Tensor:
     """Membership of (qkey, qval) in the index, [B] bool — the plain
-    reference of the membership kernels."""
+    reference of the membership kernels (``qkey`` a (hi, lo) pair for a
+    composite index)."""
     qv = qval.to(torch.int32)
-    pos = lex_searchsorted(idx.key, idx.val, idx.n, qkey, qv)
+    if idx.lo is None:
+        pos = lex_searchsorted(idx.key, idx.val, idx.n, qkey, qv)
+        pos_c = pos.clamp(0, idx.capacity - 1).long()
+        hit = (idx.key[pos_c] == qkey) & (idx.val[pos_c] == qv)
+        return hit & (pos < idx.n)
+    qh, ql = qkey
+    pos = lex_searchsorted_cols((idx.key, idx.lo, idx.val), idx.n,
+                                (qh, ql, qv))
     pos_c = pos.clamp(0, idx.capacity - 1).long()
-    hit = (idx.key[pos_c] == qkey) & (idx.val[pos_c] == qv)
+    hit = ((idx.key[pos_c] == qh) & (idx.lo[pos_c] == ql)
+           & (idx.val[pos_c] == qv))
     return hit & (pos < idx.n)
 
 
@@ -278,17 +332,26 @@ def index_member(idx: IndexData, qkey: torch.Tensor, qval: torch.Tensor
 #     a[i] ∈ b                         ⇔  |{b <= a[i]}| > |{b < a[i]}|
 # ---------------------------------------------------------------------------
 
-def index_ranks(a: IndexData, qk: torch.Tensor, qv: torch.Tensor,
+def index_ranks(a: IndexData, qk: PackedKey, qv: torch.Tensor,
                 plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lt, le) int32 [B]: entries of ``a`` lexicographically < / <= each
-    (qk, qv) query.  Goes through the merge-rank kernel wrapper (kernel on
-    a CUDA tensor, plain search on a CPU one); ``plain`` forces the plain
-    search on any device (the plain versions of the fold kernels)."""
+    (qk[, qlo], qv) query.  Goes through the merge-rank kernel wrapper
+    (kernel on a CUDA tensor, plain search on a CPU one); ``plain`` forces
+    the plain search on any device (the plain versions of the fold
+    kernels)."""
     from repro_torch.kernels.merge import ops, ref
     qv = qv.to(torch.int32)
-    qk = qk.to(a.key.dtype)
     fn = ref.rank_ref if plain else ops.rank_lt_le
-    return fn(a.key, a.val, a.n, qk, qv)
+    if a.lo is not None:
+        qh, ql = qk
+        return fn(a.key, a.val, a.n, qh.to(torch.int64), qv, lo=a.lo,
+                  qlo=ql.to(torch.int64))
+    return fn(a.key, a.val, a.n, qk.to(a.key.dtype), qv)
+
+
+def _qcols_of(d: IndexData) -> PackedKey:
+    """An index's own keys viewed as a probe batch (for rank queries)."""
+    return d.key if d.lo is None else (d.key, d.lo)
 
 
 def _scatter_drop(dst: torch.Tensor, pos: torch.Tensor, src: torch.Tensor):
@@ -308,24 +371,28 @@ def _merge_core(a: IndexData, b: IndexData, capacity: int,
     jj = torch.arange(b.capacity, dtype=torch.int32, device=dev)
     a_live = ii < a.n
     b_live = jj < b.n
-    lt_a, le_a = index_ranks(a, b.key, b.val, plain)  # b in a
+    lt_a, le_a = index_ranks(a, _qcols_of(b), b.val, plain)  # b in a
     keep_b = b_live & ~(le_a > lt_a)
     kb = keep_b.to(torch.int32)
     kept_cum = torch.cumsum(kb, 0, dtype=torch.int32)
     kept_excl = kept_cum - kb
     pos_b = torch.where(keep_b, lt_a + kept_excl, cap)
-    lt_b, _ = index_ranks(b, a.key, a.val, plain)  # a in b
+    lt_b, _ = index_ranks(b, _qcols_of(a), a.val, plain)  # a in b
     # kept-b entries strictly below a[i] = prefix of keep_b over [0, lt_b)
     below = torch.where(
         lt_b > 0, kept_cum[(lt_b - 1).clamp(0, b.capacity - 1).long()], 0)
     pos_a = torch.where(a_live, ii + below, cap)
-    out_k, out_v = _empty_like_caps(a.key.dtype, cap, dev)
+    out_k, out_v, out_lo = _empty_like_caps(a.key.dtype, cap, dev,
+                                            a.lo is not None)
     _scatter_drop(out_k, pos_a, a.key)
     _scatter_drop(out_k, pos_b, b.key.to(a.key.dtype))
     _scatter_drop(out_v, pos_a, a.val)
     _scatter_drop(out_v, pos_b, b.val)
+    if out_lo is not None:
+        _scatter_drop(out_lo, pos_a, a.lo)
+        _scatter_drop(out_lo, pos_b, b.lo)
     n = a.n.to(torch.int32) + kb.sum(dtype=torch.int32)
-    return IndexData(out_k, out_v, n)
+    return IndexData(out_k, out_v, n, out_lo)
 
 
 def _select_core(a: IndexData, b: IndexData, capacity: int, keep_in_b: bool,
@@ -334,13 +401,16 @@ def _select_core(a: IndexData, b: IndexData, capacity: int, keep_in_b: bool,
     keep_in_b=False is a \\ b (diff), True is a ∩ b (intersect)."""
     cap = int(capacity)
     ii = torch.arange(a.capacity, dtype=torch.int32, device=a.device)
-    lt, le = index_ranks(b, a.key, a.val, plain)
+    lt, le = index_ranks(b, _qcols_of(a), a.val, plain)
     in_b = le > lt
     keep = (ii < a.n) & (in_b if keep_in_b else ~in_b)
     k = keep.to(torch.int32)
     cum = torch.cumsum(k, 0, dtype=torch.int32)
     pos = torch.where(keep, cum - 1, cap)
-    out_k, out_v = _empty_like_caps(a.key.dtype, cap, a.device)
+    out_k, out_v, out_lo = _empty_like_caps(a.key.dtype, cap, a.device,
+                                            a.lo is not None)
     _scatter_drop(out_k, pos, a.key)
     _scatter_drop(out_v, pos, a.val)
-    return IndexData(out_k, out_v, k.sum(dtype=torch.int32))
+    if out_lo is not None:
+        _scatter_drop(out_lo, pos, a.lo)
+    return IndexData(out_k, out_v, k.sum(dtype=torch.int32), out_lo)

@@ -11,7 +11,8 @@ inserts, uncommitted inserts) and *negative* regions subtract membership
 
 Counts and proposals come from positive regions only; deletions are applied
 as signed membership.  Membership of every region goes through the
-multi-region kernel wrapper in one call.
+multi-region kernel wrapper in one call.  A probe key is one tensor, or the
+(hi, lo) pair when the regions are composite (3-4 bound columns).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.csr import IndexData, index_range
+from repro_torch.core.csr import IndexData, PackedKey, index_range
 from repro_torch.kernels.intersect.ops import signed_member
 
 
@@ -35,7 +36,7 @@ class VersionedIndex:
 
     # ---- queries (vectorized over probe batch [B]) ------------------------
 
-    def ranges(self, qkey: torch.Tensor
+    def ranges(self, qkey: PackedKey
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(starts [B,R], counts [B,R]) over positive regions."""
         ss, cs = [], []
@@ -45,7 +46,7 @@ class VersionedIndex:
             cs.append(c)
         return torch.stack(ss, -1), torch.stack(cs, -1)
 
-    def count(self, qkey: torch.Tensor) -> torch.Tensor:
+    def count(self, qkey: PackedKey) -> torch.Tensor:
         """Positive-region extension count [B] (exact when no deletions)."""
         _, c = self.ranges(qkey)
         return c.sum(-1, dtype=torch.int32)
@@ -63,19 +64,19 @@ class VersionedIndex:
             off = off - counts[..., r]
         return val
 
-    def signed_member(self, qkey: torch.Tensor, qval: torch.Tensor
+    def signed_member(self, qkey: PackedKey, qval: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(membership, deletion) bits in ONE pass over all regions."""
         wpos, wneg = signed_member(self.pos, self.neg, qkey, qval)
         return (wpos - wneg) > 0, wneg > 0
 
-    def member(self, qkey: torch.Tensor, qval: torch.Tensor) -> torch.Tensor:
+    def member(self, qkey: PackedKey, qval: torch.Tensor) -> torch.Tensor:
         return self.signed_member(qkey, qval)[0]
 
-    def deleted(self, qkey: torch.Tensor, qval: torch.Tensor
+    def deleted(self, qkey: PackedKey, qval: torch.Tensor
                 ) -> torch.Tensor:
         if not self.neg:
-            return torch.zeros(qkey.shape, dtype=torch.bool,
-                               device=qkey.device)
+            return torch.zeros(qval.shape, dtype=torch.bool,
+                               device=qval.device)
         _, wneg = signed_member((), self.neg, qkey, qval)
         return wneg > 0

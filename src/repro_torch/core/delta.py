@@ -1,5 +1,5 @@
-"""Delta-BiGJoin (§3.3): incremental maintenance of join queries over the
-binary edge relation, with device-resident region state.
+"""Delta-BiGJoin (§3.3): incremental maintenance of join queries over
+dynamic relations of arity 2..4, with device-resident region state.
 
 For each update batch dR (signed edge tuples) the engine runs the n delta
 queries
@@ -22,9 +22,16 @@ Per epoch the device runs: one normalize (signed membership of the packed
 batch in the live set, one kernel call), every query's level steps (the
 fused extend kernel), one commit fold per relation and per projection (the
 fold kernel), and the amortized compaction (the merge-rank kernel).  Host
-numpy arrays are lazily-pulled debug mirrors.  This slice ports the single
-edge relation on one device; n-ary relations, the mesh, snapshots, faults
-and prewarm come later.
+numpy arrays are lazily-pulled debug mirrors.
+
+The store holds any mix of relations (the binary ``edge`` graph, the
+ternary ``tri`` relation of §5.4, a 4-ary ``quad``), each with its own live
+LSM keyed on the full row: arity 3-4 rows pack into the composite (hi, lo)
+word pair, so their regions carry the ``lo`` word and every kernel runs its
+composite variant.  Projections that do not cover a relation's full row are
+DERIVED from its live rows on demand instead of folded (see
+:class:`_Regions`).  One device only; the mesh, snapshots, faults and
+prewarm come later.
 """
 from __future__ import annotations
 
@@ -57,6 +64,36 @@ def _unpack2(packed: np.ndarray) -> np.ndarray:
     packed = np.asarray(packed, np.int64)
     return np.stack([(packed >> 32).astype(np.int32),
                      (packed & 0xFFFFFFFF).astype(np.int32)], 1)
+
+
+def _pack_rows(rows: np.ndarray, arity: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Full rows of a relation as the (hi, lo) lex word pair its live-set
+    LSM keys on (lo ≡ 0 for arity <= 2, the single-word packing)."""
+    rows = np.asarray(rows, np.int32).reshape(-1, arity)
+    packed = csr.pack_key(tuple(rows[:, c] for c in range(arity)))
+    if isinstance(packed, tuple):
+        return packed
+    return packed, np.zeros(rows.shape[0], np.int64)
+
+
+def _unpack_rows(hi: np.ndarray, lo: np.ndarray, arity: int) -> np.ndarray:
+    """Inverse of :func:`_pack_rows`: [N, arity] int32 rows."""
+    if arity <= 2:
+        return csr.unpack_key(np.asarray(hi, np.int64), arity)
+    return csr.unpack_key((np.asarray(hi, np.int64),
+                           np.asarray(lo, np.int64)), arity)
+
+
+def _degenerate_rows(rows: np.ndarray) -> np.ndarray:
+    """Rows with any repeated vertex (self-loops generalized to n-ary):
+    normalize drops them, as the edge path drops u == v."""
+    rows = np.asarray(rows)
+    bad = np.zeros(rows.shape[0], bool)
+    for i in range(rows.shape[1]):
+        for j in range(i + 1, rows.shape[1]):
+            bad |= rows[:, i] == rows[:, j]
+    return bad
 
 
 def _check_batch(rel: str, updates, weights, arity: int
@@ -118,9 +155,10 @@ def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
 
     p_hi/p_lo [B] int64 are the packed rows (degenerate/padding rows
     pre-masked to the sentinel on the host); ``live`` is the relation's
-    packed LSM as the "old" versioned index (base, cins | cdel).  Existence
-    is its signed membership — one kernel call for all three regions; under
-    the commit invariants it equals (base ∧ ¬cdel) ∨ cins."""
+    packed LSM as the "old" versioned index (base, cins | cdel), composite
+    (hi, lo) for arity > 2.  Existence is its signed membership — one kernel
+    call for all three regions; under the commit invariants it equals
+    (base ∧ ¬cdel) ∨ cins."""
     SENT = csr.SENTINEL
     dev = p_hi.device
     N = p_hi.shape[0]
@@ -139,7 +177,8 @@ def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
     uniq_l = torch.full((N,), SENT, dtype=torch.int64, device=dev)
     uniq_l[idl] = ls
     zeros = torch.zeros(N, dtype=torch.int32, device=dev)
-    exists = live.member(uniq_h, zeros)
+    composite = live.pos[0].lo is not None
+    exists = live.member((uniq_h, uniq_l) if composite else uniq_h, zeros)
     alive = uniq_h < SENT
     ins_m = alive & (net > 0) & ~exists
     del_m = alive & (net < 0) & exists
@@ -168,8 +207,8 @@ def _commit_fold(base: IndexData, cins: IndexData, cdel: IndexData,
         cdel' = cdel ∪ (udel ∩ base)
 
     One fold-kernel call; ``base`` is only probed, for the delta-sized
-    ``udel ∩ base`` bits, with the plain fixed-depth search."""
-    lt, le = csr.index_ranks(base, udel.key, udel.val, plain=True)
+    ``udel ∩ base`` bits, through the merge-rank kernel."""
+    lt, le = csr.index_ranks(base, csr._qcols_of(udel), udel.val)
     in_ba = (le > lt).to(torch.int32)
     return commit_fold(cins, cdel, uins, udel, in_ba, cins_cap=cins_cap,
                        cdel_cap=cdel_cap)
@@ -183,33 +222,46 @@ def _compact_fold(base: IndexData, cins: IndexData, cdel: IndexData, *,
     return csr._merge_core(kept, cins, out_cap)
 
 
-def _any_member(idx: IndexData, qk: torch.Tensor, qv: torch.Tensor
-                ) -> bool:
+def _any_member(idx: IndexData, qk, qv: torch.Tensor) -> bool:
     """any((qk, qv) ∈ idx) — the eager re-insertion probe (delta-sized)."""
     return bool(VersionedIndex((idx,), ()).member(qk, qv).any())
 
 
-def _packed_index(rows: np.ndarray, device, capacity: Optional[int] = None
-                  ) -> IndexData:
-    """Packed full-row IndexData (key = u<<32|v int64, val ≡ 0) from host
-    edge rows, built at ``max(capacity, pow2(rows))``."""
-    rows = np.asarray(rows, np.int32).reshape(-1, 2)
+def _packed_index(rows: np.ndarray, device, arity: int = 2,
+                  capacity: Optional[int] = None) -> IndexData:
+    """Packed full-row IndexData (key = the row's lex word pair — u<<32|v
+    for edges, the wide (hi, lo) pair for arity 3-4 — val ≡ 0) from host
+    rows, built at ``max(capacity, pow2(rows))``."""
+    rows = np.asarray(rows, np.int32).reshape(-1, arity)
     rows_ext = np.concatenate(
         [rows, np.zeros((rows.shape[0], 1), np.int32)], axis=1)
     return build_index(
-        rows_ext, (0, 1), 2,
+        rows_ext, tuple(range(arity)), arity,
         capacity=max(int(capacity or 0), _pow2(rows_ext.shape[0])),
         narrow=False, device=device)
 
 
-def _empty_packed(device) -> IndexData:
-    return csr.empty_index(narrow=False, device=device)
+def _empty_packed(device, arity: int = 2) -> IndexData:
+    return csr.empty_index(narrow=False, composite=arity > 2, device=device)
 
 
-def _pad_probe(keys: np.ndarray, vals: np.ndarray, sent, device,
+def _pad_probe(keys, vals: np.ndarray, sent, device,
                cap: Optional[int] = None):
-    """Pow2-pad a probe batch (padding rows take the key sentinel); ``cap``
-    raises the pad to a ratcheted rung."""
+    """Pow2-pad a probe batch; ``keys`` is one packed array or a composite
+    (hi, lo) pair (padding rows take the sentinel in every key word).
+    ``cap`` raises the pad to a ratcheted rung."""
+    if isinstance(keys, tuple):
+        hi, lo = keys
+        B = max(int(cap or 0), _pow2(hi.shape[0]))
+        kh = np.full(B, csr.SENTINEL, np.int64)
+        kl = np.full(B, csr.SENTINEL, np.int64)
+        kh[:hi.shape[0]] = hi
+        kl[:lo.shape[0]] = lo
+        v = np.zeros(B, np.int32)
+        v[:vals.shape[0]] = vals
+        return ((torch.from_numpy(kh).to(device),
+                 torch.from_numpy(kl).to(device)),
+                torch.from_numpy(v).to(device))
     B = max(int(cap or 0), _pow2(keys.shape[0]))
     k = np.full(B, sent, keys.dtype)
     k[:keys.shape[0]] = keys
@@ -220,12 +272,25 @@ def _pad_probe(keys: np.ndarray, vals: np.ndarray, sent, device,
 
 @dataclasses.dataclass
 class _Regions:
-    """Device truth of one projection's regions (+ lazy host mirrors)."""
+    """Device truth of one projection's regions (+ lazy host mirrors).
+
+    ``derived=True`` marks a projection whose (key, ext) columns do NOT
+    cover the relation's full row (only for arity > 2, e.g. the a1->a3
+    index of ``tri`` that ignores a2).  It is a lossy many-to-one image, so
+    set folds cannot maintain it (deleting one supporting row must not kill
+    a pair another live row still supports); ``versioned()`` derives it
+    from the relation's live rows on demand, cached until the next
+    begin_epoch/commit.  A delta plan seeded by the relation itself never
+    reads one; a plan seeded by another relation can (the edge-seeded
+    5-clique-quad plan reads quad's a3->a0 image), and then pays one host
+    rebuild of the image per epoch."""
 
     key_pos: Tuple[int, ...]
     ext_pos: int
     rel: str = EDGE
+    rel_arity: int = 0  # the backing relation's true arity
     narrow: bool = True
+    derived: bool = False
     d_base: IndexData = None
     d_cins: IndexData = None
     d_cdel: IndexData = None
@@ -236,11 +301,13 @@ class _Regions:
     n_cins: int = 0
     n_cdel: int = 0
     _mirror: dict = dataclasses.field(default_factory=dict)
+    _derived_cache: dict = dataclasses.field(default_factory=dict)
     _store: object = None
 
     @property
     def arity(self) -> int:
-        return max(max(self.key_pos, default=0), self.ext_pos) + 1
+        return self.rel_arity or \
+            max(max(self.key_pos, default=0), self.ext_pos) + 1
 
     @property
     def device(self):
@@ -258,6 +325,12 @@ class _Regions:
         return idx
 
     def _rows(self, name: str) -> np.ndarray:
+        if self.derived:
+            # base = the backing relation's live rows; committed deltas fold
+            # into the relation itself, never into this projection
+            if name == "base":
+                return self._store._rel_rows(self.rel)
+            return np.zeros((0, self.arity), np.int32)
         if name not in self._mirror:
             self._mirror[name] = self._materialize(getattr(self,
                                                            "d_" + name))
@@ -277,14 +350,16 @@ class _Regions:
         return self._rows("cdel")
 
     def _materialize(self, d: IndexData) -> np.ndarray:
-        """Host tuple rows from the device (key, val) arrays, in canonical
-        row-lex order."""
+        """Host tuple rows from the device (key[, lo], val) arrays, in
+        canonical row-lex order."""
         n = int(d.n)
-        key = d.key[:n].cpu().numpy()
+        key = d.key[:n].cpu().numpy().astype(np.int64)
         val = d.val[:n].cpu().numpy()
         rows = np.zeros((key.shape[0], self.arity), np.int32)
         nk = len(self.key_pos)
-        kcols = csr.unpack_key(key.astype(np.int64), nk) if nk else None
+        if d.lo is not None:
+            key = (key, d.lo[:n].cpu().numpy())
+        kcols = csr.unpack_key(key, nk) if nk else None
         for c, p in enumerate(self.key_pos):
             rows[:, p] = kcols[:, c]
         rows[:, self.ext_pos] = val
@@ -293,24 +368,32 @@ class _Regions:
         return rows[order]
 
     def set_uncommitted(self, uins: np.ndarray, udel: np.ndarray):
+        if self.derived:
+            self._derived_cache.clear()  # the "new" image changed
+            return
         self.d_uins = self._build(uins, kind="delta")
         self.d_udel = self._build(udel, kind="delta")
 
     def probe_cdel(self, ins: np.ndarray) -> bool:
         """any(ins ∈ cdel) — device probe, O(|Δ|·log|cdel|)."""
+        if self.derived:
+            return False  # no committed-delete region to overlap
         key = csr.pack_key(tuple(ins[:, p].astype(np.int32)
                                  for p in self.key_pos))
         kdt = np.int32 if self.d_cdel.key.dtype == torch.int32 \
             else np.int64
         sent = csr.SENTINEL32 if kdt == np.int32 else csr.SENTINEL
+        if not isinstance(key, tuple):
+            key = key.astype(kdt)
         cap = self._store.ratchet.capacity(("probe", self.rel),
                                            ins.shape[0])
-        qk, qv = _pad_probe(key.astype(kdt),
-                            ins[:, self.ext_pos].astype(np.int32), sent,
-                            self.device, cap=cap)
+        qk, qv = _pad_probe(key, ins[:, self.ext_pos].astype(np.int32),
+                            sent, self.device, cap=cap)
         return _any_member(self.d_cdel, qk, qv)
 
     def versioned(self, version: str) -> VersionedIndex:
+        if self.derived:
+            return self._derived_versioned(version)
         if version == "old":
             return VersionedIndex((self.d_base, self.d_cins), (self.d_cdel,))
         if version == "new":
@@ -319,6 +402,26 @@ class _Regions:
         if version == "static":
             return VersionedIndex((self.d_base,), ())
         raise ValueError(version)
+
+    def _derived_versioned(self, version: str) -> VersionedIndex:
+        """Projection image rebuilt from the relation's live rows: "old"
+        (= "static") is the committed state, "new" folds the staged batch.
+        Cached until the next begin_epoch/commit/compaction."""
+        if version not in ("old", "new", "static"):
+            raise ValueError(version)
+        tag = "new" if version == "new" else "old"
+        idx = self._derived_cache.get(tag)
+        if idx is None:
+            rows = self._store._rel_rows(self.rel)
+            if tag == "new":
+                ins, dels = self._store._staged_for(self.rel)
+                if dels.size:
+                    rows = rows[~rows_isin(rows, dels)]
+                if ins.size:
+                    rows = _unique_rows(np.concatenate([rows, ins]))
+            idx = self._build(rows)
+            self._derived_cache[tag] = idx
+        return VersionedIndex((idx,), ())
 
 
 def _diff_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -367,8 +470,8 @@ class PreparedBatch:
 
 @dataclasses.dataclass
 class _RelLive:
-    """The edge relation's live set: its own packed three-region LSM
-    (key = u<<32|v, val ≡ 0)."""
+    """One relation's live set: its own packed three-region LSM (key = the
+    row's lex word pair, val ≡ 0)."""
 
     arity: int
     lb: IndexData = None
@@ -379,12 +482,14 @@ class _RelLive:
 
 
 class RegionStore:
-    """Owner of the edge relation's live set and every projection's LSM
-    regions, shared by every query registered against it: N standing
+    """Owner of every dynamic relation's live set and every projection's
+    LSM regions, shared by every query registered against it: N standing
     queries pay one region build, one normalize and one commit per epoch.
 
-    ``initial`` is an [E, 2] edge array (or ``{"edge": edges}``); all state
-    lives on ``device`` (``None``: the card, see ``csr.resolve_device``)."""
+    ``initial`` is an [E, 2] edge array (sugar for ``{"edge": edges}``) or
+    a dict of relations of arity 2..4; updates arrive as per-relation
+    batches (``{"edge": (rows, w), "tri": ...}``).  All state lives on
+    ``device`` (``None``: the card, see ``csr.resolve_device``)."""
 
     def __init__(self, initial, compact_ratio: float = 0.5, device=None):
         self.device = csr.resolve_device(device)
@@ -400,11 +505,8 @@ class RegionStore:
             = None
         rels = initial if isinstance(initial, dict) else \
             {EDGE: np.asarray(initial, np.int32).reshape(-1, 2)}
-        if set(rels) != {EDGE}:
-            raise NotImplementedError(
-                "only the binary edge relation is ported; n-ary relations "
-                "come in a later slice")
-        self._add_edges(rels[EDGE])
+        for rel, rows in rels.items():
+            self.add_relation(rel, rows)
 
     def _base_cap(self, rel: str, n: int) -> int:
         return self.base_ratchet.capacity(("base", rel), max(int(n), 1))
@@ -418,34 +520,71 @@ class RegionStore:
     def _committed_cap(self, rel: str, n: int) -> int:
         return self.ratchet.capacity(("committed", rel), max(int(n), 1))
 
-    def _add_edges(self, rows: np.ndarray):
+    def add_relation(self, rel: str, rows: np.ndarray,
+                     arity: Optional[int] = None):
+        """Register one dynamic relation with its initial tuples [N, arity]
+        (arity 2..4; ``arity`` disambiguates an empty batch).
+
+        Seeding a relation that exists but is still EMPTY (one
+        ``register()`` declared before its tuples were materialized)
+        replaces it in place — its projections are rebuilt from the seeded
+        rows; a non-empty relation cannot be re-seeded."""
+        old = self._rels.get(rel)
+        if old is not None:
+            staged = bool(self._staged) and rel in self._staged and \
+                any(x.size for x in self._staged[rel])
+            if self.num_tuples(rel) or staged:
+                raise ValueError(f"relation {rel!r} already exists")
         rows = np.asarray(rows)
-        if rows.ndim != 2 and rows.size:
+        if rows.ndim != 2 and not (rows.size == 0 and arity):
             raise ValueError(
-                f"initial edges must be [N, 2], got shape {rows.shape}")
-        rows, _ = _check_batch(EDGE, rows.reshape(-1, 2), None, 2)
-        rows = _unpack2(np.unique(_pack2(rows[:, 0], rows[:, 1])))
-        st = _RelLive(arity=2)
-        st.lb = _packed_index(rows, self.device,
-                              capacity=self._base_cap(EDGE, rows.shape[0]))
-        self.base_ratchet.observe(("base", EDGE), st.lb.key.shape[-1])
-        st.lc_ins = _empty_packed(self.device)
-        st.lc_del = _empty_packed(self.device)
+                f"initial {rel!r} tuples must be [N, arity], got shape "
+                f"{rows.shape}")
+        ar = int(arity or rows.shape[1])
+        if rows.ndim == 2 and rows.size and rows.shape[1] != ar:
+            raise ValueError(
+                f"initial {rel!r} tuples are [N, {rows.shape[1]}] but "
+                f"arity={ar} was requested")
+        if not 2 <= ar <= 4:
+            raise ValueError(
+                f"relation {rel!r} arity {ar} unsupported (2..4: composite "
+                "keys cover up to 4 columns)")
+        if old is not None and ar != old.arity:
+            raise ValueError(
+                f"relation {rel!r} was declared with arity {old.arity}, "
+                f"cannot re-seed with arity {ar}")
+        rows, _ = _check_batch(rel, rows.reshape(-1, ar), None, ar)
+        rows = _unique_rows(rows)
+        st = _RelLive(arity=ar)
+        st.lb = _packed_index(rows, self.device, ar,
+                              capacity=self._base_cap(rel, rows.shape[0]))
+        self.base_ratchet.observe(("base", rel), st.lb.key.shape[-1])
+        st.lc_ins = _empty_packed(self.device, ar)
+        st.lc_del = _empty_packed(self.device, ar)
         st.n_live = [rows.shape[0], 0, 0]  # base, cins, cdel
         st.mirror = rows
-        self._rels[EDGE] = st
+        self._rels[rel] = st
+        if old is not None:
+            # rebuild projections ensured against the empty declaration
+            for proj in [p for p in self.projections if p[0] == rel]:
+                del self.projections[proj]
+                self.ensure(*proj)
 
     # -- relation introspection ---------------------------------------------
     @property
     def relations(self) -> Tuple[str, ...]:
         return tuple(self._rels)
 
+    def arity_of(self, rel: str) -> int:
+        return self._rel(rel).arity
+
     def _rel(self, rel: str) -> _RelLive:
         st = self._rels.get(rel)
         if st is None:
             raise KeyError(
-                f"unknown relation {rel!r}; the port holds only "
-                f"{EDGE!r}")
+                f"unknown relation {rel!r}; known: "
+                f"{', '.join(self._rels) or '(none)'} — pass it in the "
+                "initial relations dict or add_relation() first")
         return st
 
     def _rel_rows(self, rel: str) -> np.ndarray:
@@ -456,8 +595,12 @@ class RegionStore:
             nb, nci, _ = st.n_live
             live = _compact_fold(st.lb, st.lc_ins, st.lc_del,
                                  out_cap=_pow2(nb + nci))
-            hi = live.key[:int(live.n)].cpu().numpy()
-            st.mirror = _unpack2(np.sort(hi))
+            n = int(live.n)
+            hi = live.key[:n].cpu().numpy()
+            lo = np.zeros(n, np.int64) if live.lo is None \
+                else live.lo[:n].cpu().numpy()
+            order = np.lexsort((lo, hi))
+            st.mirror = _unpack_rows(hi[order], lo[order], st.arity)
             self.stats.mirror_pulls += 1
         return st.mirror
 
@@ -488,22 +631,34 @@ class RegionStore:
     def ensure(self, rel: str, key_pos: Tuple[int, ...], ext_pos: int,
                arity: Optional[int] = None) -> _Regions:
         """Region storage for one projection, built from the CURRENT live
-        relation on first use and shared by every later query."""
-        self._rel(rel)
-        if arity not in (None, 2):
-            raise NotImplementedError("n-ary relations are not ported yet")
+        relation on first use and shared by every later query.  ``arity``
+        lets a plan declare a not-yet-seen relation (created empty)."""
+        st = self._rels.get(rel)
+        if st is None:
+            if arity is None:
+                self._rel(rel)  # raises with the helpful message
+            self.add_relation(rel, np.zeros((0, arity), np.int32))
+            st = self._rels[rel]
         proj = (rel, key_pos, ext_pos)
         reg = self.projections.get(proj)
         if reg is not None:
             return reg
-        if sorted(tuple(key_pos) + (ext_pos,)) != [0, 1]:
-            raise NotImplementedError(
-                "derived projections are not ported yet")
+        # a projection whose key/ext columns don't cover the relation's
+        # full row is a lossy image: DERIVED from the live rows on demand
+        used = set(key_pos) | {ext_pos}
+        covers = used == set(range(st.arity)) and \
+            len(key_pos) + 1 == st.arity
         rows = self._rel_rows(rel)
-        # narrow is decided ONCE per projection (merges keep one dtype)
+        # narrow is decided ONCE per projection (merges keep one dtype);
+        # composite projections with a single-column hi word (3 bound
+        # columns) narrow too — the lo word is always int64
         narrow = csr.single_word_hi(len(key_pos)) and \
             (rows.size == 0 or int(rows.max()) < csr.SENTINEL32)
-        reg = _Regions(key_pos, ext_pos, rel=rel, narrow=narrow, _store=self)
+        reg = _Regions(key_pos, ext_pos, rel=rel, rel_arity=st.arity,
+                       narrow=narrow, derived=not covers, _store=self)
+        if reg.derived:
+            self.projections[proj] = reg
+            return reg
         empty = rows[:0]
         reg.d_base = reg._build(rows)
         reg.d_cins = reg._build(empty, kind="committed")
@@ -523,9 +678,15 @@ class RegionStore:
         return self._staged.get(rel, (empty, empty))
 
     def ensure_plan(self, plan: Plan):
+        arities = {a.rel: a.arity for a in plan.query.atoms}
         for _id, rel, key_pos, ext_pos, _v in plan.index_ids():
-            self.ensure(rel, key_pos, ext_pos)
-        self._rel(plan.query.atoms[plan.seed_atom].rel)
+            self.ensure(rel, key_pos, ext_pos, arity=arities.get(rel))
+        # the seed relation may carry no index at all: declare it anyway so
+        # seeds and updates for it resolve
+        seed_rel = plan.query.atoms[plan.seed_atom].rel
+        if seed_rel not in self._rels:
+            self.add_relation(
+                seed_rel, np.zeros((0, arities[seed_rel]), np.int32))
 
     def indices_for(self, plan: Plan) -> Indices:
         """The plan's VersionedIndex dict off the shared regions."""
@@ -581,12 +742,13 @@ class RegionStore:
 
     def _pad_host(self, rel: str, updates: np.ndarray, weights: np.ndarray
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host half of normalize: self-loops and zero weights masked to
-        the sentinel, rows packed, all padded to the probe rung."""
+        """Host half of normalize: degenerate rows (any repeated vertex —
+        the n-ary self-loop) and zero weights masked to the sentinel, rows
+        packed to lex word pairs, all padded to the probe rung."""
+        st = self._rel(rel)
         SENT = np.int64(csr.SENTINEL)
-        valid = (updates[:, 0] != updates[:, 1]) & (weights != 0)
-        hi = _pack2(updates[:, 0], updates[:, 1])
-        lo = np.zeros(hi.shape[0], np.int64)
+        valid = ~_degenerate_rows(updates) & (weights != 0)
+        hi, lo = _pack_rows(updates, st.arity)
         hi = np.where(valid, hi, SENT)
         lo = np.where(valid, lo, SENT)
         B = self._probe_cap(rel, updates.shape[0])
@@ -607,12 +769,15 @@ class RegionStore:
     def _normalize_device(self, rel: str, ph: np.ndarray, pl: np.ndarray,
                           pw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         dev = self.device
+        ar = self._rel(rel).arity
         oih, oil, ni, odh, odl, nd = _normalize_core(
             torch.from_numpy(ph).to(dev), torch.from_numpy(pl).to(dev),
             torch.from_numpy(pw).to(dev), self._live_index(rel))
         ni, nd = int(ni), int(nd)
-        ins = _unpack2(oih[:ni].cpu().numpy())
-        dels = _unpack2(odh[:nd].cpu().numpy())
+        ins = _unpack_rows(oih[:ni].cpu().numpy(), oil[:ni].cpu().numpy(),
+                           ar)
+        dels = _unpack_rows(odh[:nd].cpu().numpy(), odl[:nd].cpu().numpy(),
+                            ar)
         return ins, dels
 
     # ------------------------------------------------------------------
@@ -625,8 +790,8 @@ class RegionStore:
                 out_cap = self.base_ratchet.capacity(("base", rel), new_nb)
                 st.lb = _compact_fold(st.lb, st.lc_ins, st.lc_del,
                                       out_cap=out_cap)
-                st.lc_ins = _empty_packed(self.device)
-                st.lc_del = _empty_packed(self.device)
+                st.lc_ins = _empty_packed(self.device, st.arity)
+                st.lc_del = _empty_packed(self.device, st.arity)
                 st.n_live = [new_nb, 0, 0]
                 self.stats.live_compactions += 1
                 st.mirror = None
@@ -636,6 +801,8 @@ class RegionStore:
                 # exact arithmetic — a mismatch means corruption
                 assert _count_of(st.lb) == new_nb
         for reg in self.projections.values():
+            if reg.derived:
+                continue  # rebuilt from the relation rows on demand
             committed = reg.n_cins + reg.n_cdel
             if not (force or committed >
                     self.compact_ratio * max(reg.n_base, 1)):
@@ -681,8 +848,9 @@ class RegionStore:
                        np.asarray(dels, np.int32).reshape(-1, 2))}
 
     def begin_epoch(self, ins, dels=None):
-        """Stage one normalized batch as the uncommitted region of EVERY
-        projection (after the eager re-insertion compaction check)."""
+        """Stage one normalized batch (edge-array sugar or per-relation
+        dicts) as the uncommitted region of EVERY projection (after the
+        eager re-insertion compaction check)."""
         batches = self._as_batches(ins, dels)
         # eager compaction iff a committed delete is being re-inserted
         need = False
@@ -691,7 +859,8 @@ class RegionStore:
                 continue
             st = self._rel(rel)
             if st.n_live[2]:
-                qk, qv = _pad_probe(_pack2(r_ins[:, 0], r_ins[:, 1]),
+                pi = _pack_rows(r_ins, st.arity)
+                qk, qv = _pad_probe(pi if st.arity > 2 else pi[0],
                                     np.zeros(r_ins.shape[0], np.int32),
                                     np.int64(csr.SENTINEL), self.device,
                                     cap=self._probe_cap(rel,
@@ -700,7 +869,8 @@ class RegionStore:
             if not need:
                 need = any(reg.probe_cdel(r_ins)
                            for reg in self.projections.values()
-                           if reg.rel == rel and reg.n_cdel)
+                           if reg.rel == rel and not reg.derived
+                           and reg.n_cdel)
             if int(r_ins.max()) >= csr.SENTINEL32 and \
                     any(reg.narrow for reg in self.projections.values()
                         if reg.rel == rel):
@@ -740,10 +910,10 @@ class RegionStore:
             if not (r_ins.size or r_dels.size):
                 continue
             st = self._rel(rel)
-            li = _packed_index(r_ins, self.device,
+            li = _packed_index(r_ins, self.device, st.arity,
                                capacity=self._delta_cap(rel, r_ins.shape[0]))
             self.ratchet.observe(("delta", rel), li.key.shape[-1])
-            ld = _packed_index(r_dels, self.device,
+            ld = _packed_index(r_dels, self.device, st.arity,
                                capacity=self._delta_cap(rel,
                                                         r_dels.shape[0]))
             self.ratchet.observe(("delta", rel), ld.key.shape[-1])
@@ -755,9 +925,14 @@ class RegionStore:
             staged_rels.append((st, new_ci, new_cd,
                                 [nb, _count_of(new_ci), _count_of(new_cd)]))
         staged_projs = []  # (reg, d_cins, d_cdel, empty_ins, empty_dels)
+        derived_dirty = []
         for reg in self.projections.values():
             r_ins, r_dels = batches.get(
                 reg.rel, (np.zeros((0, reg.arity), np.int32),) * 2)
+            if reg.derived:
+                if r_ins.size or r_dels.size:
+                    derived_dirty.append(reg)  # committed rows changed
+                continue
             if not (r_ins.size or r_dels.size):
                 continue  # untouched relation: regions pass through
             need = max(reg.n_cins + _count_of(reg.d_uins),
@@ -774,6 +949,8 @@ class RegionStore:
             st.lc_ins, st.lc_del = new_ci, new_cd
             st.n_live = n_live
             st.mirror = None
+        for reg in derived_dirty:
+            reg._derived_cache.clear()
         for reg, d_cins, d_cdel, e_ins, e_dels in staged_projs:
             reg.d_cins, reg.d_cdel = d_cins, d_cdel
             reg.n_cins = _count_of(d_cins)
@@ -797,8 +974,11 @@ class RegionStore:
 
 
 class DeltaBigJoin:
-    """Incremental maintenance of one query over the edge relation; rides a
-    shared :class:`RegionStore` (``store=``) or owns a private one."""
+    """Incremental maintenance of one query over dynamic relations (each
+    dQ_i seeds from the batch of ITS atom's relation, n-ary dR tuples at
+    P_r, ``plan.seed_width``); rides a shared :class:`RegionStore`
+    (``store=``) or owns a private one built from ``initial_edges`` (an
+    edge array or a dict of relations)."""
 
     MAX_ESCALATIONS = 3  # per plan run, before the overflow surfaces
 

@@ -2,10 +2,16 @@
 //
 // A sorted region is the torch IndexData layout: key [cap] int32 or int64
 // (nondecreasing, sentinel-padded), val [cap] int32, n: a device int32
-// scalar of live entries.  Kernels read n from device memory, so a launch
-// never waits on the host.  Region descriptors travel by value in the
-// kernel's parameter space (five int64 words each on the host side: key
-// pointer, val pointer, n pointer, capacity, key-is-int64).
+// scalar of live entries, and for a composite (hi, lo) key the int64 lo
+// word [cap] (int64-max padded); entries sort by (key[, lo], val).  Kernels
+// read n from device memory, so a launch never waits on the host.  Region
+// descriptors travel by value in the kernel's parameter space (six int64
+// words each on the host side: key pointer, val pointer, n pointer,
+// capacity, key-is-int64, lo pointer or 0).
+//
+// Every search comes in a 1-word form (key, val) and a composite form
+// (key, lo, val); kernels template on `bool LO` and call `*_w<LO>`, so the
+// 1-word instantiation compiles to the 2-word compares alone.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,11 +27,13 @@ typedef long long i64;
 
 #define REPRO_MAX_REGIONS 8
 #define REPRO_THREADS 256
+#define REPRO_DESC_WORDS 6
 
 struct Region {
   const void* key;
   const int* val;
   const int* n;
+  const i64* lo;  // composite lo word, or null
   int cap;
   int k64;
 };
@@ -40,7 +48,18 @@ inline Region region_from(const int64_t* d) {
   r.n = (const int*)d[2];
   r.cap = (int)d[3];
   r.k64 = (int)d[4];
+  r.lo = (const i64*)d[5];
   return r;
+}
+
+// Do the first `nreg` descriptors agree on the key layout (all composite
+// or none)?  A launch that mixes the two is refused, as in the reference.
+inline int lo_uniform(const int64_t* desc, int nreg, int* has_lo) {
+  int lo = nreg > 0 && desc[5] != 0;
+  for (int r = 0; r < nreg; ++r)
+    if ((desc[REPRO_DESC_WORDS * r + 5] != 0) != lo) return 0;
+  *has_lo = lo;
+  return 1;
 }
 
 inline int grid_for(long long n, int threads) {
@@ -111,6 +130,90 @@ __device__ __forceinline__ int member_of(const Region& r, i64 qk, int qv) {
   int pos = lex_bound(r, n, qk, qv, false);
   if (pos >= n) return 0;
   return load_key(r.key, r.k64, pos) == qk && r.val[pos] == qv;
+}
+
+// ---- composite (key, lo, val) forms ----------------------------------------
+
+// 3-word lexicographic bound over the first `hi` entries
+// (csr.lex_searchsorted_cols over (key, lo, val)).
+template <typename K>
+__device__ __forceinline__ int lex_bound3_t(const K* key, const i64* lo,
+                                            const int* val, int hi, i64 qk,
+                                            i64 ql, int qv, bool right) {
+  int a = 0;
+  while (a < hi) {
+    int mid = (a + hi) >> 1;
+    i64 mk = (i64)key[mid];
+    i64 ml = lo[mid];
+    int mv = val[mid];
+    bool less = mk < qk ||
+                (mk == qk && (ml < ql ||
+                              (ml == ql && (mv < qv || (right && mv == qv)))));
+    if (less) a = mid + 1; else hi = mid;
+  }
+  return a;
+}
+
+__device__ __forceinline__ int lex_bound3(const Region& r, int hi, i64 qk,
+                                          i64 ql, int qv, bool right) {
+  return r.k64 ? lex_bound3_t<i64>((const i64*)r.key, r.lo, r.val, hi, qk,
+                                   ql, qv, right)
+               : lex_bound3_t<int>((const int*)r.key, r.lo, r.val, hi, qk,
+                                   ql, qv, right);
+}
+
+// Key-only (key, lo) prefix bound over the FULL capacity (the composite
+// csr.index_range: padding is int64-max in lo and the sentinel in key).
+template <typename K>
+__device__ __forceinline__ int key_bound2_t(const K* key, const i64* lo,
+                                            int cap, i64 qk, i64 ql,
+                                            bool right) {
+  int a = 0, hi = cap;
+  while (a < hi) {
+    int mid = (a + hi) >> 1;
+    i64 mk = (i64)key[mid];
+    i64 ml = lo[mid];
+    bool less = mk < qk || (mk == qk && (right ? ml <= ql : ml < ql));
+    if (less) a = mid + 1; else hi = mid;
+  }
+  return a;
+}
+
+__device__ __forceinline__ int key_bound2(const Region& r, i64 qk, i64 ql,
+                                          bool right) {
+  return r.k64 ? key_bound2_t<i64>((const i64*)r.key, r.lo, r.cap, qk, ql,
+                                   right)
+               : key_bound2_t<int>((const int*)r.key, r.lo, r.cap, qk, ql,
+                                   right);
+}
+
+__device__ __forceinline__ int member3_of(const Region& r, i64 qk, i64 ql,
+                                          int qv) {
+  int n = live_of(r);
+  int pos = lex_bound3(r, n, qk, ql, qv, false);
+  if (pos >= n) return 0;
+  return load_key(r.key, r.k64, pos) == qk && r.lo[pos] == ql &&
+         r.val[pos] == qv;
+}
+
+// The two layouts behind one name: `ql` is ignored when LO is false.
+template <bool LO>
+__device__ __forceinline__ int lex_bound_w(const Region& r, int hi, i64 qk,
+                                           i64 ql, int qv, bool right) {
+  if (LO) return lex_bound3(r, hi, qk, ql, qv, right);
+  return lex_bound(r, hi, qk, qv, right);
+}
+
+template <bool LO>
+__device__ __forceinline__ int member_w(const Region& r, i64 qk, i64 ql,
+                                        int qv) {
+  if (LO) return member3_of(r, qk, ql, qv);
+  return member_of(r, qk, qv);
+}
+
+template <bool LO>
+__device__ __forceinline__ i64 load_lo(const Region& r, int i) {
+  return LO ? r.lo[i] : 0;
 }
 
 // Exclusive scan of one unsigned value per thread across the block, with

@@ -3,7 +3,10 @@
 // intersection of one popped prefix window, in three launches.
 //
 // Replaces the TPU kernel src/repro/kernels/extend/extend.py
-// (make_extend_kernel / _extend_call, 1-word bindings).
+// (make_extend_kernel(has_lo) / _extend_call): 1-word bindings and, in the
+// LO instantiation, levels where some binding keys on 3-4 columns — its
+// range is a key-only search over the (hi, lo) prefix (_lex_range2) and its
+// membership a 3-word search (_lex_member3); its regions carry the lo word.
 //
 // Bound on the H100: bytes, as scattered dependent reads.  Every window
 // row binary-searches each positive region of each binding twice, and
@@ -30,10 +33,12 @@
 
 #define REPRO_MAX_BINDINGS 8
 #define REPRO_SCAN_THREADS 1024
+#define REPRO_BIND_WORDS 5  // npos, nneg, key-is-int64, qk, ql (or 0)
 
 struct Binding {
   Region r[REPRO_MAX_REGIONS];  // positives first, then negatives
   const void* qk;               // [W] lookup keys of this binding
+  const i64* ql;                // [W] lo words of a composite binding
   int npos;
   int nneg;
   int q64;
@@ -50,6 +55,9 @@ __host__ __device__ inline long long sc_counts(int nb, int W) {
   return (long long)nb * REPRO_MAX_REGIONS * W;
 }
 
+// LO: some binding of the level is composite (its `ql` is non-null);
+// the 1-word instantiation compiles the composite branches out.
+template <bool LO>
 __global__ void extend_count(const __grid_constant__ ExtendArgs a, int W,
                              const int* wk, const int* valid, int* starts,
                              int* counts, int* min_i, int* remaining) {
@@ -60,10 +68,14 @@ __global__ void extend_count(const __grid_constant__ ExtendArgs a, int W,
   for (int b = 0; b < a.nb; ++b) {
     const Binding& bd = a.b[b];
     i64 q = load_key(bd.qk, bd.q64, w);
+    bool comp = LO && bd.ql != nullptr;
+    i64 ql = comp ? bd.ql[w] : 0;
     unsigned tot = 0;
     for (int r = 0; r < bd.npos; ++r) {
-      int s = key_bound(bd.r[r], q, false);
-      int e = key_bound(bd.r[r], q, true);
+      int s = comp ? key_bound2(bd.r[r], q, ql, false)
+                   : key_bound(bd.r[r], q, false);
+      int e = comp ? key_bound2(bd.r[r], q, ql, true)
+                   : key_bound(bd.r[r], q, true);
       long long at = ((long long)b * REPRO_MAX_REGIONS + r) * W + w;
       starts[at] = s;
       counts[at] = e - s;
@@ -116,6 +128,7 @@ __global__ void extend_budget(int W, int B, const int* remaining,
   }
 }
 
+template <bool LO>
 __global__ void extend_propose(const __grid_constant__ ExtendArgs a, int W,
                                int B, const int* wk, const int* starts,
                                const int* counts,
@@ -158,9 +171,11 @@ __global__ void extend_propose(const __grid_constant__ ExtendArgs a, int W,
   for (int b = 0; b < a.nb; ++b) {
     const Binding& bd = a.b[b];
     i64 q = load_key(bd.qk, bd.q64, r);
+    bool comp = LO && bd.ql != nullptr;
+    i64 ql = comp ? bd.ql[r] : 0;
     int wp = 0, wn = 0;
     for (int x = 0; x < bd.npos + bd.nneg; ++x) {
-      int h = member_of(bd.r[x], q, c);
+      int h = comp ? member3_of(bd.r[x], q, ql, c) : member_of(bd.r[x], q, c);
       if (x < bd.npos) wp += h; else wn += h;
     }
     bool is_min = mi == b;
@@ -189,16 +204,24 @@ extern "C" int repro_extend(const int64_t* desc, const int64_t* bind, int nb,
   ExtendArgs a;
   a.nb = nb;
   int reg = 0;
+  int any_lo = 0;
   for (int b = 0; b < nb; ++b) {
     Binding& bd = a.b[b];
-    bd.npos = (int)bind[4 * b + 0];
-    bd.nneg = (int)bind[4 * b + 1];
-    bd.q64 = (int)bind[4 * b + 2];
-    bd.qk = (const void*)bind[4 * b + 3];
-    if (bd.npos < 1 || bd.npos + bd.nneg > REPRO_MAX_REGIONS)
+    bd.npos = (int)bind[REPRO_BIND_WORDS * b + 0];
+    bd.nneg = (int)bind[REPRO_BIND_WORDS * b + 1];
+    bd.q64 = (int)bind[REPRO_BIND_WORDS * b + 2];
+    bd.qk = (const void*)bind[REPRO_BIND_WORDS * b + 3];
+    bd.ql = (const i64*)bind[REPRO_BIND_WORDS * b + 4];
+    int nr = bd.npos + bd.nneg;
+    int lo = 0;
+    // a binding's regions are all composite or none, as its key is
+    if (bd.npos < 1 || nr > REPRO_MAX_REGIONS ||
+        !lo_uniform(desc + REPRO_DESC_WORDS * reg, nr, &lo) ||
+        (lo != 0) != (bd.ql != nullptr))
       return (int)cudaErrorInvalidValue;
-    for (int x = 0; x < bd.npos + bd.nneg; ++x)
-      bd.r[x] = region_from(desc + 5 * (reg++));
+    any_lo |= lo;
+    for (int x = 0; x < nr; ++x)
+      bd.r[x] = region_from(desc + REPRO_DESC_WORDS * (reg++));
   }
   long long nc = sc_counts(nb, W);
   int* starts = scratch;
@@ -206,14 +229,24 @@ extern "C" int repro_extend(const int64_t* desc, const int64_t* bind, int nb,
   int* min_i = scratch + 2 * nc;
   int* remaining = min_i + W;
   int* aacum = remaining + W;
-  REPRO_LAUNCH(extend_count, grid_for(W, REPRO_THREADS), REPRO_THREADS,
-               stream, a, W, wk, valid, starts, counts, min_i, remaining);
+  if (any_lo)
+    REPRO_LAUNCH(extend_count<true>, grid_for(W, REPRO_THREADS),
+                 REPRO_THREADS, stream, a, W, wk, valid, starts, counts,
+                 min_i, remaining);
+  else
+    REPRO_LAUNCH(extend_count<false>, grid_for(W, REPRO_THREADS),
+                 REPRO_THREADS, stream, a, W, wk, valid, starts, counts,
+                 min_i, remaining);
   REPRO_LAUNCH(extend_budget, 1, REPRO_SCAN_THREADS, stream, W, B,
                remaining, valid, allowed, consumed, aacum, counters);
-  if (B > 0) {
-    REPRO_LAUNCH(extend_propose, grid_for(B, REPRO_THREADS), REPRO_THREADS,
-                 stream, a, W, B, wk, starts, counts, min_i, allowed,
-                 aacum, cand, row, alive, counters);
+  if (B > 0 && any_lo) {
+    REPRO_LAUNCH(extend_propose<true>, grid_for(B, REPRO_THREADS),
+                 REPRO_THREADS, stream, a, W, B, wk, starts, counts, min_i,
+                 allowed, aacum, cand, row, alive, counters);
+  } else if (B > 0) {
+    REPRO_LAUNCH(extend_propose<false>, grid_for(B, REPRO_THREADS),
+                 REPRO_THREADS, stream, a, W, B, wk, starts, counts, min_i,
+                 allowed, aacum, cand, row, alive, counters);
   }
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,10 @@
 // the precomputed `in_ba` bits of udel's rows in base.
 //
 // Replaces the TPU kernel src/repro/kernels/merge/fold.py
-// (make_fold_kernel / _fold_call, 1-word keys).
+// (make_fold_kernel(composite) / _fold_call): the 1-word form and, as the
+// LO instantiation, the composite form that carries the int64 lo word
+// through every probe (3-word compares) and every scatter (lo padded with
+// int64-max).
 //
 // Bound on the H100: bytes.  Every entry of the four regions is read and
 // both outputs are written; the probes between the (delta-sized and
@@ -32,6 +35,7 @@ struct FoldArgs {
   const int* in_ba;
 };
 
+template <bool LO>
 __global__ void fold_masks(const __grid_constant__ FoldArgs a, int* flags) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   int cap_ci = a.ci.cap, cap_ui = a.ui.cap, cap_ud = a.ud.cap;
@@ -40,21 +44,23 @@ __global__ void fold_masks(const __grid_constant__ FoldArgs a, int* flags) {
   if (i < cap_ci) {  // kept = cins \ udel
     if (i < live_of(a.ci)) {
       i64 k = load_key(a.ci.key, a.ci.k64, i);
-      keep = !member_of(a.ud, k, a.ci.val[i]);
+      keep = !member_w<LO>(a.ud, k, load_lo<LO>(a.ci, i), a.ci.val[i]);
     }
   } else if (i < cap_ci + cap_ui) {  // fresh = uins \ cdel \ kept
     int j = i - cap_ci;
     if (j < live_of(a.ui)) {
       i64 k = load_key(a.ui.key, a.ui.k64, j);
+      i64 l = load_lo<LO>(a.ui, j);
       int v = a.ui.val[j];
-      bool in_kept = member_of(a.ci, k, v) && !member_of(a.ud, k, v);
-      keep = !member_of(a.cd, k, v) && !in_kept;
+      bool in_kept = member_w<LO>(a.ci, k, l, v) &&
+                     !member_w<LO>(a.ud, k, l, v);
+      keep = !member_w<LO>(a.cd, k, l, v) && !in_kept;
     }
   } else {  // dead = (udel ∩ base) \ cdel
     int j = i - cap_ci - cap_ui;
     if (j < live_of(a.ud) && a.in_ba[j] != 0) {
       i64 k = load_key(a.ud.key, a.ud.k64, j);
-      keep = !member_of(a.cd, k, a.ud.val[j]);
+      keep = !member_w<LO>(a.cd, k, load_lo<LO>(a.ud, j), a.ud.val[j]);
     }
   }
   flags[i] = keep;
@@ -118,17 +124,27 @@ __device__ __forceinline__ void put(void* key, int* val, int cap, int pos,
   }
 }
 
-__device__ __forceinline__ void put_any(int k64, void* key, int* val,
-                                        int cap, int pos, i64 k, int v) {
-  if (k64) put<i64>(key, val, cap, pos, k, v);
-  else put<int>(key, val, cap, pos, k, v);
+// One output region: key (int32 or int64), val, and the composite lo word.
+struct Out {
+  void* key;
+  int* val;
+  i64* lo;
+  int cap;
+};
+
+template <bool LO>
+__device__ __forceinline__ void put_any(int k64, const Out& o, int pos,
+                                        i64 k, i64 l, int v) {
+  if (k64) put<i64>(o.key, o.val, o.cap, pos, k, v);
+  else put<int>(o.key, o.val, o.cap, pos, k, v);
+  if (LO && pos >= 0 && pos < o.cap) o.lo[pos] = l;
 }
 
+template <bool LO>
 __global__ void fold_scatter(const __grid_constant__ FoldArgs a,
-                             const int* excl, int k64, void* oci_key,
-                             int* oci_val, int* oci_n, int cap_oci,
-                             void* ocd_key, int* ocd_val, int* ocd_n,
-                             int cap_ocd) {
+                             const int* excl, int k64, Out oci, int* oci_n,
+                             Out ocd, int* ocd_n) {
+  const int cap_oci = oci.cap, cap_ocd = ocd.cap;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   int cap_ci = a.ci.cap, cap_ui = a.ui.cap, cap_ud = a.ud.cap;
   int s_ui = cap_ci, s_ud = cap_ci + cap_ui, L = s_ud + cap_ud;
@@ -140,48 +156,53 @@ __global__ void fold_scatter(const __grid_constant__ FoldArgs a,
   int n_oci = n_kept + n_fresh;
   int n_ocd = n_cd + n_dead;
   const i64 sent = k64 ? (i64)0x7fffffffffffffffLL : (i64)0x7fffffff;
+  const i64 sent_lo = (i64)0x7fffffffffffffffLL;
   if (i < cap_ci) {  // kept cins entry -> a + |{fresh < it}|
     int j = (int)i;
     if (excl[j + 1] != excl[j]) {
       i64 k = load_key(a.ci.key, a.ci.k64, j);
+      i64 l = load_lo<LO>(a.ci, j);
       int v = a.ci.val[j];
-      int p = lex_bound(a.ui, live_of(a.ui), k, v, false);
+      int p = lex_bound_w<LO>(a.ui, live_of(a.ui), k, l, v, false);
       int pos = (excl[j] - excl[0]) + (excl[s_ui + p] - excl[s_ui]);
-      put_any(k64, oci_key, oci_val, cap_oci, pos, k, v);
+      put_any<LO>(k64, oci, pos, k, l, v);
     }
   } else if (i < s_ud) {  // fresh uins entry -> f + |{kept < it}|
     int j = (int)i - s_ui;
     if (excl[s_ui + j + 1] != excl[s_ui + j]) {
       i64 k = load_key(a.ui.key, a.ui.k64, j);
+      i64 l = load_lo<LO>(a.ui, j);
       int v = a.ui.val[j];
-      int q = lex_bound(a.ci, live_of(a.ci), k, v, false);
+      int q = lex_bound_w<LO>(a.ci, live_of(a.ci), k, l, v, false);
       int pos = (excl[s_ui + j] - excl[s_ui]) + (excl[q] - excl[0]);
-      put_any(k64, oci_key, oci_val, cap_oci, pos, k, v);
+      put_any<LO>(k64, oci, pos, k, l, v);
     }
   } else if (i < L) {  // dead udel entry -> d + |{cdel < it}|
     int j = (int)i - s_ud;
     if (excl[s_ud + j + 1] != excl[s_ud + j]) {
       i64 k = load_key(a.ud.key, a.ud.k64, j);
+      i64 l = load_lo<LO>(a.ud, j);
       int v = a.ud.val[j];
-      int q = lex_bound(a.cd, n_cd, k, v, false);
+      int q = lex_bound_w<LO>(a.cd, n_cd, k, l, v, false);
       int pos = (excl[s_ud + j] - excl[s_ud]) + q;
-      put_any(k64, ocd_key, ocd_val, cap_ocd, pos, k, v);
+      put_any<LO>(k64, ocd, pos, k, l, v);
     }
   } else if (i < (long long)L + cap_cd) {  // cdel entry -> i + |{dead < it}|
     int j = (int)(i - L);
     if (j < n_cd) {
       i64 k = load_key(a.cd.key, a.cd.k64, j);
+      i64 l = load_lo<LO>(a.cd, j);
       int v = a.cd.val[j];
-      int p = lex_bound(a.ud, live_of(a.ud), k, v, false);
+      int p = lex_bound_w<LO>(a.ud, live_of(a.ud), k, l, v, false);
       int pos = j + (excl[s_ud + p] - excl[s_ud]);
-      put_any(k64, ocd_key, ocd_val, cap_ocd, pos, k, v);
+      put_any<LO>(k64, ocd, pos, k, l, v);
     }
   } else if (i < (long long)L + cap_cd + cap_oci) {  // cins' padding
     int t = (int)(i - L - cap_cd);
-    if (t >= n_oci) put_any(k64, oci_key, oci_val, cap_oci, t, sent, 0);
+    if (t >= n_oci) put_any<LO>(k64, oci, t, sent, sent_lo, 0);
   } else if (i < (long long)L + cap_cd + cap_oci + cap_ocd) {  // cdel' pad
     int t = (int)(i - L - cap_cd - cap_oci);
-    if (t >= n_ocd) put_any(k64, ocd_key, ocd_val, cap_ocd, t, sent, 0);
+    if (t >= n_ocd) put_any<LO>(k64, ocd, t, sent, sent_lo, 0);
   }
   if (i == 0) {
     *oci_n = n_oci;
@@ -199,35 +220,51 @@ extern "C" int repro_commit_fold_scratch(int cap_ci, int cap_ui, int cap_ud) {
   return (int)(2 * L + 1 + ntiles_of(L));
 }
 
+// `oci_lo` / `ocd_lo` are the outputs' lo words for composite regions,
+// null otherwise.
 extern "C" int repro_commit_fold(const int64_t* desc, const int* in_ba,
                                  int* scratch, void* oci_key, int* oci_val,
-                                 int* oci_n, int cap_oci, void* ocd_key,
-                                 int* ocd_val, int* ocd_n, int cap_ocd,
-                                 void* stream) {
+                                 i64* oci_lo, int* oci_n, int cap_oci,
+                                 void* ocd_key, int* ocd_val, i64* ocd_lo,
+                                 int* ocd_n, int cap_ocd, void* stream) {
   FoldArgs a;
   a.ci = region_from(desc);
-  a.cd = region_from(desc + 5);
-  a.ui = region_from(desc + 10);
-  a.ud = region_from(desc + 15);
+  a.cd = region_from(desc + REPRO_DESC_WORDS);
+  a.ui = region_from(desc + 2 * REPRO_DESC_WORDS);
+  a.ud = region_from(desc + 3 * REPRO_DESC_WORDS);
   a.in_ba = in_ba;
   int k64 = a.ci.k64;
-  if (a.cd.k64 != k64 || a.ui.k64 != k64 || a.ud.k64 != k64)
+  int lo = 0;
+  if (a.cd.k64 != k64 || a.ui.k64 != k64 || a.ud.k64 != k64 ||
+      !lo_uniform(desc, 4, &lo) || (lo != 0) != (oci_lo != nullptr) ||
+      (lo != 0) != (ocd_lo != nullptr))
     return (int)cudaErrorInvalidValue;
+  Out oci = {oci_key, oci_val, oci_lo, cap_oci};
+  Out ocd = {ocd_key, ocd_val, ocd_lo, cap_ocd};
   long long L = (long long)a.ci.cap + a.ui.cap + a.ud.cap;
   int T = ntiles_of(L);
   int* flags = scratch;
   int* excl = scratch + L;
   unsigned* tiles = (unsigned*)(scratch + 2 * L + 1);
-  REPRO_LAUNCH(fold_masks, grid_for(L, REPRO_THREADS), REPRO_THREADS, stream,
-               a, flags);
+  if (lo)
+    REPRO_LAUNCH(fold_masks<true>, grid_for(L, REPRO_THREADS), REPRO_THREADS,
+                 stream, a, flags);
+  else
+    REPRO_LAUNCH(fold_masks<false>, grid_for(L, REPRO_THREADS),
+                 REPRO_THREADS, stream, a, flags);
   REPRO_LAUNCH(scan_tiles, T, REPRO_THREADS, stream, flags, (int)L, tiles);
   REPRO_LAUNCH(scan_tile_sums, 1, REPRO_SCAN_THREADS, stream, tiles, T);
   REPRO_LAUNCH(scan_apply, T, REPRO_THREADS, stream, flags, (int)L, tiles,
                excl);
   long long total = L + a.cd.cap + cap_oci + cap_ocd;
-  REPRO_LAUNCH(fold_scatter, grid_for(total, REPRO_THREADS), REPRO_THREADS,
-               stream, a, excl, k64, oci_key, oci_val, oci_n, cap_oci,
-               ocd_key, ocd_val, ocd_n, cap_ocd);
+  if (lo)
+    REPRO_LAUNCH(fold_scatter<true>, grid_for(total, REPRO_THREADS),
+                 REPRO_THREADS, stream, a, excl, k64, oci, oci_n, ocd,
+                 ocd_n);
+  else
+    REPRO_LAUNCH(fold_scatter<false>, grid_for(total, REPRO_THREADS),
+                 REPRO_THREADS, stream, a, excl, k64, oci, oci_n, ocd,
+                 ocd_n);
   return (int)cudaGetLastError();
 }
 

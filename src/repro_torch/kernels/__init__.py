@@ -5,19 +5,22 @@ Every wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain version, a CUDA tensor launches the kernel (or raises).  There is
 no fallback from one to the other.  Each wrapper adds one to its entry in
 :data:`LAUNCHES` per call that launches its kernel, and nowhere else, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels.  Each kernel
+has a 1-word and a composite (hi, lo) variant; a launch of the composite
+one counts under the kernel's ``_lex`` name (:data:`VARIANTS`).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 KERNELS = ("signed_member", "fused_extend", "rank_lt_le", "commit_fold")
+VARIANTS = KERNELS + tuple(f"{name}_lex" for name in KERNELS)
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: Dict[str, int] = {name: 0 for name in VARIANTS}
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in VARIANTS:
         LAUNCHES[name] = 0
 
 

@@ -36,17 +36,17 @@ DESC = ctypes.POINTER(ctypes.c_int64)
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "intersect": {
-        "repro_signed_member": (DESC, I, I, P, I, P, I, P, P, P),
+        "repro_signed_member": (DESC, I, I, P, I, P, P, I, P, P, P),
     },
     "merge_rank": {
-        "repro_rank": (DESC, P, I, P, I, P, P, P),
+        "repro_rank": (DESC, P, I, P, P, I, P, P, P),
     },
     "extend": {
         "repro_extend": (DESC, DESC, I, I, I, P, P, P, P, P, P, P, P, P, P),
         "repro_extend_scratch": (I, I),
     },
     "fold": {
-        "repro_commit_fold": (DESC, P, P, P, P, P, I, P, P, P, I, P),
+        "repro_commit_fold": (DESC, P, P, P, P, P, P, I, P, P, P, P, I, P),
         "repro_commit_fold_scratch": (I, I, I),
     },
 }
@@ -147,8 +147,9 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+def ptr(t) -> int:
+    """A tensor's device address; ``None`` (an absent lo word) is 0."""
+    return 0 if t is None else t.data_ptr()
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:
@@ -159,9 +160,25 @@ def require_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError("CUDA kernels take contiguous tensors")
 
 
+def lo_of(region):
+    """A region's composite lo word, or None."""
+    return getattr(region, "lo", None)
+
+
+def uniform_lo(regions) -> bool:
+    """True when every region is composite, False when none is; a launch
+    that mixes the two layouts is refused."""
+    kinds = {lo_of(r) is not None for r in regions}
+    if len(kinds) > 1:
+        raise ValueError("a launch mixes composite (hi, lo) and 1-word "
+                         "regions")
+    return kinds == {True}
+
+
 def region_desc(regions) -> ctypes.Array:
-    """Host descriptor array of sorted regions: per region five int64 words
-    (key pointer, val pointer, n pointer, capacity, key is int64)."""
+    """Host descriptor array of sorted regions: per region six int64 words
+    (key pointer, val pointer, n pointer, capacity, key is int64, lo
+    pointer or 0)."""
     words = []
     for r in regions:
         require_cuda(r.key, r.val, r.n)
@@ -169,8 +186,14 @@ def region_desc(regions) -> ctypes.Array:
             raise ValueError("regions carry int32 val and n")
         if r.key.dtype not in (torch.int32, torch.int64):
             raise ValueError(f"unsupported key dtype {r.key.dtype}")
+        lo = lo_of(r)
+        if lo is not None:
+            require_cuda(lo)
+            if lo.dtype != torch.int64 or lo.shape != r.key.shape:
+                raise ValueError("a composite lo word is int64 shaped like "
+                                 "its key")
         words += [ptr(r.key), ptr(r.val), ptr(r.n), r.key.shape[0],
-                  int(r.key.dtype == torch.int64)]
+                  int(r.key.dtype == torch.int64), ptr(lo)]
     return (ctypes.c_int64 * max(len(words), 1))(*words)
 
 

@@ -62,7 +62,7 @@ def fused_extend_ref(pos, neg, qks, wk, valid, batch: int):
     alive = pvalid
     n_isect = torch.zeros((), dtype=torch.int32, device=dev)
     for bi, (p_regions, n_regions, qk) in enumerate(zip(pos, neg, qks)):
-        q = qk[rl]
+        q = (qk[0][rl], qk[1][rl]) if isinstance(qk, tuple) else qk[rl]
         wpos = torch.zeros(B, dtype=torch.int32, device=dev)
         wneg = torch.zeros(B, dtype=torch.int32, device=dev)
         for reg in p_regions:

@@ -7,10 +7,11 @@ import torch
 from repro_torch.core.csr import index_member
 
 
-def signed_member_ref(pos, neg, qk: torch.Tensor, qv: torch.Tensor):
+def signed_member_ref(pos, neg, qk, qv: torch.Tensor):
     """(wpos, wneg) int32 [B]: hit counts of each (qk, qv) over the
-    positive / negative regions."""
-    wpos = torch.zeros(qk.shape, dtype=torch.int32, device=qk.device)
+    positive / negative regions (``qk`` a (hi, lo) pair for composite
+    regions)."""
+    wpos = torch.zeros(qv.shape, dtype=torch.int32, device=qv.device)
     wneg = torch.zeros_like(wpos)
     for reg in pos:
         wpos = wpos + index_member(reg, qk, qv).to(torch.int32)
