@@ -48,6 +48,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# the composite kernels' relations: the triangles of R-MAT scale 14 (the
+# tri serve cell's 4,506,715 tuples) and random 4-column rows as many as
+# the 4-cliques of R-MAT scale 12 (rmat_graph seed 0, edge factor 16)
+TRI_SCALE = 14
+QUAD_ROWS = 14_599_324
 
 
 def log(msg: str) -> None:
@@ -145,19 +150,13 @@ def _device_events(prof):
     recorded on the card, read from the raw Kineto records: building the
     profiler's FunctionEvents for an epoch of 20,000 launches took minutes
     on the chip machine's host."""
-    try:
-        raw = prof.profiler.kineto_results.events()
-        out = []
-        for ev in raw:
-            if ev.device_type().name == "CUDA":
-                a = ev.start_ns() / 1e3
-                b = a + ev.duration_ns() / 1e3
-                out.append((ev.name(), b - a, a, b))
-        return out
-    except AttributeError:  # a torch without the raw records
-        return [(ev.name, ev.time_range.end - ev.time_range.start,
-                 ev.time_range.start, ev.time_range.end)
-                for ev in prof.events() if ev.device_type.name == "CUDA"]
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type().name == "CUDA":
+            a = ev.start_ns() / 1e3
+            b = a + ev.duration_ns() / 1e3
+            out.append((ev.name(), b - a, a, b))
+    return out
 
 
 def device_ms(fn, reps: int, kernel: str):
@@ -798,12 +797,34 @@ def require_launches(label, counts, names):
                              f"({counts})")
 
 
-def open_nary_session(edges, names, update_batch, ratio):
-    """A session with the edge queries, each n-ary relation materialised
-    on the card from its feeding query, then the n-ary queries.  Returns
-    (session, handles, relations, initial rows, build seconds)."""
+def relation_rows(edges, rel, built, handle=None):
+    """The rows of n-ary relation ``rel`` over ``edges`` and the seconds
+    their enumeration took on the card: its feeding query enumerated at
+    the session's own sizing, through ``handle`` or else a session of its
+    own.  A ``built`` dict shared between callers keeps them per graph, so
+    the kernels phase and the serve cell over one graph enumerate once."""
     from repro_torch.api import GraphSession
     from repro_torch.core.delta import _unique_rows
+    if built is not None and rel in built and built[rel][0] is edges:
+        return built[rel][1:]
+    if handle is None:
+        handle = GraphSession(edges, device=DEVICE).register(FEEDS[rel])
+    sync()
+    t = time.time()
+    rows, _ = handle.enumerate()
+    sync()
+    out = (_unique_rows(rows), time.time() - t)
+    if built is not None:
+        built[rel] = (edges,) + out
+    return out
+
+
+def open_nary_session(edges, names, update_batch, ratio, built=None):
+    """A session with the edge queries, each n-ary relation materialised
+    on the card from its feeding query (``relation_rows``), then the n-ary
+    queries.  Returns (session, handles, relations, initial rows, build
+    seconds)."""
+    from repro_torch.api import GraphSession
     session = GraphSession(edges, device=DEVICE, update_batch=update_batch,
                            compact_ratio=ratio)
     rels = nary_relations(names)
@@ -816,12 +837,8 @@ def open_nary_session(edges, names, update_batch, ratio):
         feeder = FEEDS[rel]
         if feeder not in handles:
             handles[feeder] = session.register(feeder)
-        sync()
-        t = time.time()
-        rows, _ = handles[feeder].enumerate()
-        sync()
-        build[rel] = time.time() - t
-        rows0[rel] = _unique_rows(rows)
+        rows0[rel], build[rel] = relation_rows(edges, rel, built,
+                                               handles[feeder])
         session.add_relation(rel, rows0[rel])
         log(f"  {rel}: {rows0[rel].shape[0]} tuples from {feeder} in "
             f"{build[rel]:.2f} s on the card")
@@ -965,10 +982,13 @@ def verify_phase(scale: int, names, epochs: int, update_batch: int,
     return counts
 
 
-def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed):
+def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
+                     built):
     """The n-ary path at a realistic state size: warm latency of the edge
     epoch and of the relation epoch apart, the relation's build time on
-    the card, peak device memory, launches, and one profiled epoch."""
+    the card (taken where it was enumerated, the kernels phase for the
+    default cell), peak device memory from the session's opening on,
+    launches, and one profiled epoch."""
     import torch
     from repro_torch import kernels
     from repro_torch.data.synthetic import EdgeUpdateStream
@@ -976,7 +996,7 @@ def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed):
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
     session, handles, rels, host, build = open_nary_session(
-        edges, names, update_batch, ratio)
+        edges, names, update_batch, ratio, built)
     log(f"  serve: n-ary session over |E|={edges.shape[0]} built in "
         f"{time.time() - t:.2f} s")
     stream = EdgeUpdateStream(nv, update_batch, seed=seed + 2)
@@ -1083,19 +1103,6 @@ def random_relation(n: int, arity: int, nv: int, seed: int) -> np.ndarray:
     return rows
 
 
-def relation_rows_on_card(edges, feeder: str) -> np.ndarray:
-    """The relation a feeding query materialises over ``edges``,
-    enumerated by the port on the card (with B' = 8192 and room for 2^24
-    rows: the AGM sizing's B' = 1024 and 2^22 rows make the scale-14
-    triangles a 70 s build with one escalation)."""
-    from repro_torch.api import GraphSession
-    from repro_torch.core.delta import _unique_rows
-    session = GraphSession(edges, device=DEVICE, batch=8192,
-                           out_capacity=1 << 24)
-    rows, _ = session.register(feeder).enumerate()
-    return _unique_rows(rows)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", action="append", type=parse_cell,
@@ -1112,12 +1119,6 @@ def main() -> int:
     ap.add_argument("--update-batch", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tri-scale", type=int, default=14,
-                    help="R-MAT scale whose triangles are the composite "
-                    "kernels' ternary relation")
-    ap.add_argument("--quad-rows", type=int, default=14_599_324,
-                    help="rows of the composite kernels' 4-ary relation "
-                    "(the 4-clique count of R-MAT scale 12)")
     args = ap.parse_args()
     # diamond's epochs at scale 16 take 9-20 s each on the host-bound
     # BiGJoin loop and the triangle oracle at scale 14 seconds per epoch,
@@ -1155,6 +1156,7 @@ def main() -> int:
         log(f"  built {sorted(logs)} in {time.time() - t:.2f} s")
 
     graphs = {}
+    built = {}  # n-ary relation -> (graph, rows, seconds), see relation_rows
     with phase("graph"):
         for scale in sorted({c[0] for c in cells}):
             graphs[scale] = rmat_graph(scale, 16, seed=args.seed)
@@ -1164,13 +1166,14 @@ def main() -> int:
         top = max(graphs)
         table = kernel_phase(graphs[top], 1 << top, args.update_batch,
                              16 * args.update_batch, args.reps, args.seed)
-        tri_edges = graphs.get(args.tri_scale)
+        tri_edges = graphs.get(TRI_SCALE)
         if tri_edges is None:
-            tri_edges = rmat_graph(args.tri_scale, 16, seed=args.seed)
-        tri = relation_rows_on_card(tri_edges, "triangle")
-        quad = random_relation(args.quad_rows, 4, 1 << 12, args.seed)
-        log(f"  composite: tri of scale {args.tri_scale} = {tri.shape[0]} "
-            f"rows, random quad rows = {quad.shape[0]}")
+            tri_edges = rmat_graph(TRI_SCALE, 16, seed=args.seed)
+        tri, secs = relation_rows(tri_edges, "tri", built)
+        quad = random_relation(QUAD_ROWS, 4, 1 << 12, args.seed)
+        log(f"  composite: tri of scale {TRI_SCALE} = {tri.shape[0]} rows "
+            f"(enumerated on the card in {secs:.2f} s), random quad rows = "
+            f"{quad.shape[0]}")
         table.update(kernel_phase_lex(
             tri, quad, rmat_graph(12, 16, seed=args.seed),
             args.update_batch, 16 * args.update_batch, args.reps,
@@ -1192,10 +1195,13 @@ def main() -> int:
             edges = graphs[scale]
             ub = batch or args.update_batch
             ratio = 8 * ub / edges.shape[0]
-            run = serve_nary_phase if nary_relations(queries) \
-                else serve_phase
-            serve = run(edges, 1 << scale, queries, epochs or 20, ub, ratio,
-                        args.seed)
+            if nary_relations(queries):
+                serve = serve_nary_phase(edges, 1 << scale, queries,
+                                         epochs or 20, ub, ratio, args.seed,
+                                         built)
+            else:
+                serve = serve_phase(edges, 1 << scale, queries, epochs or 20,
+                                    ub, ratio, args.seed)
             for name in VARIANTS:
                 launches[name] += serve["launches"][name]
 

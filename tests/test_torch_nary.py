@@ -4,8 +4,9 @@ keys in the sorted indices, the composite variants of the four kernels
 (against the JAX kernels in interpret mode and their jnp references), a
 store holding ``tri``, ``quad`` and ``edge`` region for region, the
 4-clique-tri session epoch for epoch against ``repro.api.GraphSession``
-and against the edge-only 4-clique, 5-clique-quad against 5-clique, and the
-relation and batch validation errors."""
+and against the edge-only 4-clique, 5-clique-quad likewise against the JAX
+session and against 5-clique, and the relation and batch validation
+errors."""
 import numpy as np
 import pytest
 import torch
@@ -471,26 +472,47 @@ def _joined(*deltas):
     return canon_signed(np.concatenate(t), np.concatenate(w))
 
 
-def test_five_clique_quad_matches_five_clique_and_oracle():
+def test_five_clique_quad_matches_five_clique_and_oracle(monkeypatch):
     """The edge epoch moves 5-clique-quad through its edge atom (quad
-    old), the quad epoch through its quad atoms (edges new); together they
-    equal the edge-only 5-clique's delta and the oracle's."""
+    old), the quad epoch through its quad atoms (edges new); each epoch's
+    deltas, work counters, relation batches and live LSM regions equal the
+    JAX session's (plain jnp paths, as above), and together the two
+    epochs equal the edge-only 5-clique's delta and the oracle's."""
+    import functools
+    import repro.api.session as jsession
+    from repro.api import GraphSession as JSession
+    from repro.core.bigjoin import BigJoinConfig as JConfig
+    monkeypatch.setattr(jsession, "BigJoinConfig",
+                        functools.partial(JConfig, use_kernel=False))
+    monkeypatch.setattr(jdelta, "USE_MERGE_KERNEL", False)
     nv = 11
     e = _edge_graph(50, nv, 70)
-    ts = GraphSession(e, device="cpu", batch=256, out_capacity=1 << 14)
-    c4 = ts.register("4-clique")
-    ts.register("5-clique")
-    quad0, _ = c4.enumerate()
-    ts.add_relation("quad", quad0)
-    cq = ts.register(FIVE_CLIQUE_QUAD)
-    assert cq.count() == ts["5-clique"].count()
+    kw = dict(batch=256, out_capacity=1 << 14)
+    js = JSession(e, local=True, **kw)
+    ts = GraphSession(e, device="cpu", **kw)
+    for s in (js, ts):
+        c4 = s.register("4-clique")
+        s.register("5-clique")
+        quad0, _ = c4.enumerate()
+        s.add_relation("quad", quad0)
+        s.register(FIVE_CLIQUE_QUAD)
+    np.testing.assert_array_equal(ts.relation("quad"), js.relation("quad"))
+    cq = ts["5-clique-quad"]
+    assert cq.count() == ts["5-clique"].count() == js["5-clique"].count()
     rng = np.random.default_rng(51)
     live = e
     for epoch in range(6):
         upd, w = _dirty_batch(rng, nv, live, 10, 2)
         quad_before = ts.relation("quad")
-        r1 = ts.update(upd, w)
-        r2 = ts.update({"quad": _feed(r1.deltas["4-clique"], 4)})
+        jr1, r1 = js.update(upd, w), ts.update(upd, w)
+        for q in ("4-clique", "5-clique", "5-clique-quad"):
+            _deltas_equal(r1.deltas[q], jr1.deltas[q])
+        feed = {"quad": _feed(r1.deltas["4-clique"], 4)}
+        jr2, r2 = js.update(feed), ts.update(feed)
+        for rel in jr2.by_rel:
+            for x, y in zip(r2.by_rel[rel], jr2.by_rel[rel]):
+                np.testing.assert_array_equal(x, y)
+        _deltas_equal(r2.deltas["5-clique-quad"], jr2.deltas["5-clique-quad"])
         a = r1.deltas["5-clique"]
         got = _joined(r1.deltas["5-clique-quad"], r2.deltas["5-clique-quad"])
         assert got == canon_signed(a.tuples, a.weights), epoch
@@ -500,8 +522,16 @@ def test_five_clique_quad_matches_five_clique_and_oracle():
             {"quad": ts.relation("quad"), "edge": new})
         assert got == canon_signed(t, wt)
         live = new
-    assert cq.count() == ts["5-clique"].count()
-    assert cq.net_change == ts["5-clique"].net_change
+        for rel in ("edge", "quad"):
+            jl, tl = js.store._rels[rel], ts.store._rels[rel]
+            for name in ("lb", "lc_ins", "lc_del"):
+                same_index(getattr(tl, name), getattr(jl, name))
+    np.testing.assert_array_equal(ts.relation("quad"), js.relation("quad"))
+    assert ts.stats.live_compactions == js.stats.live_compactions
+    assert cq.count() == ts["5-clique"].count() == \
+        js["5-clique-quad"].count()
+    assert cq.net_change == ts["5-clique"].net_change == \
+        js["5-clique-quad"].net_change
 
 
 # ---------------------------------------------------------------------------
