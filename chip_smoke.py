@@ -4,14 +4,14 @@
 Phases, in order, each printed with its result and seconds:
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
-2. build    — compile the four CUDA kernels from ``src/repro_torch/csrc``;
-3. kernels  — every kernel, 1-word and composite (hi, lo) variant, against
-              its plain PyTorch version on the card at the main path's shapes
-              (int32 and int64 hi words), exact equality, with the kernel's
-              time (CUDA events around back-to-back calls, and its device
-              time from the profiler), the plain version's and one library
-              call's time, and the least time the card could take
-              (``bound_ms``);
+2. build    — compile the CUDA kernels from ``src/repro_torch/csrc``;
+3. kernels  — every kernel of the streaming engine, 1-word and composite
+              (hi, lo) variant, against its plain PyTorch version on the
+              card at the main path's shapes (int32 and int64 hi words),
+              exact equality, with the kernel's time (CUDA events around
+              back-to-back calls, and its device time from the profiler),
+              the plain version's and one library call's time, and the
+              least time the card could take (``bound_ms``);
 4. verify   — a GraphSession over dirty update epochs, one cell per
               (scale, queries): each epoch's signed delta equal to the numpy
               oracle (full recomputation), compaction included.  A cell
@@ -23,7 +23,19 @@ Phases, in order, each printed with its result and seconds:
               (scale, queries): warm per-epoch latency, peak device memory,
               each kernel's launch count (every kernel of the cell's path
               must launch) and the device idle share of one profiled warm
-              epoch.
+              epoch;
+6. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
+              defaults to step 10, relaunched to step 20: it resumes from
+              its checkpoint and ends with a finite loss;
+7. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
+              shape) on a 232,965-node graph: triangle features from the
+              port's BiGJoin on the card, sampled union graphs, the
+              segment_sum kernel against its plain version at that shape
+              (f32, f16, unsorted), the first step against the host's, then
+              6 steps: step ms, peak memory, idle share of a profiled step,
+              2 segment_sum launches per layer and step;
+8. train archs — one step of each GNN arch at smoke width and of a
+              graph_reg batch, the card's loss against the host's.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's ``name, power.limit``; the last line is
@@ -138,6 +150,8 @@ def search_bytes(idx, searches: int) -> float:
 # the CUDA kernels each wrapper launches, by the names the profiler shows
 KERNEL_FUNCS = {
     "signed_member": ("signed_member_kernel",),
+    "member": ("signed_member_kernel",),
+    "segment_sum": ("segsum_tiles", "segsum_gather"),
     "fused_extend": ("extend_count", "extend_budget", "extend_propose"),
     "rank_lt_le": ("rank_kernel",),
     "commit_fold": ("fold_masks", "scan_tiles", "scan_tile_sums",
@@ -192,13 +206,14 @@ def device_ms(fn, reps: int, kernel: str):
     return None
 
 
-def idle_share(fn):
+def idle_share(fn, by_name=None):
     """Run ``fn`` once under the profiler (CUDA activity only): (host
     seconds, device busy seconds, idle share, recorded launches of the
     port's kernels, their launches by the wrappers' counts) of that window,
     busy time being the union of every kernel and copy interval recorded on
     the card.  Where the profiler lost records the busy time is a lower
-    bound."""
+    bound.  A ``by_name`` dict receives each recorded activity's name
+    (cut to 80 characters) -> (launches, total milliseconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
@@ -214,6 +229,10 @@ def idle_share(fn):
     expected = sum((after[k] - before[k]) * per_call[k.removesuffix("_lex")]
                    for k in after)
     evs = _device_events(prof)
+    if by_name is not None:
+        for name, us, _a, _b in evs:
+            n, ms = by_name.get(name[:80], (0, 0.0))
+            by_name[name[:80]] = (n + 1, ms + us / 1e3)
     ours = sum(1 for name, *_ in evs
                if any(n in name for v in KERNEL_FUNCS.values() for n in v))
     spans = sorted((a, b) for _n, _us, a, b in evs)
@@ -370,6 +389,29 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         record("signed_member", err, ms, dms, pms, nbytes, ops, lms,
                f"{label} B={B} regions={len(mregs)}+{len(mnegs)} "
                f"cap={regs[0].capacity}", main=not narrow)
+
+        # -- single-region membership: the same queries against the live
+        # set's base alone (the eager re-insertion probe's shape)
+        if not narrow:
+            b0 = regs[0]
+
+            def mem_k():
+                return iops.member(b0.key, b0.val, b0.n, qk, qv)
+
+            def mem_p():
+                return iref.member_ref(b0.key, b0.val, b0.n, qk, qv)
+
+            got, want = mem_k(), mem_p()
+            sync()
+            err = max_abs_err((got,), (want,))
+            ms = cuda_ms(mem_k, reps)
+            dms = device_ms(mem_k, reps, "member")
+            pms = cuda_ms(mem_p, max(reps // 10, 2))
+            lms = cuda_ms(lambda: torch.isin(qk, words), reps)
+            nbytes = B * (kb + 4) + B + search_bytes(b0, B)
+            ops = B * depth(max(int(b0.n), 2))
+            record("member", err, ms, dms, pms, nbytes, ops, lms,
+                   f"{label} B={B} region=1 cap={b0.capacity}", main=True)
 
         # -- merge ranks (compaction: every base entry against cdel) -------
         a = negs[0]
@@ -566,6 +608,28 @@ def kernel_phase_lex(tri: np.ndarray, quad: np.ndarray, edges: np.ndarray,
                f"{label} B={B} regions=2+1 cap={base.capacity} "
                f"n={int(base.n)}", main=main)
 
+        # -- single-region membership of the same queries in the base
+        if main:
+            def lmem_k():
+                return iops.member(base.key, base.val, base.n, qk[0], qv,
+                                   los=base.lo, ql=qk[1])
+
+            def lmem_p():
+                return iref.member_ref(base.key, base.val, base.n, qk[0],
+                                       qv, los=base.lo, ql=qk[1])
+
+            got, want = lmem_k(), lmem_p()
+            sync()
+            err = max_abs_err((got,), (want,))
+            ms = cuda_ms(lmem_k, reps)
+            dms = device_ms(lmem_k, reps, "member_lex")
+            pms = cuda_ms(lmem_p, max(reps // 10, 2))
+            nbytes = B * (kb + 12) + B + search_bytes(base, B)
+            ops = B * depth(max(int(base.n), 2))
+            record("member_lex", err, ms, dms, pms, nbytes, ops, None,
+                   f"{label} B={B} region=1 cap={base.capacity} "
+                   f"n={int(base.n)}", main=True)
+
         # -- merge ranks: compaction ranks every base entry against cdel
         def rank_k():
             return mops.rank_lt_le(cd.key, cd.val, cd.n, base.key, base.val,
@@ -754,6 +818,8 @@ def serve_phase(edges, nv, queries, epochs, update_batch, ratio, seed):
 # ---------------------------------------------------------------------------
 
 FEEDS = {"tri": "triangle", "quad": "4-clique"}  # relation <- its feeder
+SESSION_KERNELS = ("signed_member", "fused_extend", "rank_lt_le",
+                   "commit_fold")
 PATTERNS = {"5-clique-quad": "5-clique-quad(a,b,c,d,e) := quad(a,b,c,d), "
                              "quad(a,b,c,e), e(d,e)"}
 TWINS = {"4-clique-tri": "4-clique", "5-clique-quad": "5-clique"}
@@ -776,11 +842,11 @@ def nary_relations(names):
 
 
 def expected_kernels(handles, rels):
-    """The launch names a path must show: the four 1-word kernels; with an
-    n-ary relation its composite normalize, commit fold and ranks; and the
-    composite fused extend where a delta plan binds 3-4 columns."""
-    from repro_torch.kernels import KERNELS
-    names = list(KERNELS)
+    """The launch names a session path must show: the four 1-word kernels
+    of the streaming engine; with an n-ary relation its composite
+    normalize, commit fold and ranks; and the composite fused extend where
+    a delta plan binds 3-4 columns."""
+    names = list(SESSION_KERNELS)
     if rels:
         names += ["signed_member_lex", "rank_lt_le_lex", "commit_fold_lex"]
     if any(len(b.key_attrs) >= 3 for h in handles.values()
@@ -1069,6 +1135,335 @@ def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: GNN training (motif features -> sampler -> GNN with
+# segment_sum -> loss -> autograd -> AdamW -> checkpoint)
+# ---------------------------------------------------------------------------
+
+# the minibatch_lg shape: the 232,965-node graph of its note at the
+# driver's 8 edges per node, 1024 seeds at fanouts 15-10 per step
+TRAIN_NODES = 232_965
+TRAIN_SEEDS = 1024
+TRAIN_FANOUTS = [15, 10]
+TRAIN_STEPS = 6  # 1 cold + 5 warm
+SMOKE_ARCHS = ("egnn", "gat-cora", "graphcast", "gatedgcn")
+# segment_sum against its plain version: f32 sums in another order
+# (tile partials, then partials in row order, against index_add_'s row
+# order); f16 at the JAX package's own f16 tolerance (tests/test_kernels.py)
+SEGSUM_TOL = {"f32": (1e-5, 1e-4), "f16": (2e-2, 1e-3)}
+# card against host for one training step: f32 on both, matmuls and sums
+# in another order, through 16 layers at full width / 2 at smoke width
+FULL_STEP_RTOL = 1e-3
+SMOKE_STEP_RTOL = 1e-4
+
+
+def segment_sum_rows(table: dict, dst: np.ndarray, mask: np.ndarray,
+                     NS: int, D: int, reps: int, seed: int) -> None:
+    """segment_sum against its plain version on the card at the trainer's
+    shape: the rows sorted by destination as the wrapper sorts them, with
+    the trainer's layout of values (random messages on real edges, zeros
+    on the masked padding edges, which all point at node 0): f32 (the main
+    row), f16, and f32 through the unsorted wrapper path.  Then random
+    values on every row, the padding hub included, against the plain
+    version in float64: the kernel's error no larger than the f32 plain
+    version's (whose atomic adds run in a run-dependent order)."""
+    import torch
+    from repro_torch.kernels.segment_ops import ops as sops, ref as sref
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 13)
+    order = np.argsort(dst, kind="stable")
+    E = dst.shape[0]
+    seg = torch.from_numpy(dst[order].astype(np.int32)).to(dev)
+    live = torch.from_numpy(mask[order]).to(dev)
+    record = recorder(table)
+    for label, dtype, is_sorted, hub in (
+            ("f32", torch.float32, True, False),
+            ("f16", torch.float16, True, False),
+            ("f32", torch.float32, False, False),
+            ("f32", torch.float32, True, True)):
+        data = torch.from_numpy(rng.normal(size=(E, D)).astype(
+            np.float32)).to(dev)
+        if not hub:
+            data = data * live[:, None]
+        data = data.to(dtype)
+        ids = seg
+        if not is_sorted:
+            perm = torch.from_numpy(rng.permutation(E)).to(dev)
+            data, ids = data[perm], seg[perm]
+
+        def k():
+            return sops.segment_sum(data, ids, NS, is_sorted=is_sorted)
+
+        def p():
+            return sref.segment_sum_ref(data, ids, NS)
+
+        got = k()
+        want = p() if not hub else torch.zeros(
+            NS, D, dtype=torch.float64, device=dev).index_add_(
+                0, ids.long(), data.double())  # every id is below NS
+        sync()
+        rtol, atol = SEGSUM_TOL[label]
+        err = float((got.double() - want.double()).abs().max())
+        what = (f"segment_sum {label} sorted={is_sorted}"
+                f"{' all rows random, against float64' if hub else ''}")
+        if hub:
+            # a sum of ~10^5 rows: the rounding scales with its partial
+            # sums, not with the result, so the kernel is held to be no
+            # less exact than the f32 plain version
+            plain_err = float((p().double() - want).abs().max())
+            log(f"  {what}: max |err| kernel {err}, f32 plain version "
+                f"{plain_err} (segment 0 holds "
+                f"{int((seg == 0).sum())} rows)")
+            if got.shape != want.shape or err > max(plain_err, atol):
+                raise AssertionError(f"{what}: the kernel's error {err} "
+                                     f"exceeds the plain version's "
+                                     f"{plain_err}")
+            continue
+        if got.dtype != torch.float32 or got.shape != want.shape or \
+                not torch.allclose(got, want, rtol=rtol, atol=atol):
+            raise AssertionError(f"{what} disagrees with its plain version "
+                                 f"(max |err| = {err})")
+        ms = cuda_ms(k, reps)
+        dms = device_ms(k, reps, "segment_sum")
+        pms = cuda_ms(p, max(reps // 10, 2))
+        acc = torch.zeros(NS, D, dtype=dtype, device=dev)
+        idx = ids.long()
+        lms = cuda_ms(lambda: acc.index_add_(0, idx, data), reps)
+        nbytes = E * D * data.element_size() + E * 4 + NS * D * 4
+        record("segment_sum", err, ms, dms, pms, nbytes, E * D, lms,
+               f"{label} E={E} D={D} NS={NS} "
+               f"{'sorted' if is_sorted else 'unsorted'} rtol={rtol} "
+               f"atol={atol}", main=label == "f32" and is_sorted)
+
+
+def train_driver_phase(seed: int) -> dict:
+    """The port's driver (``launch/train.py`` main) with --arch gatedgcn
+    at its defaults, to step 10 and relaunched to step 20 in one
+    checkpoint directory: it must resume from step 10 and end with a
+    finite loss.  Returns the kernel launches of both runs."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    runs = []
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as ck:
+        for steps in (10, 20):
+            buf = io.StringIO()
+            t = time.time()
+            with contextlib.redirect_stdout(buf):
+                loss = train.main(["--arch", "gatedgcn", "--steps",
+                                   str(steps), "--seed", str(seed),
+                                   "--ckpt-dir", ck])
+            runs.append((loss, buf.getvalue()))
+            log(f"  train driver --steps {steps}: {time.time() - t:.2f} s")
+            for line in buf.getvalue().splitlines():
+                log(f"    {line}")
+    counts = kernels.launches()
+    if "resumed from step 10" not in runs[1][1]:
+        raise AssertionError("train driver: the relaunch did not resume "
+                             "from step 10")
+    if not np.isfinite(runs[1][0]):
+        raise AssertionError(f"train driver: final loss {runs[1][0]}")
+    require_launches("train driver", counts, ["segment_sum",
+                                              "fused_extend"])
+    log(f"  train driver: launches {counts}")
+    return counts
+
+
+def _loss_and_gnorm(model, batch, cfg):
+    """One forward and backward: (loss, pre-clip global gradient norm)."""
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import clip_by_global_norm
+    model.zero_grad(set_to_none=True)
+    loss, _ = G.loss_fn(model, batch, cfg)
+    loss.backward()
+    _, norm = clip_by_global_norm(
+        {k: p.grad for k, p in model.named_parameters()}, 1.0)
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), float(norm)
+
+
+def _close(a: float, b: float, rtol: float) -> bool:
+    return bool(np.isfinite(a) and abs(a - b) <= rtol * abs(b))
+
+
+def train_full_phase(table: dict, reps: int, seed: int) -> dict:
+    """GatedGCN at full width (16 layers, d 70; the minibatch_lg shape:
+    d_in 602, 41 classes) on a 232,965-node uniform graph: motif features
+    on the card, the sampler's union graphs padded to the shape, the
+    segment_sum kernel rows at this shape, the first step's loss and
+    gradient norm against the host's, then TRAIN_STEPS training steps."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_family import (SHAPES, _shape_cfg,
+                                                make_train_step)
+    from repro_torch.core.csr import Graph
+    from repro_torch.data.graph_sampler import NeighborSampler
+    from repro_torch.data.motifs import motif_features
+    from repro_torch.data.synthetic import uniform_graph
+    from repro_torch.launch.train import union_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw_init
+
+    shape = SHAPES["minibatch_lg"]
+    cfg = _shape_cfg(get_arch("gatedgcn").full_config, shape)
+    n_max = -(-shape["n_nodes"] // 512) * 512  # as the JAX dry-run pads
+    e_max = -(-shape["n_edges"] // 512) * 512
+    nv = TRAIN_NODES
+    edges = uniform_graph(nv, 8 * nv, seed=seed)
+    graph = Graph.from_edges(edges, nv)
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    kernels.reset_launches()
+    sync()
+    t = time.time()
+    motifs = motif_features(graph, ("triangle",))  # on the card
+    sync()
+    motif_s = time.time() - t
+    add(kernels.launches())
+    triangles = int(round(float(np.expm1(motifs[:, 0].astype(
+        np.float64)).sum()) / 3))
+    log(f"  train full: |V|={nv} |E|={graph.num_edges}, {triangles} "
+        f"triangles enumerated on the card in {motif_s:.2f} s "
+        f"(launches {kernels.launches()})")
+    rng = np.random.default_rng(seed)
+    feats = np.concatenate([rng.normal(size=(nv, shape["d_feat"] - 1))
+                            .astype(np.float32), motifs], 1)
+    labels = (motifs[:, 0] > np.median(motifs[:, 0])).astype(np.int32)
+    sampler = NeighborSampler(edges, nv)
+    batches, sizes = [], []
+    t = time.time()
+    for s in range(TRAIN_STEPS):
+        srng = np.random.default_rng(seed * 7919 + s)
+        seeds = srng.choice(nv, TRAIN_SEEDS, replace=False)
+        blocks = sampler.sample_blocks(seeds, TRAIN_FANOUTS, seed=seed + s)
+        sizes.append((len(blocks[0].src_nodes),
+                      sum(len(b.edge_src) for b in blocks)))
+        batches.append(union_batch(blocks, seeds, feats, labels, n_max,
+                                   e_max, DEVICE))
+    sample_s = time.time() - t
+    log(f"  train full: {TRAIN_STEPS} union graphs (nodes, edges) {sizes} "
+        f"padded to ({n_max}, {e_max}) in {sample_s:.2f} s")
+    del feats
+
+    # the kernel at the trainer's shape: the destinations of the first
+    # union graph (its padding edges all point at node 0)
+    segment_sum_rows(table, batches[0]["edge_dst"].cpu().numpy(),
+                     batches[0]["edge_mask"].cpu().numpy(), n_max,
+                     cfg.d_hidden, reps, seed)
+
+    # the first step on the card against the same step on the host
+    model = G.GNN(cfg, seed=seed)
+    host = G.GNN(cfg, seed=seed, device="cpu")
+    kernels.reset_launches()
+    card = _loss_and_gnorm(model, batches[0], cfg)
+    add(kernels.launches())
+    t = time.time()
+    cpu = _loss_and_gnorm(host, {k: v.cpu() for k, v in
+                                 batches[0].items()}, cfg)
+    log(f"  train full: first step loss / grad norm card {card}, host "
+        f"{cpu} (host step {time.time() - t:.2f} s)")
+    if not (_close(card[0], cpu[0], FULL_STEP_RTOL)
+            and _close(card[1], cpu[1], FULL_STEP_RTOL)):
+        raise AssertionError(f"train full: the card's first step {card} "
+                             f"differs from the host's {cpu}")
+    del host
+
+    opt = adamw_init(model)
+    step_fn = make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    secs, per_step, losses = [], [], []
+    for b in batches:
+        kernels.reset_launches()
+        sync()
+        t = time.time()
+        m = step_fn(model, opt, b)
+        loss = float(m["loss"])
+        sync()
+        secs.append(time.time() - t)
+        counts = kernels.launches()
+        add(counts)
+        per_step.append(counts["segment_sum"])
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  train full: step ms {[round(x * 1e3, 3) for x in secs]}, "
+        f"losses {losses}, segment_sum launches per step {per_step}")
+    if any(n != 2 * cfg.n_layers for n in per_step):
+        raise AssertionError(f"train full: segment_sum launches per step "
+                             f"{per_step}, expected {2 * cfg.n_layers}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train full: losses {losses}")
+    by_name = {}
+    wall, busy, idle, rec, exp = idle_share(
+        lambda: step_fn(model, opt, batches[-1]), by_name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    log(f"  train full: profiled warm step {wall * 1e3:.1f} ms, device "
+        f"busy {busy * 1e3:.1f} ms, idle share {idle} ({rec} of {exp} "
+        f"kernel launches recorded); device time by kernel (launches, ms):")
+    for name, (n, ms) in top:
+        log(f"    {ms:10.3f} ms {n:5d}x {name}")
+    warm = np.asarray(secs[1:]) * 1e3
+    out = dict(
+        layers=cfg.n_layers, d_hidden=cfg.d_hidden, d_in=cfg.d_in,
+        d_out=cfg.d_out, nodes=nv, edges=graph.num_edges,
+        union_sizes=sizes, padded=[n_max, e_max], motif_s=motif_s,
+        triangles=triangles, sample_s=sample_s, first_step_card=card,
+        first_step_host=cpu, first_step_ms=secs[0] * 1e3,
+        warm_p50_ms=float(np.percentile(warm, 50)),
+        warm_p99_ms=float(np.percentile(warm, 99)),
+        peak_mem_gib=peak, segment_sum_per_step=per_step,
+        profiled_step_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+        idle_share=idle, profiled_launches_recorded=[rec, exp],
+        top_kernels_ms={n: ms for n, (_c, ms) in top}, launches=totals)
+    log("  train full: " + json.dumps(out))
+    return totals
+
+
+def train_archs_phase(seed: int) -> dict:
+    """One training step of each arch at its smoke config, and one
+    graph_reg batch (graph_id pooling), on the card and on the host from
+    the same initial parameters: the losses agree and every card step
+    launches segment_sum."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_family import make_train_step, smoke_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw_init
+    cases = [(a, get_arch(a).smoke_config) for a in SMOKE_ARCHS]
+    cases.append(("graph_reg", dataclasses.replace(
+        get_arch("gatedgcn").smoke_config, task="graph_reg", d_out=1)))
+    totals = {}
+    for name, base in cases:
+        loss, seg = {}, {}
+        for dev in (DEVICE, "cpu"):
+            cfg, batch = smoke_batch(base, dev)
+            model = G.GNN(cfg, seed=seed, device=dev)
+            kernels.reset_launches()
+            m = make_train_step(cfg)(model, adamw_init(model), batch)
+            loss[dev] = float(m["loss"])
+            counts = kernels.launches()
+            seg[dev] = counts["segment_sum"]
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+        log(f"  train {name}: loss card {loss[DEVICE]} host {loss['cpu']}, "
+            f"segment_sum launches {seg[DEVICE]}")
+        if seg[DEVICE] == 0 or seg["cpu"] != 0:
+            raise AssertionError(f"train {name}: segment_sum launches "
+                                 f"{seg}")
+        if not _close(loss[DEVICE], loss["cpu"], SMOKE_STEP_RTOL):
+            raise AssertionError(f"train {name}: card loss {loss[DEVICE]} "
+                                 f"!= host {loss['cpu']}")
+    return totals
+
+
 SOURCES = {
     "signed_member": ("src/repro_torch/csrc/intersect.cu",
                       "src/repro/kernels/intersect/intersect.py:235"),
@@ -1078,6 +1473,10 @@ SOURCES = {
                    "src/repro/kernels/merge/merge.py:144"),
     "commit_fold": ("src/repro_torch/csrc/fold.cu",
                     "src/repro/kernels/merge/fold.py:244"),
+    "member": ("src/repro_torch/csrc/intersect.cu",
+               "src/repro/kernels/intersect/intersect.py:155"),
+    "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
+                    "src/repro/kernels/segment_ops/segment_ops.py:54"),
 }
 
 
@@ -1137,6 +1536,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    # f32 matmuls in full f32 (the defaults, stated): the train phases
+    # hold the card's steps to the host's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import VARIANTS, _build
     from repro_torch.data.synthetic import rmat_graph
 
@@ -1180,8 +1583,8 @@ def main() -> int:
             args.seed))
         del tri, quad
 
-    # every session run below starts its kernel counts at 0 and reads them
-    # after; the table's launches sum them over all these runs
+    # every session and training run below starts its kernel counts at 0
+    # and reads them after; the table's launches sum them over these runs
     launches = {name: 0 for name in VARIANTS}
     for scale, queries, epochs, batch in checks:
         with phase(f"verify {scale}:{','.join(queries)}"):
@@ -1204,6 +1607,18 @@ def main() -> int:
                                     ub, ratio, args.seed)
             for name in VARIANTS:
                 launches[name] += serve["launches"][name]
+
+    # the GNN training path; segment_sum's kernel rows come from the
+    # full-width phase, at the trainer's shape
+    for label, run in (
+            ("train driver", lambda: train_driver_phase(args.seed)),
+            ("train full", lambda: train_full_phase(table, args.reps,
+                                                    args.seed)),
+            ("train archs", lambda: train_archs_phase(args.seed))):
+        with phase(label):
+            counts = run()
+            for name in VARIANTS:
+                launches[name] += counts.get(name, 0)
 
     rows = []
     for name in VARIANTS:

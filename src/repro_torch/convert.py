@@ -1,7 +1,8 @@
-"""Carry index state across packages: host arrays (``key``, ``val``, ``n``
-as numpy, e.g. ``np.asarray`` of another package's index fields) become the
-port's :class:`IndexData` / :class:`VersionedIndex` on the device the
-caller names (``device`` is required: a conversion never picks one).
+"""Carry state across packages: host arrays (``key``, ``val``, ``n`` as
+numpy, e.g. ``np.asarray`` of another package's index fields) become the
+port's :class:`IndexData` / :class:`VersionedIndex`, and a GNN parameter
+tree of host arrays the port's ``GNN`` (:func:`gnn_params`), on the device
+the caller names (``device`` is required: a conversion never picks one).
 
 Duck-typed: anything with ``key``/``val``/``n`` attributes (and an optional
 composite ``lo`` word) converts, so the parity tests can feed both packages
@@ -54,3 +55,35 @@ def to_numpy(idx: IndexData):
     lo word is ``idx.lo``)."""
     return (idx.key.cpu().numpy(), idx.val.cpu().numpy(),
             np.int32(int(idx.n)))
+
+
+def _dotted(tree, prefix=""):
+    """Dotted name -> leaf of a nested dict (``layers.phi_e.w1``)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_dotted(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def gnn_params(params, cfg, *, device):
+    """The port's :class:`~repro_torch.models.gnn.GNN` of ``cfg`` on
+    ``device`` holding the parameters of a nested dict of host arrays
+    (the JAX package's GNN parameter tree as numpy, same names and stacked
+    ``[L, ...]`` layout), one to one."""
+    from repro_torch.models.gnn import GNN
+    model = GNN(cfg, device=device)
+    flat = _dotted(params)
+    own = dict(model.named_parameters())
+    if set(flat) != set(own):
+        raise ValueError(f"parameter names differ: "
+                         f"{sorted(set(flat) ^ set(own))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            arr = np.asarray(flat[name])
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {arr.shape} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
+    return model

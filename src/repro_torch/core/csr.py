@@ -414,3 +414,60 @@ def _select_core(a: IndexData, b: IndexData, capacity: int, keep_in_b: bool,
     if out_lo is not None:
         _scatter_drop(out_lo, pos, a.lo)
     return IndexData(out_k, out_v, k.sum(dtype=torch.int32), out_lo)
+
+
+# ---------------------------------------------------------------------------
+# Graph convenience: the dual-CSR edge index.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Graph:
+    """A directed graph as an edge list (numpy host container)."""
+
+    edges: np.ndarray  # [E, 2] int32 (src, dst), deduped
+    num_vertices: int
+
+    @classmethod
+    def from_edges(cls, edges: np.ndarray, num_vertices: int | None = None,
+                   dedup: bool = True) -> "Graph":
+        edges = np.asarray(edges, np.int32).reshape(-1, 2)
+        if dedup and edges.size:
+            edges = np.unique(edges, axis=0)
+        nv = int(num_vertices if num_vertices is not None
+                 else (edges.max() + 1 if edges.size else 0))
+        return cls(edges, nv)
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.edges.shape[0])
+
+    def forward(self, capacity: int | None = None, device=None
+                ) -> IndexData:
+        """src -> dst (out-neighbour) index on ``device`` (see
+        :func:`resolve_device`)."""
+        return build_index(self.edges, (0,), 1, capacity, device=device)
+
+    def reverse(self, capacity: int | None = None, device=None
+                ) -> IndexData:
+        """dst -> src (in-neighbour) index on ``device``."""
+        return build_index(self.edges, (1,), 0, capacity, device=device)
+
+    def undirected(self) -> "Graph":
+        e = np.concatenate([self.edges, self.edges[:, ::-1]], axis=0)
+        return Graph.from_edges(e, self.num_vertices)
+
+    def degree_relabel(self) -> "Graph":
+        """Symmetry-breaking preprocessing (§5.4): relabel vertices by
+        (degree, id) ascending and keep edges oriented low->high id."""
+        deg = np.zeros(self.num_vertices, np.int64)
+        np.add.at(deg, self.edges[:, 0], 1)
+        np.add.at(deg, self.edges[:, 1], 1)
+        order = np.lexsort((np.arange(self.num_vertices), deg))
+        rank = np.empty(self.num_vertices, np.int32)
+        rank[order] = np.arange(self.num_vertices, dtype=np.int32)
+        e = rank[self.edges]
+        lo = np.minimum(e[:, 0], e[:, 1])
+        hi = np.maximum(e[:, 0], e[:, 1])
+        keep = lo != hi
+        return Graph.from_edges(np.stack([lo[keep], hi[keep]], 1),
+                                self.num_vertices)

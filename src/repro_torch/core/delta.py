@@ -51,6 +51,7 @@ from repro_torch.core.plan import Plan, make_delta_plan
 from repro_torch.core.query import EDGE, Query, delta_queries
 from repro_torch.errors import (CapacityOverflow, ESCALATES_BATCH,
                                 ESCALATES_OUT)
+from repro_torch.kernels.intersect.ops import member
 from repro_torch.kernels.merge.fold import commit_fold
 
 Projection = Tuple[str, Tuple[int, ...], int]  # (rel, key_pos, ext_pos)
@@ -223,8 +224,11 @@ def _compact_fold(base: IndexData, cins: IndexData, cdel: IndexData, *,
 
 
 def _any_member(idx: IndexData, qk, qv: torch.Tensor) -> bool:
-    """any((qk, qv) ∈ idx) — the eager re-insertion probe (delta-sized)."""
-    return bool(VersionedIndex((idx,), ()).member(qk, qv).any())
+    """any((qk, qv) ∈ idx) — the eager re-insertion probe (delta-sized),
+    through the single-region membership kernel."""
+    qh, ql = qk if isinstance(qk, tuple) else (qk, None)
+    return bool(member(idx.key, idx.val, idx.n, qh, qv, los=idx.lo,
+                       ql=ql).any())
 
 
 def _packed_index(rows: np.ndarray, device, arity: int = 2,

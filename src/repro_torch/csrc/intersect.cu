@@ -6,7 +6,10 @@
 // (_make_multi_member_kernel / _multi_member_call), 1-word keys and, as
 // the LO instantiation, composite (qk, ql, qv) queries over (key, lo, val)
 // regions with 3-word bisections (normalize of an n-ary relation, seed
-// filters keyed on 3-4 columns).
+// filters keyed on 3-4 columns).  The same kernel serves single-region
+// membership, replacing member_kernel / member_kernel_lex / _member_call
+// (intersect.py:139-155): the `member` wrapper launches it with one
+// positive region and no negative one and reads wpos > 0.
 //
 // Bound on the H100: bytes.  Each query reads its key and value and
 // writes two counts; each region costs one binary search of ~log2(cap)

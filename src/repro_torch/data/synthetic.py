@@ -1,8 +1,9 @@
 """Synthetic graph data — deterministic numpy generators (framework-free).
 
 The streaming session's inputs: ``rmat_graph`` (skewed power-law degrees,
-Graph500 parameters) and the dirty :class:`EdgeUpdateStream`.  Both are
-pure functions of their seed, so any run can re-derive any epoch's batch.
+Graph500 parameters) and the dirty :class:`EdgeUpdateStream`; the GNN
+trainer's graph, ``uniform_graph``.  All are pure functions of their seed,
+so any run can re-derive any epoch's batch.
 """
 from __future__ import annotations
 
@@ -34,6 +35,16 @@ def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 0,
     # src<<32|dst words sort like the rows)
     packed = np.unique((src[keep] << 32) | dst[keep])
     return np.stack([packed >> 32, packed & 0xFFFFFFFF], 1).astype(np.int32)
+
+
+def uniform_graph(num_vertices: int, num_edges: int, seed: int = 0
+                  ) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, num_vertices, num_edges)
+    v = rng.integers(0, num_vertices, num_edges)
+    keep = u != v
+    return np.unique(np.stack([u[keep], v[keep]], 1).astype(np.int32),
+                     axis=0)
 
 
 @dataclasses.dataclass

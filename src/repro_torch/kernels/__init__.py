@@ -1,20 +1,31 @@
-"""Hand-written CUDA kernels of the streaming session, with their plain
-PyTorch versions.
+"""Hand-written CUDA kernels of the port, with their plain PyTorch
+versions.
 
 Every wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain version, a CUDA tensor launches the kernel (or raises).  There is
 no fallback from one to the other.  Each wrapper adds one to its entry in
 :data:`LAUNCHES` per call that launches its kernel, and nowhere else, so a
-run can show that its main path went through the kernels.  Each kernel
-has a 1-word and a composite (hi, lo) variant; a launch of the composite
-one counts under the kernel's ``_lex`` name (:data:`VARIANTS`).
+run can show that its main path went through the kernels.
+
+:data:`VARIANTS_OF` lists each kernel's launch names.  The kernels of the
+sorted-region engine (membership, fused extend, merge ranks, commit fold)
+have a 1-word and a composite (hi, lo) variant; a launch of the composite
+one counts under the kernel's ``_lex`` name.  ``segment_sum`` has one
+variant, its own name.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
-KERNELS = ("signed_member", "fused_extend", "rank_lt_le", "commit_fold")
-VARIANTS = KERNELS + tuple(f"{name}_lex" for name in KERNELS)
+VARIANTS_OF: Dict[str, Tuple[str, ...]] = {
+    name: (name, f"{name}_lex")
+    for name in ("signed_member", "member", "fused_extend", "rank_lt_le",
+                 "commit_fold")
+}
+VARIANTS_OF["segment_sum"] = ("segment_sum",)
+
+KERNELS = tuple(VARIANTS_OF)
+VARIANTS = tuple(v for names in VARIANTS_OF.values() for v in names)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in VARIANTS}
 

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("intersect", "extend", "merge_rank", "fold")
+SOURCES = ("intersect", "extend", "merge_rank", "fold", "segment_sum")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -48,6 +48,9 @@ SIGNATURES = {
     "fold": {
         "repro_commit_fold": (DESC, P, P, P, P, P, P, I, P, P, P, P, I, P),
         "repro_commit_fold_scratch": (I, I, I),
+    },
+    "segment_sum": {
+        "repro_segment_sum": (P, I, P, I, I, I, P, P, P),
     },
 }
 

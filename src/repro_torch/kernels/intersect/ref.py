@@ -1,10 +1,10 @@
-"""Plain PyTorch version of the multi-region signed-membership kernel:
-one fixed-depth lexicographic search per region (``csr.index_member``)."""
+"""Plain PyTorch versions of the membership kernels: one fixed-depth
+lexicographic search per region (``csr.index_member``)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.csr import index_member
+from repro_torch.core.csr import IndexData, index_member
 
 
 def signed_member_ref(pos, neg, qk, qv: torch.Tensor):
@@ -18,3 +18,12 @@ def signed_member_ref(pos, neg, qk, qv: torch.Tensor):
     for reg in neg:
         wneg = wneg + index_member(reg, qk, qv).to(torch.int32)
     return wpos, wneg
+
+
+def member_ref(keys, vals, n, qk, qv: torch.Tensor, los=None, ql=None
+               ) -> torch.Tensor:
+    """[B] bool: is (qk[, ql], qv) among the first ``n`` entries of the
+    sorted region (keys[, los], vals)?"""
+    reg = IndexData(keys, vals, torch.as_tensor(n, dtype=torch.int32,
+                                                device=keys.device), los)
+    return index_member(reg, qk if ql is None else (qk, ql), qv)

@@ -45,10 +45,14 @@ def test_source_has_no_jax_or_repro_import(path):
 
 def test_cuda_sources_are_complete():
     """Every kernel library the build names has its source, and the
-    package lists the four kernels of the slice."""
-    from repro_torch.kernels import KERNELS
+    package lists the kernels of the slices ported so far with their
+    launch variants."""
+    from repro_torch.kernels import KERNELS, VARIANTS, VARIANTS_OF
     from repro_torch.kernels._build import CSRC, SOURCES
     for name in SOURCES:
         assert (CSRC / f"{name}.cu").exists()
-    assert KERNELS == ("signed_member", "fused_extend", "rank_lt_le",
-                       "commit_fold")
+    assert KERNELS == ("signed_member", "member", "fused_extend",
+                       "rank_lt_le", "commit_fold", "segment_sum")
+    assert VARIANTS_OF["segment_sum"] == ("segment_sum",)
+    assert VARIANTS_OF["member"] == ("member", "member_lex")
+    assert len(VARIANTS) == 11
