@@ -11,7 +11,11 @@ Phases, in order, each printed with its result and seconds:
               exact equality, with the kernel's time (CUDA events around
               back-to-back calls, and its device time from the profiler),
               the plain version's and one library call's time, and the
-              least time the card could take (``bound_ms``);
+              least time the card could take (``bound_ms``); then the
+              flash-attention kernel against its plain version at the JAX
+              package's six sweep shapes (f32 and bf16) and at gemma2-2b's
+              serving shapes (bf16 prefill and decode, local and global
+              layers), with scaled_dot_product_attention's time beside it;
 4. verify   — a GraphSession over dirty update epochs, one cell per
               (scale, queries): each epoch's signed delta equal to the numpy
               oracle (full recomputation), compaction included.  A cell
@@ -35,7 +39,16 @@ Phases, in order, each printed with its result and seconds:
               6 steps: step ms, peak memory, idle share of a profiled step,
               2 segment_sum launches per layer and step;
 8. train archs — one step of each GNN arch at smoke width and of a
-              graph_reg batch, the card's loss against the host's.
+              graph_reg batch, the card's loss against the host's;
+9. lm verify — the LM transformer on the card against the host, f32 on
+              both: the yi-34b, gemma-7b and gemma2-2b smoke configs
+              (forward, loss, prefill, 4 decode steps) and gemma2-2b at
+              full width and depth 2 on a 4,160-token request;
+10. lm serve gemma2-2b — full width and depth, bf16, random parameters
+              from the seed: 4 prompts of 8,192 tokens, prefill and 32
+              greedy decode steps, 3 rounds (1 cold) and one profiled
+              prefill and decode step; decode held against prefill; 26
+              flash launches per prefill and per decode step.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's ``name, power.limit``; the last line is
@@ -60,6 +73,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 # the composite kernels' relations: the triangles of R-MAT scale 14 (the
 # tri serve cell's 4,506,715 tuples) and random 4-column rows as many as
 # the 4-cliques of R-MAT scale 12 (rmat_graph seed 0, edge factor 16)
@@ -116,11 +130,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = SCALAR_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the scalar rate."""
+    operations over the card's peak rate for their type (the scalar rate
+    unless given)."""
     b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    o = ops / SCALAR_OPS_PER_S * 1e3
+    o = ops / ops_per_s * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
@@ -152,6 +168,7 @@ KERNEL_FUNCS = {
     "signed_member": ("signed_member_kernel",),
     "member": ("signed_member_kernel",),
     "segment_sum": ("segsum_tiles", "segsum_gather"),
+    "flash_attention": ("flash_kernel",),
     "fused_extend": ("extend_count", "extend_budget", "extend_propose"),
     "rank_lt_le": ("rank_kernel",),
     "commit_fold": ("fold_masks", "scan_tiles", "scan_tile_sums",
@@ -284,8 +301,8 @@ def recorder(results: dict):
     times of the variant the main path runs most (``main``), and the
     largest error over all variants."""
     def record(name, err, ms, dev_ms, plain_ms, bytes_moved, ops,
-               library_ms, shape, main):
-        b_ms, b_by = bound(bytes_moved, ops)
+               library_ms, shape, main, ops_per_s=SCALAR_OPS_PER_S):
+        b_ms, b_by = bound(bytes_moved, ops, ops_per_s)
         row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                    shape=shape)
@@ -1464,6 +1481,521 @@ def train_archs_phase(seed: int) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10 and the flash rows of phase 3: the LM serving path (gemma2-2b;
+# prefill and KV-cache decode through the flash-attention kernel)
+# ---------------------------------------------------------------------------
+
+# the six shapes of tests/test_kernels.py's flash-attention sweep
+FLASH_CASES = [
+    dict(H=2, Sq=256, Sk=256, Dh=64, causal=True, window=0, softcap=0.0),
+    dict(H=1, Sq=200, Sk=200, Dh=32, causal=True, window=64, softcap=0.0),
+    dict(H=2, Sq=130, Sk=130, Dh=64, causal=True, window=0, softcap=30.0),
+    dict(H=1, Sq=1, Sk=300, Dh=64, causal=True, window=0, softcap=0.0,
+         q_offset=299),
+    dict(H=1, Sq=100, Sk=100, Dh=128, causal=False, window=0, softcap=0.0),
+    dict(H=1, Sq=64, Sk=64, Dh=256, causal=True, window=0, softcap=0.0),
+]
+# kernel against plain: f32 sums in another order (tiles of 32 keys with
+# an online softmax against one softmax); bf16 at the JAX package's own
+# tolerance (tests/test_kernels.py), the output rounded once to bf16
+FLASH_TOL = {"f32": 3e-4, "bf16": 2e-2}
+# the serving shapes in bf16: both sides compute in f32 and differ there
+# by about 1e-6 of the largest term, then round once to bf16, so they may
+# differ by one bf16 step, at most 2^-7 = 0.0078 of |plain| (rtol), plus
+# the f32 difference where the output is near 0 (atol).  Outputs there
+# are small (a row over n live keys has |o| ~ sqrt(e / n), 0.02 at n =
+# 8192), so the JAX package's 2e-2 would pass a dropped key tile
+FLASH_SERVE_TOL = dict(rtol=8e-3, atol=1e-5)
+# planted faults the serving check must see: the plain version with its
+# causal edge (and window) moved back by one key, and by one key tile of
+# the kernel (FA_BK = 32): a tile dropped or an edge off by a few keys
+FLASH_FAULTS = {"one key": 1, "one key tile": 32}
+# the serving shape: 4 requests of gemma2-2b's own 8,192-token context,
+# then 32 greedy decode steps into an 8,224-row cache
+SERVE_BATCH = 4
+SERVE_PROMPT = 8192
+SERVE_DECODE = 32
+SERVE_ROUNDS = 3  # 1 cold + 2 warm
+DECODE_OFFSET = 8200  # the kernel rows' decode position in that cache
+LM_SMOKE_ARCHS = ("yi-34b", "gemma-7b", "gemma2-2b")
+# card against host, f32 on both: matmuls and softmax sums in another
+# order (cuBLAS against the host's BLAS, the kernel's online softmax
+# against one softmax), |err| <= tol * max(1, max |host|): 2 layers at
+# smoke width, 2 layers at full width (d 2304, ff 9216, 4,160 keys)
+LM_SMOKE_TOL = 1e-4
+LM_FULL_TOL = 1e-3
+# decode against prefill at full depth in bf16 on the card, |err| <= tol *
+# max |prefill logits|: both round every activation to bf16 (2^-8
+# relative), through 26 layers whose matmuls have other shapes (4 rows
+# against 4 x 8,193) and so other sum orders and roundings
+LM_DECODE_TOL = 0.05
+
+
+def _lm_arch(arch_id: str):
+    from repro_torch.configs.lm_archs import LM_ARCHS
+    return {a.arch_id: a for a in LM_ARCHS}[arch_id]
+
+
+def _pairs(sq: int, sk: int, window: int, q_offset: int) -> int:
+    """Live (query, key) pairs of causal attention of ``sq`` rows at
+    positions q_offset.. over ``sk`` keys, with a window (0: none)."""
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(p, sk - 1)
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros_like(p)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flex_attention(softcap: float, window: int, q_offset: int, sq: int,
+                    sk: int):
+    """The one PyTorch call that computes the kernel's function with a
+    softcap: ``flex_attention``, compiled, with the tanh cap as its score
+    modification and the causal window at ``q_offset`` as its block mask.
+    Returns ``f(q, k, v)`` on the transformer's [B, S, H, D] layout; the
+    port never calls it.  Inductor's and Triton's caches go to the build
+    directory."""
+    import torch
+    from torch._inductor import config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from repro_torch.kernels._build import build_dir
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(build_dir() / sub))
+    inductor_config.compile_threads = 1  # no pool of compile workers
+
+    def cap(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def live(b, h, q_idx, kv_idx):
+        pos = q_idx + q_offset
+        ok = kv_idx <= pos
+        if window > 0:
+            ok = ok & (kv_idx > pos - window)
+        return ok
+
+    mask = create_block_mask(live, B=None, H=None, Q_LEN=sq, KV_LEN=sk,
+                             device=DEVICE)
+    fn = torch.compile(flex_attention, dynamic=False)
+
+    def run(q, k, v):
+        return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  score_mod=cap if softcap > 0 else None, block_mask=mask,
+                  enable_gqa=True).transpose(1, 2)
+    return run
+
+
+def flash_rows(table: dict, reps: int, seed: int) -> None:
+    """The flash-attention kernel against its plain version on the card:
+    the six shapes of the JAX package's sweep in f32 and bf16, then
+    gemma2-2b's serving shapes in bf16 (prefill of 4 x 8,192 tokens, a
+    local layer with window 4096 and a global one; decode of one token
+    per request at position 8,200 of an 8,224-row cache, both layers),
+    each held at FLASH_SERVE_TOL, with planted faults that check must
+    catch, and with its time, device time, plain time and bound; the
+    library time of each softcapped shape is compiled ``flex_attention``.
+    And the prefill without softcap, the attention of yi-34b and
+    gemma-7b, beside scaled_dot_product_attention.  The port calls
+    neither library function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def excess(got, want, rtol, atol):
+        """(max |got - want|, largest |got - want| / (atol + rtol |want|):
+        the check passes at most 1)."""
+        d = (got.float() - want.float()).abs()
+        lim = atol + rtol * want.float().abs()
+        return float(d.max()), float((d / lim).max())
+
+    def check(what, got, want, rtol, atol):
+        err, ratio = excess(got, want, rtol, atol)
+        if got.dtype != want.dtype or got.shape != want.shape or \
+                not ratio <= 1.0:
+            raise AssertionError(f"flash_attention {what} disagrees with "
+                                 f"its plain version (max |err| = {err}, "
+                                 f"{ratio} of the limit)")
+        return err, ratio
+
+    worst = 0.0
+    for case in FLASH_CASES:
+        c = dict(case)
+        qo = c.pop("q_offset", 0)
+        for label, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            q = randn((c["H"], c["Sq"], c["Dh"]), dtype)
+            k = randn((c["H"], c["Sk"], c["Dh"]), dtype)
+            v = randn((c["H"], c["Sk"], c["Dh"]), dtype)
+            kw = dict(causal=c["causal"], window=c["window"],
+                      softcap=c["softcap"], scale=c["Dh"] ** -0.5,
+                      q_offset=qo)
+            got = fops.flash_attention(q, k, v, **kw)
+            want = fref.attention_ref(q, k, v, **kw)
+            sync()
+            tol = FLASH_TOL[label]
+            err, _ = check(f"{label} {case}", got, want, tol, tol)
+            worst = max(worst, err)
+            log(f"  flash_attention {label} H={c['H']} Sq={c['Sq']} "
+                f"Sk={c['Sk']} Dh={c['Dh']} causal={c['causal']} "
+                f"window={c['window']} softcap={c['softcap']} "
+                f"q_offset={qo}: max |err| {err} (tol {tol})")
+
+    cfg = _lm_arch("gemma2-2b").full_config
+    B, S, H, K, D = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads,
+                     cfg.n_kv_heads, cfg.head_dim)
+    smax = SERVE_PROMPT + SERVE_DECODE
+    bf16 = torch.bfloat16
+    record = recorder(table)
+    table.setdefault("flash_attention", dict(max_abs_err=0))
+    table["flash_attention"]["max_abs_err"] = worst
+    q = randn((B, S, H, D), bf16)
+    k = randn((B, S, K, D), bf16)
+    v = randn((B, S, K, D), bf16)
+    qd = randn((B, 1, H, D), bf16)
+    kc = randn((B, smax, K, D), bf16)
+    vc = randn((B, smax, K, D), bf16)
+    softcap = cfg.attn_softcap
+    rtol, atol = FLASH_SERVE_TOL["rtol"], FLASH_SERVE_TOL["atol"]
+    for label, args, window, cap, q_offset, main in (
+            ("prefill global", (q, k, v), 0, softcap, 0, True),
+            ("prefill local", (q, k, v), cfg.window, softcap, 0, False),
+            ("prefill global, no softcap", (q, k, v), 0, 0.0, 0, False),
+            ("decode global", (qd, kc, vc), 0, softcap, DECODE_OFFSET,
+             False),
+            ("decode local", (qd, kc, vc), cfg.window, softcap,
+             DECODE_OFFSET, False)):
+        kw = dict(causal=True, window=window, softcap=cap,
+                  q_offset=q_offset)
+        qq, kk, vv = args
+
+        def kern():
+            return fops.mha(qq, kk, vv, **kw)
+
+        def plain():
+            return fref.mha_ref(qq, kk, vv, **kw)
+
+        got = kern()
+        want = plain()
+        sync()
+        err, ratio = check(label, got, want, rtol, atol)
+        faults = {}
+        for fault, shift in FLASH_FAULTS.items():
+            bad = fref.mha_ref(qq, kk, vv, **dict(
+                kw, q_offset=q_offset - shift))
+            faults[fault] = excess(bad, want, rtol, atol)
+            del bad
+        log(f"  flash_attention {label}: max |err| {err}, {ratio:.4f} of "
+            f"the limit (rtol {rtol}, atol {atol}); planted faults "
+            f"(max |err|, share of the limit): {faults}")
+        if not faults["one key tile"][1] > 1.0:
+            raise AssertionError(f"flash_attention {label}: the check "
+                                 f"passes a dropped key tile {faults}")
+        torch.cuda.empty_cache()
+        n = 3 if q_offset == 0 else reps
+        if cap > 0.0:
+            lib_name = "flex_attention"
+            lib = _flex_attention(cap, window, q_offset, qq.shape[1],
+                                  kk.shape[1])
+        else:
+            lib_name = "scaled_dot_product_attention"
+
+            def lib(a, b, c):
+                return F.scaled_dot_product_attention(
+                    a.transpose(1, 2), b.transpose(1, 2),
+                    c.transpose(1, 2), is_causal=True,
+                    enable_gqa=True).transpose(1, 2)
+        t = time.time()
+        lib_out = lib(qq, kk, vv)
+        sync()
+        compile_s = time.time() - t
+        # the same function: held at the JAX package's bf16 tolerance
+        lib_err, _ = check(f"{label} ({lib_name})", lib_out, want,
+                           FLASH_TOL["bf16"], FLASH_TOL["bf16"])
+        del got, want, lib_out
+        torch.cuda.empty_cache()
+        lib_ms = cuda_ms(lambda: lib(qq, kk, vv), n)
+        log(f"  flash_attention {label}: {lib_name} {lib_ms:.4f} ms "
+            f"(max |err| against plain {lib_err}; first call "
+            f"{compile_s:.2f} s)")
+        ms = cuda_ms(kern, n)
+        dms = device_ms(kern, n, "flash_attention")
+        pms = cuda_ms(plain, 2)
+        pairs = qq.shape[0] * H * _pairs(qq.shape[1], kk.shape[1], window,
+                                          q_offset)
+        if q_offset == 0:  # every q, k, v and o element once
+            nbytes = 2 * (2 * qq.numel() + 2 * kk.numel())
+        else:  # the live cache rows of k and v, and q and o
+            nbytes = 2 * (2 * qq.numel()
+                          + 2 * pairs // (H // K) * D)
+        shape = (f"{label}: q {list(qq.shape)} k/v {list(kk.shape)} bf16 "
+                 f"window={window} softcap={cap} q_offset={q_offset}, "
+                 f"{pairs} live pairs, rtol {rtol} atol {atol}; "
+                 f"library_ms: {lib_name}")
+        record("flash_attention", err, ms, dms, pms, nbytes,
+               4 * D * pairs, lib_ms, shape, main, BF16_OPS_PER_S)
+    del q, k, v, qd, kc, vc
+    torch.cuda.empty_cache()
+
+
+def _lm_close(what, card, host, tol):
+    """max |card - host| within tol * max(1, max |host|), or raise."""
+    c = card.detach().float().cpu()
+    h = host.detach().float()
+    err = float((c - h).abs().max())
+    scale = max(1.0, float(h.abs().max()))
+    if c.shape != h.shape or not np.isfinite(err) or err > tol * scale:
+        raise AssertionError(f"lm verify {what}: card differs from host "
+                             f"(max |err| {err}, scale {scale}, tol {tol})")
+    return err
+
+
+def _lm_verify(cfg, tokens, labels, decode_tokens, tol, full: bool,
+               seed: int) -> dict:
+    """One config on the card and on the host from the same parameters:
+    forward, logits and loss (unless ``full``), prefill, then one decode
+    step per column of ``decode_tokens`` into a cache filled from the
+    prefill; the card's flash launches per pass."""
+    import copy
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    model = T.Transformer(cfg, seed=seed, device=DEVICE)
+    host = copy.deepcopy(model).cpu()
+    errs, flash = {}, []
+    B, S = tokens.shape
+    n_dec = decode_tokens.shape[1]
+    outs = {}
+    for dev, m in ((DEVICE, model), ("cpu", host)):
+        tok = torch.from_numpy(tokens).to(dev)
+        out = {}
+        with torch.no_grad():
+            if not full:
+                kernels.reset_launches()
+                hidden, _aux = T.forward(m, tok)
+                if dev == DEVICE:
+                    flash.append(kernels.launches()["flash_attention"])
+                out["hidden"] = hidden
+                out["logits"] = T.logits_fn(m, hidden)
+                kernels.reset_launches()
+                out["loss"], _ = T.loss_fn(m, {
+                    "tokens": tok,
+                    "labels": torch.from_numpy(labels).to(dev)})
+                if dev == DEVICE:
+                    flash.append(kernels.launches()["flash_attention"])
+            kernels.reset_launches()
+            logits, kv = T.prefill(m, tok)
+            if dev == DEVICE:
+                flash.append(kernels.launches()["flash_attention"])
+            out["prefill"] = logits
+            out["prefill_k"] = kv["k"]
+            cache = T.make_cache(cfg, B, S + n_dec, device=dev)
+            cache["k"][:, :, :S] = kv["k"]
+            cache["v"][:, :, :S] = kv["v"]
+            del kv
+            for j in range(n_dec):
+                kernels.reset_launches()
+                step = torch.from_numpy(decode_tokens[:, j:j + 1]).to(dev)
+                lg, cache = T.decode_step(m, cache, step, S + j)
+                if dev == DEVICE:
+                    flash.append(kernels.launches()["flash_attention"])
+                out[f"decode{j}"] = lg
+            out["cache_k"] = cache["k"]
+            out["cache_v"] = cache["v"]
+        outs[dev] = out
+    for key in outs["cpu"]:
+        errs[key] = _lm_close(f"{cfg.name} {key}", outs[DEVICE][key],
+                              outs["cpu"][key], tol)
+    if any(n != cfg.num_layers for n in flash):
+        raise AssertionError(f"lm verify {cfg.name}: flash launches per "
+                             f"pass {flash}, expected {cfg.num_layers}")
+    return dict(errs=errs, flash=flash)
+
+
+def lm_verify_phase(seed: int) -> dict:
+    """The card against the host, f32 on both: the smoke configs of the
+    three dense archs (forward, logits, loss, prefill and 4 decode steps
+    past the window of 8), and gemma2-2b at full width and depth 2 (one
+    local, one global layer) on one 4,160-token request (prefill and 2
+    decode steps), so the 4096 window masks early keys.  Returns the
+    kernel launches."""
+    import dataclasses
+    import torch
+    from repro_torch.data.synthetic import TokenStream
+    totals = {}
+
+    def add(flash):
+        totals["flash_attention"] = totals.get("flash_attention", 0) \
+            + sum(flash)
+
+    for arch in LM_SMOKE_ARCHS:
+        cfg = _lm_arch(arch).smoke_config
+        b = TokenStream(cfg.vocab, 2, 28, seed).batch_at(0)
+        t = time.time()
+        out = _lm_verify(cfg, b[:, :24], b[:, 1:25], b[:, 24:28],
+                         LM_SMOKE_TOL, False, seed)
+        add(out["flash"])
+        log(f"  lm verify {cfg.name}: max |card - host| "
+            f"{json.dumps(out['errs'])}, flash launches {out['flash']} "
+            f"({time.time() - t:.2f} s)")
+    full = _lm_arch("gemma2-2b").full_config
+    cfg = dataclasses.replace(full, name="gemma2-2b-depth2", num_layers=2,
+                              param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    b = TokenStream(cfg.vocab, 1, 4162, seed).batch_at(0)
+    t = time.time()
+    out = _lm_verify(cfg, b[:, :4160], None, b[:, 4160:4162], LM_FULL_TOL,
+                     True, seed)
+    add(out["flash"])
+    log(f"  lm verify {cfg.name} (full width, 4,160 tokens): max |card - "
+        f"host| {json.dumps(out['errs'])}, flash launches {out['flash']} "
+        f"({time.time() - t:.2f} s)")
+    return totals
+
+
+def lm_serve_phase(seed: int) -> dict:
+    """gemma2-2b at full width and depth (26 layers, bf16 parameters and
+    activations, random parameters drawn on the card from ``seed``): 4
+    requests of 8,192-token prompts (TokenStream), prefill, then 32 greedy
+    decode steps into an 8,224-row cache filled from the prefill's k/v;
+    SERVE_ROUNDS rounds (1 cold), one profiled prefill and one profiled
+    decode step.  The first decode step's logits are held against a
+    prefill of the prompt and that step's token.  Returns the launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    cfg = _lm_arch("gemma2-2b").full_config
+    B, S, n_dec = SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = T.Transformer(cfg, seed=seed, device=DEVICE)
+    sync()
+    init_s = time.time() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.from_numpy(
+        TokenStream(cfg.vocab, B, S, seed).batch_at(0)[:, :S]).to(DEVICE)
+    totals = {"flash_attention": 0}
+    prefill_ms, step_ms, per_prefill, per_step = [], [], [], []
+    generated = None
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        n = kernels.launches()["flash_attention"]
+        totals["flash_attention"] += n
+        return out, n
+
+    for r in range(SERVE_ROUNDS):
+        sync()
+        t = time.time()
+        (logits, kv), n = counted(lambda: T.prefill(model, prompt))
+        sync()
+        prefill_ms.append((time.time() - t) * 1e3)
+        per_prefill.append(n)
+        cache = T.make_cache(cfg, B, S + n_dec, device=DEVICE)
+        cache["k"][:, :, :S] = kv["k"]
+        cache["v"][:, :, :S] = kv["v"]
+        del kv
+        tok = logits.argmax(-1)[:, None]
+        toks, first = [tok], None
+        for j in range(n_dec):
+            sync()
+            t = time.time()
+            (lg, cache), n = counted(
+                lambda: T.decode_step(model, cache, tok, S + j))
+            tok = lg.argmax(-1)[:, None]
+            sync()
+            if r > 0:
+                step_ms.append((time.time() - t) * 1e3)
+            per_step.append(n)
+            toks.append(tok)
+            if j == 0:
+                first = lg
+        if not torch.isfinite(lg.float()).all():
+            raise AssertionError("lm serve: non-finite decode logits")
+        gen_r = torch.cat(toks, 1).cpu().numpy()
+        if generated is not None and not np.array_equal(gen_r, generated):
+            raise AssertionError("lm serve: greedy tokens differ between "
+                                 "rounds")
+        generated = gen_r
+        log(f"  lm serve round {r}: prefill {prefill_ms[-1]:.2f} ms, "
+            f"decode {n_dec} steps")
+    del cache
+    torch.cuda.empty_cache()
+
+    # decode against prefill at full depth: the first decode step (the
+    # token at position S) against the last row of a prefill of S + 1
+    # tokens; both bf16 on the card, with other matmul shapes (4 rows
+    # against 4 x 8,193) and so other roundings through 26 layers
+    ext = torch.cat([prompt, torch.from_numpy(generated[:, :1]).to(DEVICE)],
+                    1)
+    (want, kv), n = counted(lambda: T.prefill(model, ext))
+    per_prefill.append(n)
+    del kv
+    err = float((first.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    agree = float((first.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"  lm serve: decode at position {S} against prefill of {S + 1}: "
+        f"max |err| {err} of max |logit| {scale}, argmax agreement {agree}")
+    if not err <= LM_DECODE_TOL * scale:
+        raise AssertionError(f"lm serve: decode differs from prefill "
+                             f"(max |err| {err}, scale {scale})")
+
+    by_name = {}
+    (wall, busy, idle, rec, exp), n = counted(lambda: idle_share(
+        lambda: T.prefill(model, prompt), by_name))
+    per_prefill.append(n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    cache = T.make_cache(cfg, B, S + n_dec, device=DEVICE)
+    dec_by = {}
+    (dwall, dbusy, didle, drec, dexp), n = counted(lambda: idle_share(
+        lambda: T.decode_step(model, cache, tok, S), dec_by))
+    per_step.append(n)
+    dtop = sorted(dec_by.items(), key=lambda kv: -kv[1][1])[:6]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  lm serve: profiled prefill {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms, idle share {idle} ({rec} of {exp} kernel "
+        f"launches recorded); device time by kernel (launches, ms):")
+    for name, (cnt, ms) in top:
+        log(f"    {ms:10.3f} ms {cnt:5d}x {name}")
+    log(f"  lm serve: profiled decode step {dwall * 1e3:.2f} ms, device "
+        f"busy {dbusy * 1e3:.2f} ms, idle share {didle}; by kernel:")
+    for name, (cnt, ms) in dtop:
+        log(f"    {ms:10.3f} ms {cnt:5d}x {name}")
+    if any(x != cfg.num_layers for x in per_prefill + per_step):
+        raise AssertionError(f"lm serve: flash launches per prefill "
+                             f"{per_prefill}, per decode step "
+                             f"{sorted(set(per_step))}, expected "
+                             f"{cfg.num_layers}")
+    steps = np.asarray(step_ms)
+    out = dict(
+        arch=cfg.name, layers=cfg.num_layers, params=n_params,
+        init_s=init_s, batch=B, prompt=S, decode_steps=n_dec,
+        rounds=SERVE_ROUNDS, prefill_first_ms=prefill_ms[0],
+        prefill_warm_ms=prefill_ms[1:],
+        prefill_warm_p50_ms=float(np.percentile(prefill_ms[1:], 50)),
+        decode_step_p50_ms=float(np.percentile(steps, 50)),
+        decode_step_p99_ms=float(np.percentile(steps, 99)),
+        decode_tokens_per_s=float(B * len(steps) / steps.sum() * 1e3),
+        peak_mem_gib=peak, prefill_profiled_ms=wall * 1e3,
+        prefill_device_busy_ms=busy * 1e3, prefill_idle_share=idle,
+        prefill_launches_recorded=[rec, exp],
+        decode_profiled_ms=dwall * 1e3, decode_device_busy_ms=dbusy * 1e3,
+        decode_idle_share=didle, decode_launches_recorded=[drec, dexp],
+        decode_vs_prefill_err=err, decode_vs_prefill_scale=scale,
+        flash_per_prefill=per_prefill[0], flash_per_step=per_step[0],
+        prefill_top_kernels_ms={n: ms for n, (_c, ms) in top},
+        launches=totals)
+    log("  lm serve: " + json.dumps(out))
+    return totals
+
+
 SOURCES = {
     "signed_member": ("src/repro_torch/csrc/intersect.cu",
                       "src/repro/kernels/intersect/intersect.py:235"),
@@ -1477,6 +2009,9 @@ SOURCES = {
                "src/repro/kernels/intersect/intersect.py:155"),
     "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
                     "src/repro/kernels/segment_ops/segment_ops.py:54"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:92"),
 }
 
 
@@ -1582,6 +2117,7 @@ def main() -> int:
             args.update_batch, 16 * args.update_batch, args.reps,
             args.seed))
         del tri, quad
+        flash_rows(table, args.reps, args.seed)
 
     # every session and training run below starts its kernel counts at 0
     # and reads them after; the table's launches sum them over these runs
@@ -1608,13 +2144,15 @@ def main() -> int:
             for name in VARIANTS:
                 launches[name] += serve["launches"][name]
 
-    # the GNN training path; segment_sum's kernel rows come from the
-    # full-width phase, at the trainer's shape
+    # the GNN training path, segment_sum's kernel rows from the full-width
+    # phase at the trainer's shape; then the LM serving path
     for label, run in (
             ("train driver", lambda: train_driver_phase(args.seed)),
             ("train full", lambda: train_full_phase(table, args.reps,
                                                     args.seed)),
-            ("train archs", lambda: train_archs_phase(args.seed))):
+            ("train archs", lambda: train_archs_phase(args.seed)),
+            ("lm verify", lambda: lm_verify_phase(args.seed)),
+            ("lm serve gemma2-2b", lambda: lm_serve_phase(args.seed))):
         with phase(label):
             counts = run()
             for name in VARIANTS:

@@ -9,16 +9,18 @@ a fake device mesh) have no meaning on one card and are not carried over.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # gnn (the families the port has)
+    family: str  # gnn | lm (the families the port has)
     describe: str
     full_config: Any
     smoke_config: Any
-    # smoke_run(cfg, device=None) -> metrics dict; real reduced-config steps
-    smoke_run: Callable[..., Dict[str, float]]
+    # smoke_run(cfg, device=None) -> metrics dict; real reduced-config
+    # steps.  None for the lm family, which serves only until its training
+    # slice (make_train_step, an attention backward) is ported
+    smoke_run: Optional[Callable[..., Dict[str, float]]]
     model_flops: Callable[[str], float]  # analytic 6*N*D-style FLOPs/step

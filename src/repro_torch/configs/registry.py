@@ -1,5 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution over the archs the
-port has (the GNN family)."""
+port trains (the GNN family).  The LM archs (``configs.lm_archs``) serve
+but do not train on the port yet, so they enter with their training
+slice."""
 from __future__ import annotations
 
 from typing import Dict, List

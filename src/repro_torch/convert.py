@@ -1,8 +1,10 @@
 """Carry state across packages: host arrays (``key``, ``val``, ``n`` as
 numpy, e.g. ``np.asarray`` of another package's index fields) become the
-port's :class:`IndexData` / :class:`VersionedIndex`, and a GNN parameter
-tree of host arrays the port's ``GNN`` (:func:`gnn_params`), on the device
-the caller names (``device`` is required: a conversion never picks one).
+port's :class:`IndexData` / :class:`VersionedIndex`, a GNN parameter
+tree of host arrays the port's ``GNN`` (:func:`gnn_params`) and a
+transformer's the port's ``Transformer`` (:func:`transformer_params`), on
+the device the caller names (``device`` is required: a conversion never
+picks one).
 
 Duck-typed: anything with ``key``/``val``/``n`` attributes (and an optional
 composite ``lo`` word) converts, so the parity tests can feed both packages
@@ -73,7 +75,23 @@ def gnn_params(params, cfg, *, device):
     (the JAX package's GNN parameter tree as numpy, same names and stacked
     ``[L, ...]`` layout), one to one."""
     from repro_torch.models.gnn import GNN
-    model = GNN(cfg, device=device)
+    return _load(GNN(cfg, device=device), params)
+
+
+def transformer_params(params, cfg, *, device):
+    """The port's :class:`~repro_torch.models.transformer.Transformer` of
+    ``cfg`` on ``device`` holding a nested dict of host arrays (the JAX
+    package's transformer parameter tree as numpy: ``embed``,
+    ``final_norm``, stacked ``layers``), one to one.  bf16 leaves
+    (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) pass
+    through float32, exact both ways."""
+    from repro_torch.models.transformer import Transformer
+    return _load(Transformer(cfg, device=device), params)
+
+
+def _load(model, params):
+    """Copy a nested dict of host arrays into ``model``'s parameters of
+    the same dotted names and shapes."""
     flat = _dotted(params)
     own = dict(model.named_parameters())
     if set(flat) != set(own):
@@ -85,5 +103,7 @@ def gnn_params(params, cfg, *, device):
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {arr.shape} != "
                                  f"{tuple(p.shape)}")
+            if arr.dtype.name == "bfloat16":  # ml_dtypes
+                arr = arr.astype(np.float32)
             p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
     return model

@@ -25,6 +25,12 @@ typedef long long i64;
   kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
 #endif
 
+// Launch with `smem` bytes of dynamic shared memory.
+#ifndef REPRO_LAUNCH_SMEM
+#define REPRO_LAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
+  kernel<<<(grid), (block), (smem), (cudaStream_t)(stream)>>>(__VA_ARGS__)
+#endif
+
 #define REPRO_MAX_REGIONS 8
 #define REPRO_THREADS 256
 #define REPRO_DESC_WORDS 6

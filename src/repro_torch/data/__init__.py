@@ -1,1 +1,1 @@
-"""Deterministic synthetic graph data (numpy)."""
+"""Deterministic synthetic graph and token data (numpy)."""

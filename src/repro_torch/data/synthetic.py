@@ -1,14 +1,15 @@
-"""Synthetic graph data — deterministic numpy generators (framework-free).
+"""Synthetic data — deterministic numpy generators (framework-free).
 
 The streaming session's inputs: ``rmat_graph`` (skewed power-law degrees,
 Graph500 parameters) and the dirty :class:`EdgeUpdateStream`; the GNN
-trainer's graph, ``uniform_graph``.  All are pure functions of their seed,
-so any run can re-derive any epoch's batch.
+trainer's graph, ``uniform_graph``; the LM's token batches,
+:class:`TokenStream`.  All are pure functions of their seed, so any run
+can re-derive any epoch's batch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -45,6 +46,35 @@ def uniform_graph(num_vertices: int, num_edges: int, seed: int = 0
     keep = u != v
     return np.unique(np.stack([u[keep], v[keep]], 1).astype(np.int32),
                      axis=0)
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Deterministic LM token batches: batch [B, S+1] int32 (inputs+labels).
+
+    Shard-aware: worker ``shard`` of ``num_shards`` sees a disjoint
+    deterministic substream; ``batch_at`` provides O(1) seek for restart.
+    """
+
+    vocab_size: int
+    batch_size: int
+    seq_len: int
+    seed: int = 0
+    shard: int = 0
+    num_shards: int = 1
+
+    def batch_at(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * self.num_shards + self.shard)
+        # zipf-ish marginal over the vocab — cheap stand-in for text
+        z = rng.zipf(1.3, size=(self.batch_size, self.seq_len + 1))
+        return (z % self.vocab_size).astype(np.int32)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclasses.dataclass

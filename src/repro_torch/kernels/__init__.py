@@ -10,8 +10,8 @@ run can show that its main path went through the kernels.
 :data:`VARIANTS_OF` lists each kernel's launch names.  The kernels of the
 sorted-region engine (membership, fused extend, merge ranks, commit fold)
 have a 1-word and a composite (hi, lo) variant; a launch of the composite
-one counts under the kernel's ``_lex`` name.  ``segment_sum`` has one
-variant, its own name.
+one counts under the kernel's ``_lex`` name.  ``segment_sum`` and
+``flash_attention`` have one variant each, their own name.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ VARIANTS_OF: Dict[str, Tuple[str, ...]] = {
                  "commit_fold")
 }
 VARIANTS_OF["segment_sum"] = ("segment_sum",)
+VARIANTS_OF["flash_attention"] = ("flash_attention",)
 
 KERNELS = tuple(VARIANTS_OF)
 VARIANTS = tuple(v for names in VARIANTS_OF.values() for v in names)

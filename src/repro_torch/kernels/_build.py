@@ -24,13 +24,15 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("intersect", "extend", "merge_rank", "fold", "segment_sum")
+SOURCES = ("intersect", "extend", "merge_rank", "fold", "segment_sum",
+           "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 DESC = ctypes.POINTER(ctypes.c_int64)
 
 # argtypes of every C entry point, by library
@@ -51,6 +53,10 @@ SIGNATURES = {
     },
     "segment_sum": {
         "repro_segment_sum": (P, I, P, I, I, I, P, P, P),
+    },
+    "flash_attention": {
+        "repro_flash_attention": (P, P, P, P, I, I, I, I, I, I, I, I, I, F,
+                                  F, I, P),
     },
 }
 

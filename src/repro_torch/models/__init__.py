@@ -1,2 +1,3 @@
-"""Model substrate of the port: the GNN family (``gnn``) and the layers it
-needs (``layers``)."""
+"""Model substrate of the port: the GNN family (``gnn``), the dense LM
+family's forward and serving path (``transformer``) and the layers they
+share (``layers``)."""

@@ -132,32 +132,6 @@ def _leaves(tree):
     return [x for v in tree.values() for x in _leaves(v)]
 
 
-class ParamTree(nn.Module):
-    """A nested dict of parameters as a module: ``tree["w1"]``, and
-    dotted names (``layers.phi_e.w1``) in ``named_parameters``."""
-
-    def __init__(self, tree: Params):
-        super().__init__()
-        self._names = tuple(tree)
-        for k, v in tree.items():
-            if isinstance(v, torch.Tensor):
-                self.register_parameter(k, nn.Parameter(v))
-            else:
-                self.add_module(k, ParamTree(v))
-
-    def __getitem__(self, name: str):
-        return getattr(self, name)
-
-    def items(self):
-        return [(k, self[k]) for k in self._names]
-
-
-def _layer(p: ParamTree, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked layer parameters."""
-    return {k: _layer(v, i) if isinstance(v, ParamTree) else v[i]
-            for k, v in p.items()}
-
-
 class GNN(nn.Module):
     """One GNN of :class:`GNNConfig` on ``device`` (``None``: the card; see
     ``csr.resolve_device``), parameters drawn from ``seed``."""
@@ -168,7 +142,7 @@ class GNN(nn.Module):
         device = resolve_device(device)
         for name, tree in init(torch.Generator().manual_seed(seed),
                                cfg).items():
-            self.add_module(name, ParamTree(tree))
+            self.add_module(name, L.ParamTree(tree))
         self.to(device)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -253,7 +227,8 @@ def forward(model: GNN, batch: Dict[str, torch.Tensor], cfg: GNNConfig
     if cfg.arch == "egnn":
         x = batch["coords"].to(cfg.act_dtype)
         for i in range(cfg.n_layers):
-            h, x = _egnn_layer(_layer(layers, i), h, x, src, dst, emask, N)
+            h, x = _egnn_layer(L.layer_slice(layers, i), h, x, src, dst,
+                               emask, N)
     elif cfg.arch in ("gatedgcn", "graphcast"):
         dist = batch.get("edge_feats")
         if dist is None:
@@ -263,10 +238,11 @@ def forward(model: GNN, batch: Dict[str, torch.Tensor], cfg: GNNConfig
         layer = _gatedgcn_layer if cfg.arch == "gatedgcn" \
             else _graphcast_layer
         for i in range(cfg.n_layers):
-            h, e = layer(_layer(layers, i), h, e, src, dst, emask, N)
+            h, e = layer(L.layer_slice(layers, i), h, e, src, dst, emask,
+                         N)
     elif cfg.arch == "gat":
         for i in range(cfg.n_layers):
-            h = _gat_layer(_layer(layers, i), h, src, dst, emask, N,
+            h = _gat_layer(L.layer_slice(layers, i), h, src, dst, emask, N,
                            cfg.n_heads)
     else:
         raise ValueError(cfg.arch)

@@ -52,7 +52,9 @@ def test_cuda_sources_are_complete():
     for name in SOURCES:
         assert (CSRC / f"{name}.cu").exists()
     assert KERNELS == ("signed_member", "member", "fused_extend",
-                       "rank_lt_le", "commit_fold", "segment_sum")
+                       "rank_lt_le", "commit_fold", "segment_sum",
+                       "flash_attention")
     assert VARIANTS_OF["segment_sum"] == ("segment_sum",)
+    assert VARIANTS_OF["flash_attention"] == ("flash_attention",)
     assert VARIANTS_OF["member"] == ("member", "member_lex")
-    assert len(VARIANTS) == 11
+    assert len(VARIANTS) == 12
