@@ -12,10 +12,15 @@ Phases, in order, each printed with its result and seconds:
               back-to-back calls, and its device time from the profiler),
               the plain version's and one library call's time, and the
               least time the card could take (``bound_ms``); then the
-              flash-attention kernel against its plain version at the JAX
-              package's six sweep shapes (f32 and bf16) and at gemma2-2b's
-              serving shapes (bf16 prefill and decode, local and global
-              layers), with scaled_dot_product_attention's time beside it;
+              flash-attention kernels against their plain version at the
+              JAX package's six sweep shapes (f32 and bf16), at bf16 rows
+              without a live key and a decode plan with masked chunks and
+              chunks past the cache, and at gemma2-2b's serving shapes
+              (bf16 prefill on the tensor-core kernel and decode split over
+              the cache, local and global layers) with planted faults
+              (an edge off by a key or a key tile, a decode chunk dropped)
+              the check must reject, with compiled flex_attention's or
+              scaled_dot_product_attention's time beside them;
 4. verify   — a GraphSession over dirty update epochs, one cell per
               (scale, queries): each epoch's signed delta equal to the numpy
               oracle (full recomputation), compaction included.  A cell
@@ -168,7 +173,9 @@ KERNEL_FUNCS = {
     "signed_member": ("signed_member_kernel",),
     "member": ("signed_member_kernel",),
     "segment_sum": ("segsum_tiles", "segsum_gather"),
-    "flash_attention": ("flash_kernel",),
+    # bf16 prefill (tensor cores), decode split and combine, f32 prefill
+    "flash_attention": ("flash_prefill", "flash_decode_split",
+                        "flash_decode_combine", "flash_kernel"),
     "fused_extend": ("extend_count", "extend_budget", "extend_propose"),
     "rank_lt_le": ("rank_kernel",),
     "commit_fold": ("fold_masks", "scan_tiles", "scan_tile_sums",
@@ -190,25 +197,31 @@ def _device_events(prof):
     return out
 
 
-def device_ms(fn, reps: int, kernel: str):
+def device_ms(fn, reps: int, kernel: str, names=None, seen=None):
     """The card's own time for one call: for each CUDA kernel the wrapper
-    launches, the mean duration of its launches that ``torch.profiler``
-    recorded over ``reps`` calls, summed over the wrapper's kernels.  The
-    profiler on that machine loses some records now and then, so the mean
-    over the recorded launches stands in for the lost ones (the log says
-    how many were recorded); None when a kernel has no record at all."""
+    launches (``names``, by default all of KERNEL_FUNCS[kernel]), the
+    mean duration of its launches that ``torch.profiler`` recorded over
+    ``reps`` calls, summed over those kernels.  The profiler on that
+    machine loses some records now and then (whole sessions of them once
+    Triton has launched a kernel in the process), so the mean over the
+    recorded launches stands in for the lost ones (the log says how many
+    were recorded) and a session without them is retried; None when a
+    kernel has no record at all.  A ``seen`` set receives the names of
+    every kernel recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    names = KERNEL_FUNCS[kernel.removesuffix("_lex")]
-    for _attempt in range(3):
+    names = names or KERNEL_FUNCS[kernel.removesuffix("_lex")]
+    for _attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         durs = {n: [] for n in names}
         for name, us, _a, _b in _device_events(prof):
+            if seen is not None:
+                seen.add(name)
             for n in names:
                 if n in name:
                     durs[n].append(us)
@@ -223,18 +236,22 @@ def device_ms(fn, reps: int, kernel: str):
     return None
 
 
-def idle_share(fn, by_name=None):
+def idle_share(fn, by_name=None, per_call=None):
     """Run ``fn`` once under the profiler (CUDA activity only): (host
     seconds, device busy seconds, idle share, recorded launches of the
     port's kernels, their launches by the wrappers' counts) of that window,
     busy time being the union of every kernel and copy interval recorded on
     the card.  Where the profiler lost records the busy time is a lower
     bound.  A ``by_name`` dict receives each recorded activity's name
-    (cut to 80 characters) -> (launches, total milliseconds)."""
+    (cut to 80 characters) -> (launches, total milliseconds).
+    ``per_call`` overrides the CUDA launches per wrapper call of a kernel
+    (all of its KERNEL_FUNCS by default; flash_attention's route decides:
+    1 for a prefill, 2 for a decode)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
-    per_call = {k: len(v) for k, v in KERNEL_FUNCS.items()}
+    per_call = {**{k: len(v) for k, v in KERNEL_FUNCS.items()},
+                **(per_call or {})}
     before = kernels.launches()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1500,17 +1517,20 @@ FLASH_CASES = [
 # an online softmax against one softmax); bf16 at the JAX package's own
 # tolerance (tests/test_kernels.py), the output rounded once to bf16
 FLASH_TOL = {"f32": 3e-4, "bf16": 2e-2}
-# the serving shapes in bf16: both sides compute in f32 and differ there
-# by about 1e-6 of the largest term, then round once to bf16, so they may
-# differ by one bf16 step, at most 2^-7 = 0.0078 of |plain| (rtol), plus
-# the f32 difference where the output is near 0 (atol).  Outputs there
-# are small (a row over n live keys has |o| ~ sqrt(e / n), 0.02 at n =
-# 8192), so the JAX package's 2e-2 would pass a dropped key tile
-FLASH_SERVE_TOL = dict(rtol=8e-3, atol=1e-5)
-# planted faults the serving check must see: the plain version with its
-# causal edge (and window) moved back by one key, and by one key tile of
-# the kernel (FA_BK = 32): a tile dropped or an edge off by a few keys
-FLASH_FAULTS = {"one key": 1, "one key tile": 32}
+# the serving shapes in bf16 are held at ref.FLASH_SERVE_TOL (rtol 8e-3,
+# atol 1e-5: one bf16 step of the output; see ref.py).  Planted faults
+# that check must see: the plain version with its causal edge (and
+# window) moved back by one key, and by one key tile of the prefill
+# kernel (PF_BN = 64): a tile dropped or an edge off by a few keys; at
+# decode also the split's combine with one chunk dropped
+FLASH_FAULTS = {"one key": 1, "one key tile": 64}
+# bf16 card cases of rows without a live key (tests/test_torch_flash_
+# attention.py's shape, 3 rows, through the decode route; and 64 rows past
+# the window's reach from row 51 on, through the prefill route), and the
+# decode kernel run on a plan whose chunks lie wholly masked and past Sk:
+# (Sq, Sk, window, q_offset, plan or None), at D 64 and 256
+FLASH_EDGE_CASES = [(3, 20, 4, 30, None), (64, 96, 16, 60, None),
+                    (1, 500, 100, 499, (0, 700, 100, 7))]
 # the serving shape: 4 requests of gemma2-2b's own 8,192-token context,
 # then 32 greedy decode steps into an 8,224-row cache
 SERVE_BATCH = 4
@@ -1586,17 +1606,19 @@ def _flex_attention(softcap: float, window: int, q_offset: int, sq: int,
 
 
 def flash_rows(table: dict, reps: int, seed: int) -> None:
-    """The flash-attention kernel against its plain version on the card:
-    the six shapes of the JAX package's sweep in f32 and bf16, then
-    gemma2-2b's serving shapes in bf16 (prefill of 4 x 8,192 tokens, a
-    local layer with window 4096 and a global one; decode of one token
-    per request at position 8,200 of an 8,224-row cache, both layers),
-    each held at FLASH_SERVE_TOL, with planted faults that check must
-    catch, and with its time, device time, plain time and bound; the
-    library time of each softcapped shape is compiled ``flex_attention``.
-    And the prefill without softcap, the attention of yi-34b and
-    gemma-7b, beside scaled_dot_product_attention.  The port calls
-    neither library function."""
+    """The flash-attention kernels against their plain version on the card:
+    the six shapes of the JAX package's sweep in f32 and bf16; rows
+    without a live key and a decode plan with masked chunks and chunks
+    past Sk in bf16; then gemma2-2b's serving shapes in bf16 (prefill of 4
+    x 8,192 tokens, a local layer with window 4096 and a global one;
+    decode of one token per request at position 8,200 of an 8,224-row
+    cache, both layers), each held at FLASH_SERVE_TOL, with planted faults
+    that check must catch, and with its time, device time, plain time and
+    bound; the library time of each softcapped shape is compiled
+    ``flex_attention``.  And the prefill without softcap, the attention of
+    yi-34b and gemma-7b, beside scaled_dot_product_attention.  The port
+    calls neither library function.  A bf16 prefill must run the
+    tensor-core kernel and never the f32 one."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
@@ -1646,11 +1668,29 @@ def flash_rows(table: dict, reps: int, seed: int) -> None:
                 f"window={c['window']} softcap={c['softcap']} "
                 f"q_offset={qo}: max |err| {err} (tol {tol})")
 
+    rtol, atol = fref.FLASH_SERVE_TOL["rtol"], fref.FLASH_SERVE_TOL["atol"]
+    bf16 = torch.bfloat16
+    for sq, sk, window, qo, plan in FLASH_EDGE_CASES:
+        for d in (64, 256):
+            q = randn((1, sq, 1, d), bf16)
+            k = randn((1, sk, 1, d), bf16)
+            v = randn((1, sk, 1, d), bf16)
+            kw = dict(causal=True, window=window, softcap=0.0, q_offset=qo)
+            got = fops._launch(q, k, v, True, window, 0.0, d ** -0.5, qo,
+                               plan=plan)
+            want = fref.mha_ref(q, k, v, **kw)
+            sync()
+            what = (f"bf16 Sq={sq} Sk={sk} D={d} window={window} "
+                    f"q_offset={qo} plan={plan}")
+            err, ratio = check(what, got, want, rtol, atol)
+            worst = max(worst, err)
+            log(f"  flash_attention {what} ({fops.route(bf16, sq, d)}): "
+                f"max |err| {err}, {ratio:.4f} of the limit")
+
     cfg = _lm_arch("gemma2-2b").full_config
     B, S, H, K, D = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads,
                      cfg.n_kv_heads, cfg.head_dim)
     smax = SERVE_PROMPT + SERVE_DECODE
-    bf16 = torch.bfloat16
     record = recorder(table)
     table.setdefault("flash_attention", dict(max_abs_err=0))
     table["flash_attention"]["max_abs_err"] = worst
@@ -1661,7 +1701,10 @@ def flash_rows(table: dict, reps: int, seed: int) -> None:
     kc = randn((B, smax, K, D), bf16)
     vc = randn((B, smax, K, D), bf16)
     softcap = cfg.attn_softcap
-    rtol, atol = FLASH_SERVE_TOL["rtol"], FLASH_SERVE_TOL["atol"]
+    # first every kernel row (check, faults, times, profiled kernels), then
+    # the library calls: once Triton has launched a kernel in the process,
+    # the profiler loses whole sessions of records (device_ms retries)
+    rows = []
     for label, args, window, cap, q_offset, main in (
             ("prefill global", (q, k, v), 0, softcap, 0, True),
             ("prefill local", (q, k, v), cfg.window, softcap, 0, False),
@@ -1673,6 +1716,9 @@ def flash_rows(table: dict, reps: int, seed: int) -> None:
         kw = dict(causal=True, window=window, softcap=cap,
                   q_offset=q_offset)
         qq, kk, vv = args
+        decode = q_offset > 0
+        names = (("flash_decode_split", "flash_decode_combine") if decode
+                 else ("flash_prefill",))
 
         def kern():
             return fops.mha(qq, kk, vv, **kw)
@@ -1684,20 +1730,56 @@ def flash_rows(table: dict, reps: int, seed: int) -> None:
         want = plain()
         sync()
         err, ratio = check(label, got, want, rtol, atol)
+        del got
         faults = {}
         for fault, shift in FLASH_FAULTS.items():
             bad = fref.mha_ref(qq, kk, vv, **dict(
                 kw, q_offset=q_offset - shift))
             faults[fault] = excess(bad, want, rtol, atol)
             del bad
+        if decode:
+            kb, ke, chunk, splits = fref.split_plan(
+                1, kk.shape[1], True, window, q_offset, B * K)
+            bad = fref.mha_ref(qq, kk, vv, splits=splits, drop=splits // 2,
+                               **kw)
+            faults["one split dropped"] = excess(bad, want, rtol, atol)
+            del bad
+            log(f"  flash_attention {label}: plan keys [{kb}, {ke}) in "
+                f"{splits} chunks of {chunk}, {B * K * splits} blocks")
+            if B * K * splits < 128:
+                raise AssertionError(f"flash_attention {label}: "
+                                     f"{B * K * splits} decode blocks")
         log(f"  flash_attention {label}: max |err| {err}, {ratio:.4f} of "
             f"the limit (rtol {rtol}, atol {atol}); planted faults "
             f"(max |err|, share of the limit): {faults}")
-        if not faults["one key tile"][1] > 1.0:
-            raise AssertionError(f"flash_attention {label}: the check "
-                                 f"passes a dropped key tile {faults}")
+        for fault, (_err, share) in faults.items():
+            if not share > 1.0:
+                raise AssertionError(f"flash_attention {label}: the check "
+                                     f"passes a fault: {fault} {faults}")
         torch.cuda.empty_cache()
-        n = 3 if q_offset == 0 else reps
+        n = reps if decode else 3
+        ms = cuda_ms(kern, n)
+        seen = set()
+        dms = device_ms(kern, n, "flash_attention", names, seen)
+        ours = sorted(nm for nm in seen if "flash" in nm)
+        if any("flash_kernel" in nm for nm in ours):
+            raise AssertionError(f"flash_attention {label}: a bf16 call ran "
+                                 f"the f32 kernel: {ours}")
+        log(f"  flash_attention {label}: {ms:.4f} ms, device "
+            f"{'null' if dms is None else f'{dms:.4f}'} ms, recorded {ours}")
+        pms = cuda_ms(plain, 2)
+        pairs = qq.shape[0] * H * _pairs(qq.shape[1], kk.shape[1], window,
+                                          q_offset)
+        if not decode:  # every q, k, v and o element once
+            nbytes = 2 * (2 * qq.numel() + 2 * kk.numel())
+        else:  # the live cache rows of k and v, and q and o
+            nbytes = 2 * (2 * qq.numel()
+                          + 2 * pairs // (H // K) * D)
+        rows.append((label, args, window, cap, q_offset, main, want, err,
+                     ms, dms, pms, pairs, nbytes, n, ours))
+
+    for (label, (qq, kk, vv), window, cap, q_offset, main, want, err, ms,
+         dms, pms, pairs, nbytes, n, ours) in rows:
         if cap > 0.0:
             lib_name = "flex_attention"
             lib = _flex_attention(cap, window, q_offset, qq.shape[1],
@@ -1717,28 +1799,19 @@ def flash_rows(table: dict, reps: int, seed: int) -> None:
         # the same function: held at the JAX package's bf16 tolerance
         lib_err, _ = check(f"{label} ({lib_name})", lib_out, want,
                            FLASH_TOL["bf16"], FLASH_TOL["bf16"])
-        del got, want, lib_out
+        del lib_out
         torch.cuda.empty_cache()
         lib_ms = cuda_ms(lambda: lib(qq, kk, vv), n)
         log(f"  flash_attention {label}: {lib_name} {lib_ms:.4f} ms "
             f"(max |err| against plain {lib_err}; first call "
             f"{compile_s:.2f} s)")
-        ms = cuda_ms(kern, n)
-        dms = device_ms(kern, n, "flash_attention")
-        pms = cuda_ms(plain, 2)
-        pairs = qq.shape[0] * H * _pairs(qq.shape[1], kk.shape[1], window,
-                                          q_offset)
-        if q_offset == 0:  # every q, k, v and o element once
-            nbytes = 2 * (2 * qq.numel() + 2 * kk.numel())
-        else:  # the live cache rows of k and v, and q and o
-            nbytes = 2 * (2 * qq.numel()
-                          + 2 * pairs // (H // K) * D)
         shape = (f"{label}: q {list(qq.shape)} k/v {list(kk.shape)} bf16 "
                  f"window={window} softcap={cap} q_offset={q_offset}, "
                  f"{pairs} live pairs, rtol {rtol} atol {atol}; "
-                 f"library_ms: {lib_name}")
+                 f"library_ms: {lib_name}; kernels {ours}")
         record("flash_attention", err, ms, dms, pms, nbytes,
                4 * D * pairs, lib_ms, shape, main, BF16_OPS_PER_S)
+    del rows, want
     del q, k, v, qd, kc, vc
     torch.cuda.empty_cache()
 
@@ -1947,16 +2020,30 @@ def lm_serve_phase(seed: int) -> dict:
         raise AssertionError(f"lm serve: decode differs from prefill "
                              f"(max |err| {err}, scale {scale})")
 
-    by_name = {}
-    (wall, busy, idle, rec, exp), n = counted(lambda: idle_share(
-        lambda: T.prefill(model, prompt), by_name))
-    per_prefill.append(n)
+    # one profiled prefill and decode step, through the bf16 prefill kernel
+    # and the decode split and combine; a pass whose records the profiler
+    # lost (a flash kernel missing among them) is profiled again
+    prefill_names = ("flash_prefill",)
+    step_names = ("flash_decode_split", "flash_decode_combine")
+
+    def profiled(fn, want, counts):
+        for attempt in range(1, 4):
+            names = {}
+            res, n = counted(lambda: idle_share(
+                fn, names, {"flash_attention": len(want)}))
+            counts.append(n)
+            if all(any(w in nm for nm in names) for w in want):
+                break
+        log(f"  lm serve: profiled pass recorded {want} on attempt "
+            f"{attempt}")
+        return res, names
+
+    (wall, busy, idle, rec, exp), by_name = profiled(
+        lambda: T.prefill(model, prompt), prefill_names, per_prefill)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     cache = T.make_cache(cfg, B, S + n_dec, device=DEVICE)
-    dec_by = {}
-    (dwall, dbusy, didle, drec, dexp), n = counted(lambda: idle_share(
-        lambda: T.decode_step(model, cache, tok, S), dec_by))
-    per_step.append(n)
+    (dwall, dbusy, didle, drec, dexp), dec_by = profiled(
+        lambda: T.decode_step(model, cache, tok, S), step_names, per_step)
     dtop = sorted(dec_by.items(), key=lambda kv: -kv[1][1])[:6]
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  lm serve: profiled prefill {wall * 1e3:.1f} ms, device busy "
@@ -1968,6 +2055,13 @@ def lm_serve_phase(seed: int) -> dict:
         f"busy {dbusy * 1e3:.2f} ms, idle share {didle}; by kernel:")
     for name, (cnt, ms) in dtop:
         log(f"    {ms:10.3f} ms {cnt:5d}x {name}")
+    for what, names, want in (("prefill", by_name, prefill_names),
+                              ("decode step", dec_by, step_names)):
+        found = [nm for nm in names if "flash" in nm]
+        if any("flash_kernel" in nm for nm in found) or not all(
+                any(w in nm for nm in found) for w in want):
+            raise AssertionError(f"lm serve: the {what} ran {found}, "
+                                 f"expected {want}")
     if any(x != cfg.num_layers for x in per_prefill + per_step):
         raise AssertionError(f"lm serve: flash launches per prefill "
                              f"{per_prefill}, per decode step "
@@ -2088,9 +2182,19 @@ def main() -> int:
         t = time.time()
         logs = _build.build(force=True)
         for name, text in logs.items():
-            regs = [ln.strip() for ln in text.splitlines()
-                    if "registers" in ln or "spill" in ln]
-            log(f"  {name}: " + " | ".join(regs[:8]))
+            # per entry function: registers and bytes of spill stores
+            entries, spill, fn = [], None, None
+            for ln in text.splitlines():
+                if "Compiling entry function" in ln:
+                    fn = ln.split("'")[1]
+                elif "spill stores" in ln:
+                    spill = ln.split("bytes spill stores")[0].split(",")[-1]
+                elif "Used" in ln and "registers" in ln and fn:
+                    regs = ln.split("Used")[1].split("registers")[0]
+                    entries.append(f"{fn} {regs.strip()} regs "
+                                   f"{spill.strip()} B spilled")
+                    fn = None
+            log(f"  {name}: " + " | ".join(entries))
         log(f"  built {sorted(logs)} in {time.time() - t:.2f} s")
 
     graphs = {}

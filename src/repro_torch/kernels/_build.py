@@ -55,8 +55,10 @@ SIGNATURES = {
         "repro_segment_sum": (P, I, P, I, I, I, P, P, P),
     },
     "flash_attention": {
-        "repro_flash_attention": (P, P, P, P, I, I, I, I, I, I, I, I, I, F,
-                                  F, I, P),
+        "repro_flash_prefill": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, F,
+                                I, P),
+        "repro_flash_decode": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, F,
+                               I, I, I, I, I, P, P, P, P),
     },
 }
 

@@ -2,11 +2,14 @@
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention/
 flash_attention.py`` (``flash_kernel`` / ``_flash_call``, reached through
-``ops.mha``).  The CUDA kernel is ``csrc/flash_attention.cu``: f32 math
-from f32 or bf16 inputs, key tiles of 32 with an online softmax, causal
-masking, a sliding window, a tanh softcap and a query offset; GQA reads
-each query head's KV head by index (see the source note there).
-``ref.attention_ref`` is its plain version.
+``ops.mha``).  The CUDA source is ``csrc/flash_attention.cu``, three
+routes by :func:`route` (see the source note there): bf16 prefill on the
+tensor cores (wgmma fed by TMA, P split into two bf16 halves), f32 prefill
+on the CUDA cores, and decode (G * Sq <= 8 rows a KV group, either type)
+split over the cache, then combined.  Causal masking, a sliding window, a
+tanh softcap and a query offset; GQA reads each query head's KV head by
+index.  ``ref.attention_ref`` is the plain version, and
+``ref.attention_split_ref`` the decode route's split and combine.
 
 Neither kernel has a backward: a CUDA call whose inputs require grad
 raises (LM training, with an attention backward, is a later slice of the
@@ -19,7 +22,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, count_launch
-from repro_torch.kernels.flash_attention.ref import attention_ref, mha_ref
+from repro_torch.kernels.flash_attention.ref import (DECODE_ROWS,
+                                                     attention_ref, mha_ref,
+                                                     split_plan)
+
+# head dims of the bf16 prefill kernel (one template instance each)
+PREFILL_DIMS = (32, 64, 128, 256)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -66,25 +74,47 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    1.0 / (q.shape[3] ** 0.5), q_offset)
 
 
-def _launch(q, k, v, causal, window, softcap, scale, q_offset):
-    """The kernel on q [B, Sq, Hq, Dh], k, v [B, Sk, Hkv, Dh]."""
+def route(dtype: torch.dtype, rows: int, head_dim: int) -> str:
+    """The kernel a call takes: "decode" for ``rows`` = G * Sq <=
+    DECODE_ROWS (either type; Dh a multiple of the 16-byte vector),
+    "prefill" for bf16 (Dh in PREFILL_DIMS), "prefill_f32" for f32 (Dh a
+    multiple of 4 up to 256).  Raises ValueError on anything else."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the flash-attention kernels take f32 or bf16, "
+                         f"got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    if rows <= DECODE_ROWS:
+        vec = 8 if bf16 else 4
+        if head_dim % vec or not 0 < head_dim <= 256:
+            raise ValueError(f"head_dim {head_dim}: the decode kernel takes "
+                             f"a multiple of {vec} up to 256 in {dtype}")
+        return "decode"
+    if bf16:
+        if head_dim not in PREFILL_DIMS:
+            raise ValueError(f"head_dim {head_dim}: the bf16 prefill kernel "
+                             f"takes {PREFILL_DIMS}")
+        return "prefill"
+    if head_dim % 4 or not 4 <= head_dim <= 256:
+        raise ValueError(f"head_dim {head_dim}: the f32 prefill kernel "
+                         f"takes a multiple of 4 up to 256")
+    return "prefill_f32"
+
+
+def _launch(q, k, v, causal, window, softcap, scale, q_offset, plan=None):
+    """The kernel on q [B, Sq, Hq, Dh], k, v [B, Sk, Hkv, Dh].  ``plan``
+    overrides the decode route's (kb, ke, chunk, splits)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
             "the flash-attention kernel has no backward; LM training (an "
             "attention backward) is a later slice of the port (ROADMAP.md)")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"the flash-attention kernel takes f32 or bf16 "
-                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the flash-attention kernel takes q, k, v of one "
+                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.require_cuda(q, k, v)
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if Dh % 4 or not 4 <= Dh <= 256:
-        raise ValueError(f"head_dim {Dh}: the kernel takes a multiple of 4 "
-                         f"up to 256")
     if Sk < 1 or q_offset < 0 or window < 0 or softcap < 0:
         raise ValueError(f"Sk {Sk}, q_offset {q_offset}, window {window}, "
                          f"softcap {softcap}: the kernel takes Sk >= 1 and "
@@ -92,15 +122,27 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset):
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("the kernel takes 16-byte aligned tensors")
+    way = route(q.dtype, Hq // Hkv * Sq, Dh)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     lib = _build.lib("flash_attention")
-    rc = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, Sq, Sk, Hq, Hkv, Dh,
-        int(bool(causal)), int(window), ctypes.c_float(softcap),
-        ctypes.c_float(scale), int(q_offset), _build.stream_of(q))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, Sq, Sk, Hq, Hkv, Dh,
+            int(bool(causal)), int(window), ctypes.c_float(softcap),
+            ctypes.c_float(scale), int(q_offset))
+    if way == "decode":
+        kb, ke, chunk, splits = plan or split_plan(
+            Sq, Sk, causal, window, q_offset, B * Hkv)
+        rows = B * Hkv * splits * (Hq // Hkv) * Sq
+        ws = torch.empty(rows * (Dh + 2), dtype=torch.float32,
+                         device=q.device)
+        rc = lib.repro_flash_decode(
+            *head, kb, ke, chunk, splits, ws.data_ptr(),
+            ws.data_ptr() + 4 * rows, ws.data_ptr() + 8 * rows,
+            _build.stream_of(q))
+    else:
+        rc = lib.repro_flash_prefill(*head, _build.stream_of(q))
     _build.check("flash_attention", rc)
     count_launch("flash_attention")
     return out
