@@ -10,16 +10,23 @@ Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero
 code, since a refused launch never runs and a later synchronise would not
 report it.
+
+The helpers here sit in front of every session-kernel launch (a BiGJoin
+epoch makes thousands), so their per-call host cost is kept low: a loaded
+library is returned without taking the lock, the stream is read as a raw
+handle, and a region descriptor is packed once per distinct set of the
+values it is built from (:func:`region_desc`).
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -33,12 +40,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
-DESC = ctypes.POINTER(ctypes.c_int64)
+DESC = ctypes.c_char_p  # packed little-endian int64 words (region_desc)
 
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "intersect": {
-        "repro_signed_member": (DESC, I, I, P, I, P, P, I, P, P, P),
+        "repro_signed_member": (DESC, I, I, P, I, P, P, I, I, P, P),
     },
     "merge_rank": {
         "repro_rank": (DESC, P, I, P, P, I, P, P, P),
@@ -53,6 +60,8 @@ SIGNATURES = {
     },
     "segment_sum": {
         "repro_segment_sum": (P, I, P, I, I, I, P, P, P),
+        "repro_segment_sum_scratch": (I, I),
+        "repro_segment_sum_launches": (I,),
     },
     "flash_attention": {
         "repro_flash_prefill": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, F,
@@ -130,7 +139,12 @@ def build(names: Iterable[str] = SOURCES, force: bool = False
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (built first if missing or stale)."""
+    """The loaded library ``name`` (built first if missing or stale).  A
+    library once loaded is returned without taking the lock: entries of
+    ``_libs`` are only ever added, each whole."""
+    got = _libs.get(name)
+    if got is not None:
+        return got
     with _lock:
         got = _libs.get(name)
         if got is None:
@@ -154,8 +168,9 @@ def check(name: str, rc: int) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as a raw handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as a raw handle (read
+    without building a ``torch.cuda.Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t) -> int:
@@ -179,17 +194,52 @@ def lo_of(region):
 def uniform_lo(regions) -> bool:
     """True when every region is composite, False when none is; a launch
     that mixes the two layouts is refused."""
-    kinds = {lo_of(r) is not None for r in regions}
-    if len(kinds) > 1:
-        raise ValueError("a launch mixes composite (hi, lo) and 1-word "
-                         "regions")
-    return kinds == {True}
+    first = None
+    for r in regions:
+        lo = lo_of(r) is not None
+        if first is None:
+            first = lo
+        elif lo != first:
+            raise ValueError("a launch mixes composite (hi, lo) and 1-word "
+                             "regions")
+    return bool(first)
 
 
-def region_desc(regions) -> ctypes.Array:
-    """Host descriptor array of sorted regions: per region six int64 words
-    (key pointer, val pointer, n pointer, capacity, key is int64, lo
-    pointer or 0)."""
+def desc_key(regions) -> Tuple[tuple, ...]:
+    """The values a region descriptor is built from and checked on, region
+    by region: the address, dtype and contiguity of key, val and n, the
+    key's shape (its capacity), and the lo word's address, dtype, shape and
+    contiguity (None when absent).  Two region lists with equal keys have
+    equal descriptor words and pass the same checks, so a descriptor cached
+    under this key never goes stale.  CPU and CUDA tensors never share an
+    address (unified virtual addressing), so the key also fixes the device
+    kind."""
+    key = []
+    for r in regions:
+        k, v, n, lo = r.key, r.val, r.n, lo_of(r)
+        key.append((k.data_ptr(), k.dtype, k.shape, k.is_contiguous(),
+                    v.data_ptr(), v.dtype, v.is_contiguous(),
+                    n.data_ptr(), n.dtype, n.is_contiguous(),
+                    None if lo is None else (lo.data_ptr(), lo.dtype,
+                                             lo.shape, lo.is_contiguous())))
+    return tuple(key)
+
+
+_DESCS: Dict[tuple, bytes] = {}
+_DESC_CACHE_MAX = 4096  # distinct region sets kept; cleared when full
+
+
+def region_desc(regions) -> bytes:
+    """Host descriptor of sorted regions, packed little-endian: per region
+    six int64 words (key pointer, val pointer, n pointer, capacity, key is
+    int64, lo pointer or 0).  Cached under :func:`desc_key`; a miss runs
+    every check (CUDA, contiguous, int32 val and n, int32/int64 key, an
+    int64 lo word shaped like its key) and raises on the first failure, so
+    a region that fails one is never cached and raises on every call."""
+    key = desc_key(regions)
+    got = _DESCS.get(key)
+    if got is not None:
+        return got
     words = []
     for r in regions:
         require_cuda(r.key, r.val, r.n)
@@ -205,9 +255,14 @@ def region_desc(regions) -> ctypes.Array:
                                  "its key")
         words += [ptr(r.key), ptr(r.val), ptr(r.n), r.key.shape[0],
                   int(r.key.dtype == torch.int64), ptr(lo)]
-    return (ctypes.c_int64 * max(len(words), 1))(*words)
+    got = struct.pack(f"<{max(len(words), 1)}q", *(words or [0]))
+    if len(_DESCS) >= _DESC_CACHE_MAX:
+        _DESCS.clear()
+    _DESCS[key] = got
+    return got
 
 
-def int_array(vals) -> ctypes.Array:
-    vals = list(vals)
-    return (ctypes.c_int64 * max(len(vals), 1))(*vals)
+def int_array(vals) -> bytes:
+    """int64 words packed little-endian, as :func:`region_desc` packs."""
+    vals = list(vals) or [0]
+    return struct.pack(f"<{len(vals)}q", *vals)

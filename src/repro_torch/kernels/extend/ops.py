@@ -76,14 +76,11 @@ def _launch(pos, neg, qks, wk, valid, B):
     W = wk.shape[0]
     dev = wk.device
     lib = _build.lib("extend")
-    scratch = torch.empty(lib.repro_extend_scratch(nb, W),
-                          dtype=torch.int32, device=dev)
-    cand = torch.empty(B, dtype=torch.int32, device=dev)
-    row = torch.empty(B, dtype=torch.int32, device=dev)
-    alive = torch.empty(B, dtype=torch.int32, device=dev)
-    allowed = torch.empty(W, dtype=torch.int32, device=dev)
-    consumed = torch.empty(W, dtype=torch.int32, device=dev)
-    counters = torch.empty(2, dtype=torch.int32, device=dev)
+    # scratch and every output in one allocation (one call where seven
+    # cost the host a few microseconds each, on every BiGJoin step)
+    sizes = [lib.repro_extend_scratch(nb, W), B, B, B, W, W, 2]
+    scratch, cand, row, alive, allowed, consumed, counters = torch.empty(
+        sum(sizes), dtype=torch.int32, device=dev).split(sizes)
     p = _build.ptr
     rc = lib.repro_extend(
         _build.region_desc(regions), _build.int_array(bind), nb, W, B,

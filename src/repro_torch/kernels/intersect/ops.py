@@ -7,10 +7,18 @@ launch (``signed_member``), and one region alone (``member``).
 ``member`` replaces ``member_kernel`` / ``member_kernel_lex`` /
 ``_member_call`` (reached through ``ops.member``), both with 1-word and
 composite (hi, lo) keys.  One CUDA kernel serves both,
-``csrc/intersect.cu``: one thread per query looping over the region
-descriptors; ``member`` launches it with one positive region and no
-negative one and reads ``wpos > 0``.  It is bound by the scattered reads
-of its binary searches (see the source note there).
+``csrc/intersect.cu``; ``member`` launches it with one positive region and
+no negative one and has it write the bits ``wpos > 0``.
+
+What bounds the kernel is the chain of dependent loads of each search, not
+the bytes it moves (those stay the row's ``bound_ms``): a thread bisecting
+a 2^24-entry region waits on ~24 loads in turn.  The kernel puts a group
+of 16, 8 or 4 lanes on each (query, region) pair, searches (L+1)-ary with a
+ballot over L pivots a step, stages each region's first-level pivots in
+shared memory once per block, and adds the hits in region order (see the
+source note there).  The wrapper keeps its host cost low: a descriptor
+cached under the values it is built from (``_build.region_desc``), one
+output allocation, no dtype conversion that would not change the tensor.
 ``ref.signed_member_ref`` and ``ref.member_ref`` are the plain versions.
 """
 from __future__ import annotations
@@ -27,8 +35,9 @@ MAX_REGIONS = 8  # REPRO_MAX_REGIONS in csrc/common.cuh
 def _key_dtype(regions) -> torch.dtype:
     """The regions' common key dtype (queries are cast to it, as the
     reference kernel wrapper does)."""
-    if any(r.key.dtype == torch.int64 for r in regions):
-        return torch.int64
+    for r in regions:
+        if r.key.dtype == torch.int64:
+            return torch.int64
     return torch.int32
 
 
@@ -42,19 +51,19 @@ def signed_member(pos, neg, qk, qv: torch.Tensor):
     ql = None
     if isinstance(qk, tuple):
         qk, ql = qk
-        ql = ql.to(torch.int64)
+        ql = _as(ql, torch.int64)
     if not regions:
         z = torch.zeros(qk.shape, dtype=torch.int32, device=qk.device)
         return z, z
     if _build.uniform_lo(regions) != (ql is not None):
         raise ValueError("composite regions take (hi, lo) queries and "
                          "1-word regions one key")
-    qk = qk.to(_key_dtype(regions))
-    qv = qv.to(torch.int32)
+    qk = _as(qk, _key_dtype(regions))
+    qv = _as(qv, torch.int32)
     if not qk.is_cuda:
         return signed_member_ref(pos, neg, qk if ql is None else (qk, ql),
                                  qv)
-    return _launch(tuple(pos), tuple(neg), qk, ql, qv, "signed_member")
+    return _launch(regions, len(pos), qk, ql, qv, "signed_member")
 
 
 def member(keys, vals, n, qk, qv: torch.Tensor, los=None, ql=None
@@ -65,20 +74,26 @@ def member(keys, vals, n, qk, qv: torch.Tensor, los=None, ql=None
     if (los is None) != (ql is None):
         raise ValueError("composite regions take (hi, lo) queries and "
                          "1-word regions one key")
-    qk = qk.to(keys.dtype)
-    qv = qv.to(torch.int32)
+    qk = _as(qk, keys.dtype)
+    qv = _as(qv, torch.int32)
     if ql is not None:
-        ql = ql.to(torch.int64)
+        ql = _as(ql, torch.int64)
     if not qk.is_cuda:
         return member_ref(keys, vals, n, qk, qv, los=los, ql=ql)
-    n = torch.as_tensor(n, dtype=torch.int32, device=keys.device)
-    reg = IndexData(keys, vals, n.reshape(()), los)
-    wpos, _ = _launch((reg,), (), qk, ql, qv, "member")
-    return wpos > 0
+    if not isinstance(n, torch.Tensor) or n.dtype != torch.int32 \
+            or n.dim() or n.device != keys.device:
+        n = torch.as_tensor(n, dtype=torch.int32,
+                            device=keys.device).reshape(())
+    return _launch((IndexData(keys, vals, n, los),), 1, qk, ql, qv,
+                   "member", bits=True)
 
 
-def _launch(pos, neg, qk, ql, qv, name):
-    regions = pos + neg
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, without a call when it already is."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def _launch(regions, npos, qk, ql, qv, name, bits=False):
     if len(regions) > MAX_REGIONS:
         raise ValueError(f"at most {MAX_REGIONS} regions per launch")
     qk, qv = qk.contiguous(), qv.contiguous()
@@ -88,13 +103,14 @@ def _launch(pos, neg, qk, ql, qv, name):
         _build.require_cuda(ql)
     desc = _build.region_desc(regions)
     B = qk.shape[0]
-    wpos = torch.empty(B, dtype=torch.int32, device=qk.device)
-    wneg = torch.empty(B, dtype=torch.int32, device=qk.device)
+    out = torch.empty(B if bits else (2, B),
+                      dtype=torch.bool if bits else torch.int32,
+                      device=qk.device)
     lib = _build.lib("intersect")
+    p = _build.ptr
     rc = lib.repro_signed_member(
-        desc, len(pos), len(regions), _build.ptr(qk),
-        int(qk.dtype == torch.int64), _build.ptr(ql), _build.ptr(qv), B,
-        _build.ptr(wpos), _build.ptr(wneg), _build.stream_of(qk))
+        desc, npos, len(regions), p(qk), int(qk.dtype == torch.int64),
+        p(ql), p(qv), B, int(bits), p(out), _build.stream_of(qk))
     _build.check("intersect", rc)
     count_launch(name if ql is None else f"{name}_lex")
-    return wpos, wneg
+    return out if bits else out.unbind()

@@ -2,10 +2,12 @@
 
 Replaces the TPU kernel ``src/repro/kernels/segment_ops/segment_ops.py``
 (``segment_sum_kernel`` / ``_segment_sum_call``, reached through
-``ops.segment_sum``).  The CUDA kernel is ``csrc/segment_sum.cu``: per-tile
-partial sums of 32 sorted rows, then one warp per output segment adding its
-partials in row order, in f32, without atomics; it is bound by the bytes it
-moves (see the source note there).
+``ops.segment_sum``).  The CUDA kernel is ``csrc/segment_sum.cu``: tiles of
+32 sorted rows summed in row order, segments whole inside a tile written
+straight out, the runs that cross tile boundaries summed by a fixed-order
+tree of groups of 16 partials (one launch a level), in f32 and without
+atomics, so two calls on one input give the same bits; it is bound by the
+bytes it moves (see the source note there).
 ``ref.segment_sum_ref`` is its plain version.
 
 The op carries a gradient (:class:`_SegmentSum`): the backward of a
@@ -64,6 +66,12 @@ class _SegmentSum(torch.autograd.Function):
         return g.to(ctx.dtype), None, None, None
 
 
+def kernel_launches(E: int) -> int:
+    """CUDA launches of one call over ``E`` rows: the tiles, then one per
+    level of the partials' tree (the count depends on E alone)."""
+    return _build.lib("segment_sum").repro_segment_sum_launches(E)
+
+
 def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int
             ) -> torch.Tensor:
     if data.dtype not in (torch.float32, torch.float16):
@@ -74,13 +82,14 @@ def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int
     if num_segments == 0 or D == 0:  # nothing to launch
         return torch.zeros((num_segments, D), dtype=torch.float32,
                            device=data.device)
-    part = torch.empty((E, D), dtype=torch.float32, device=data.device)
+    lib = _build.lib("segment_sum")
+    scratch = torch.empty(lib.repro_segment_sum_scratch(E, D),
+                          dtype=torch.int32, device=data.device)
     out = torch.empty((num_segments, D), dtype=torch.float32,
                       device=data.device)
-    lib = _build.lib("segment_sum")
     rc = lib.repro_segment_sum(
         _build.ptr(data), int(data.dtype == torch.float16), _build.ptr(seg),
-        E, D, num_segments, _build.ptr(part), _build.ptr(out),
+        E, D, num_segments, _build.ptr(scratch), _build.ptr(out),
         _build.stream_of(data))
     _build.check("segment_sum", rc)
     count_launch("segment_sum")
