@@ -16,7 +16,13 @@ Phases, in order, each printed with its result and seconds:
               least time the card could take (``bound_ms``); the
               membership kernels also at their edge inputs at full size
               (a 100,000-entry run of one key, n = 0, n = capacity,
-              sentinel queries, queries past either end); then the
+              sentinel queries, queries past either end), and fused
+              extend and merge ranks at theirs (resumed cursors, a budget
+              cut mid-row, rows without extensions, every row invalid, B'
+              above the total, argmin ties, a budget cumsum that wraps;
+              unsorted queries, entries held twice); one CUDA graph
+              capture of each of those two kernels, replayed against eager
+              calls (``--graph-check``, a process of its own); then the
               flash-attention kernels against their plain version at the
               JAX package's six sweep shapes (f32 and bf16), at bf16 rows
               without a live key and a decode plan with masked chunks and
@@ -183,7 +189,7 @@ KERNEL_FUNCS = {
     # bf16 prefill (tensor cores), decode split and combine, f32 prefill
     "flash_attention": ("flash_prefill", "flash_decode_split",
                         "flash_decode_combine", "flash_kernel"),
-    "fused_extend": ("extend_count", "extend_budget", "extend_propose"),
+    "fused_extend": ("extend_kernel",),
     "rank_lt_le": ("rank_kernel",),
     "commit_fold": ("fold_masks", "scan_tiles", "scan_tile_sums",
                     "scan_apply", "fold_scatter"),
@@ -504,6 +510,154 @@ def member_edge_checks(big, rows: np.ndarray, narrow: bool, label: str,
     log(f"  membership edge cases {label}: {tq.shape[0]} queries, big n="
         f"{int(big.n)}, run of {run_len} on one key, n=cap={full_n}, n=0: "
         f"exact; hits {hits}")
+    return dict(run=run, full=full, empty=empty, full_rows=full_rows,
+                run_key=run_rows[0, :ar - 1], build=build,
+                queries=(tq, tl, tv))
+
+
+# the lane counts a search of fused extend can take (extend_dispatch in
+# csrc/extend.cu): the edge checks must reach each of them
+EXTEND_LANES = (1, 2)
+
+
+def extend_rank_edge_checks(big, rows: np.ndarray, edge: dict, label: str,
+                            seed: int) -> None:
+    """Fused extend and merge ranks at their edge cases, full size (W =
+    B' = 8192 for extend, whole regions of up to 2^24 entries as rank
+    queries), kernel against plain version exactly.  ``big`` and ``rows``
+    as for member_edge_checks, ``edge`` its regions.  Extend: resumed
+    cursors (wk > 0), a budget exhausted in the middle of a row (the
+    100,000-entry run), rows with no extension between live rows, every
+    row invalid, B' above the total (slots past it clip to W - 1), argmin
+    ties (two equal bindings), regions with n = 0 and n = capacity, an
+    int32 cumsum of the budget that wraps (8192 rows of 2^20 extensions
+    each), and the mixed case at the sessions' other windows, W = B' =
+    1024, 2048 and 4096; together they must reach every lane count a
+    search can take (EXTEND_LANES), each case's logged.  Ranks: a sorted
+    region against another, unsorted queries, a region with a key run
+    against itself, a region holding every entry twice against itself,
+    sentinel queries and queries past either end (int64 queries of a
+    narrow region), n = 0 and n = capacity."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.extend import ops as eops, ref as eref
+    from repro_torch.kernels.merge import ops as mops, ref as mref
+    dev = big.key.device
+    rng = np.random.default_rng(seed + 31)
+    run, full, empty = edge["run"], edge["full"], edge["empty"]
+    ar = rows.shape[1]
+    composite = ar > 2
+    nv = int(rows.max()) + 1
+    W = 8192
+
+    def window_keys(pre):
+        """The lookup keys of window prefixes ``pre`` [W, ar - 1]."""
+        if composite:
+            from repro_torch.core import csr
+            hi, lo = csr.pack_key(tuple(pre[:, c] for c in range(ar - 1)))
+            return (torch.from_numpy(hi).to(dev, big.key.dtype),
+                    torch.from_numpy(lo).to(dev))
+        return torch.from_numpy(pre[:, 0].copy()).to(dev, big.key.dtype)
+
+    lanes = {}  # case -> lanes a search the kernel took
+
+    def check_extend(what, pos, neg, qks, wk, valid, Bp):
+        got = eops.fused_extend(pos, neg, qks, wk, valid, Bp)
+        want = eref.fused_extend_ref(pos, neg, qks, wk, valid, Bp)
+        sync()
+        max_abs_err(got, want)
+        lanes[what] = _build.lib("extend").repro_extend_lanes(
+            sum(len(p) + len(n) for p, n in zip(pos, neg)), wk.shape[0],
+            int(composite))
+        return want
+
+    # live prefixes, the run's key, absent keys (no extension), mixed
+    pre = np.concatenate([
+        rows[rng.integers(0, rows.shape[0], W // 2), :ar - 1],
+        np.repeat(edge["run_key"][None], W // 8, 0),
+        np.full((W // 8, ar - 1), nv + 7, np.int32),
+        rng.integers(0, nv, (W - W // 2 - W // 4, ar - 1)).astype(np.int32)])
+    pre = pre[rng.permutation(W)]
+    qk = window_keys(pre)
+    wk = torch.from_numpy(rng.integers(0, 4, W).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(W) < 0.9).to(dev)
+    out = {}
+    mpos, mneg = [(big, run, full), (big, empty)], [(empty, run), (full,)]
+    want = check_extend("mixed", mpos, mneg, [qk, qk], wk, valid, W)
+    out["mixed proposals"] = int(want[5][0])
+    out["rows cut by the budget"] = int((~want[4] & valid & (want[3] > 0))
+                                        .sum())
+    # the other windows the sessions run (W = B' of 1024 to 4096; serve
+    # 20:triangle's 4096 among them), 5 + 3 regions as row 3
+    for Ws in (1024, 2048, 4096):
+        qs = window_keys(pre[:Ws])
+        check_extend(f"W={Ws}", mpos, mneg, [qs, qs], wk[:Ws], valid[:Ws],
+                     Ws)
+    want = check_extend("ties", [(big,), (big,)], [(), ()], [qk, qk], wk,
+                        valid, W)
+    out["ties proposals"] = int(want[5][0])
+    check_extend("invalid", [(big, run)], [(empty,)], [qk], wk,
+                 torch.zeros(W, dtype=torch.bool, device=dev), W)
+    fpre = edge["full_rows"][rng.integers(0, edge["full_rows"].shape[0], W),
+                             :ar - 1]
+    fvalid = torch.arange(W, device=dev) < 16
+    want = check_extend("under budget", [(full,)], [(empty,)],
+                        [window_keys(fpre)], torch.zeros_like(wk), fvalid, W)
+    if not int(want[5][0]) < W:
+        raise AssertionError(f"{label}: the under-budget case proposes "
+                             f"{int(want[5][0])} of {W}")
+    out["under budget proposals"] = int(want[5][0])
+    one_rows = np.repeat(rows[:1], 1 << 20, 0)
+    one_rows[:, ar - 1] = np.arange(1 << 20)
+    one = edge["build"](one_rows, 1 << 20)
+    opre = np.repeat(rows[:1, :ar - 1], W, 0)
+    want = check_extend("wrap", [(one,)], [()], [window_keys(opre)], wk,
+                        torch.ones(W, dtype=torch.bool, device=dev), W)
+    out["wrap rows allowed"] = int((want[3] > 0).sum())
+    del one
+    if set(lanes.values()) != set(EXTEND_LANES):
+        raise AssertionError(f"{label}: the extend edge cases took lanes "
+                             f"{lanes}, not every one of {EXTEND_LANES}")
+
+    # -- ranks
+    def check_rank(what, r, qk, qv, qlo=None):
+        got = mops.rank_lt_le(r.key, r.val, r.n, qk, qv, lo=r.lo, qlo=qlo)
+        want = mref.rank_ref(r.key, r.val, r.n, qk, qv, lo=r.lo, qlo=qlo)
+        sync()
+        max_abs_err(got, want)
+        return want
+
+    def twice(r):
+        n = int(r.n)
+        k = torch.repeat_interleave(r.key[:n], 2)
+        v = torch.repeat_interleave(r.val[:n], 2)
+        lo = None if r.lo is None else torch.repeat_interleave(r.lo[:n], 2)
+        return type(r)(k, v, torch.tensor(2 * n, dtype=torch.int32,
+                                          device=dev), lo)
+
+    ranks = {}
+    for what, r, q in (("sorted", big, full), ("n=cap", full, big),
+                       ("n=0", empty, full), ("run self", run, run)):
+        want = check_rank(what, r, q.key, q.val, q.lo)
+        ranks[what] = int((want[1] > want[0]).sum())
+    perm = torch.randperm(big.capacity, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    want = check_rank("unsorted", full, big.key[perm], big.val[perm],
+                      None if big.lo is None else big.lo[perm])
+    ranks["unsorted"] = int((want[1] > want[0]).sum())
+    tw = twice(full)
+    want = check_rank("twice self", tw, tw.key, tw.val, tw.lo)
+    ranks["twice self"] = int((want[1] - want[0]).max())
+    tq, tl, tv = edge["queries"]
+    for what, r in (("edge queries big", big), ("edge queries run", run)):
+        check_rank(what, r, tq.to(torch.int64), tv, tl)
+        order = torch.argsort(tq.to(torch.int64), stable=True)
+        check_rank(what + " sorted", r, tq.to(torch.int64)[order], tv[order],
+                   None if tl is None else tl[order])
+    log(f"  extend and rank edge cases {label}: W=B'={W} (and 1024-4096), "
+        f"run region n={int(run.n)}, n=cap={int(full.n)}, n=0: exact; "
+        f"lanes a search {lanes}; {out}; ranks "
+        f"(queries with le > lt, or the largest le - lt) {ranks}")
 
 
 def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
@@ -706,7 +860,9 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
             wneg = [proj(gone, False, cc), proj(dels, False, update_batch)]
             pos = [tuple(wide), tuple(wide[:2])]
             neg = [tuple(wneg), tuple(wneg[:1])]
-        member_edge_checks(pos[0][0], edges, narrow, label, seed)
+        edge = member_edge_checks(pos[0][0], edges, narrow, label, seed)
+        extend_rank_edge_checks(pos[0][0], edges, edge, label, seed)
+        del edge
         Bp = 8192
         W = Bp
         seeds = np.concatenate([ins, dels])
@@ -944,8 +1100,11 @@ def kernel_phase_lex(tri: np.ndarray, quad: np.ndarray, edges: np.ndarray,
                  qproj(rel_rows(quad, update_batch // 4), narrow,
                        update_batch))
         pos, neg = [q_pos, e_pos], [q_neg, e_neg]
-        member_edge_checks(q_pos[0], quad, narrow, f"composite {label}",
-                           seed)
+        edge = member_edge_checks(q_pos[0], quad, narrow,
+                                  f"composite {label}", seed)
+        extend_rank_edge_checks(q_pos[0], quad, edge, f"composite {label}",
+                                seed)
+        del edge
         qh, ql = pack_q(window[:, :3])
         qks = [(qh.to(torch.int32) if narrow else qh, ql),
                torch.from_numpy(window[:, 3].copy()).to(dev)]
@@ -2319,6 +2478,67 @@ def lm_serve_phase(seed: int) -> dict:
     return totals
 
 
+def graph_check(seed: int) -> int:
+    """``--graph-check``: one ``torch.cuda.graph`` capture of a fused
+    extend call (one level of a triangle plan over an R-MAT scale-16 edge
+    projection, W = B' = 8192) and of a merge-rank call, replayed, against
+    eager calls, bit for bit.  Prints one JSON line per kernel: captured
+    and equal, or the runtime's refusal.  Returns 1 when a replay differs,
+    else 0.  Runs in a process of its own, so that a refused capture leaves
+    no state behind in the main run."""
+    import torch
+    from repro_torch.core import csr
+    from repro_torch.data.synthetic import rmat_graph
+    from repro_torch.kernels.extend import ops as eops
+    from repro_torch.kernels.merge import ops as mops
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    edges = rmat_graph(16, 16, seed=seed)
+    idx = csr.build_index(edges, (0,), 1, narrow=True, device=dev)
+    part = csr.build_index(edges[rng.integers(0, edges.shape[0], 50_000)],
+                           (0,), 1, narrow=True, device=dev)
+    W = 8192
+    pre = edges[rng.integers(0, edges.shape[0], W)]
+    qks = [torch.from_numpy(pre[:, 1].copy()).to(dev),
+           torch.from_numpy(pre[:, 0].copy()).to(dev)]
+    wk = torch.zeros(W, dtype=torch.int32, device=dev)
+    valid = torch.arange(W, device=dev) < 6000
+    calls = {
+        "fused_extend": lambda: eops.fused_extend(
+            [(idx, part), (idx,)], [(part,), ()], qks, wk, valid, W),
+        "rank_lt_le": lambda: mops.rank_lt_le(part.key, part.val, part.n,
+                                              idx.key, idx.val),
+    }
+    rc = 0
+    for name, fn in calls.items():
+        want = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the capture, as asked
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        sync()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                got = fn()
+        except RuntimeError as e:  # the runtime's refusal is the finding
+            print(json.dumps({"graph": name, "captured": False,
+                              "error": str(e)[:300]}), flush=True)
+            continue
+        graph.replay()
+        sync()
+        try:
+            max_abs_err(got, want)
+            equal = True
+        except AssertionError:
+            equal = False
+            rc = 1
+        print(json.dumps({"graph": name, "captured": True,
+                          "replay_equal": equal}), flush=True)
+    return rc
+
+
 SOURCES = {
     "signed_member": ("src/repro_torch/csrc/intersect.cu",
                       "src/repro/kernels/intersect/intersect.py:235"),
@@ -2376,6 +2596,10 @@ def main() -> int:
     ap.add_argument("--update-batch", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--graph-check", action="store_true",
+                    help="only capture fused extend and merge ranks in a "
+                    "CUDA graph and hold the replay to eager calls (the "
+                    "kernels phase runs this in a process of its own)")
     args = ap.parse_args()
     # diamond's epochs at scale 16 take 9-20 s each on the host-bound
     # BiGJoin loop and the triangle oracle at scale 14 seconds per epoch,
@@ -2394,6 +2618,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if args.graph_check:
+        return graph_check(args.seed)
     # f32 matmuls in full f32 (the defaults, stated): the train phases
     # hold the card's steps to the host's
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2450,6 +2676,15 @@ def main() -> int:
             args.update_batch, 16 * args.update_batch, args.reps,
             args.seed))
         del tri, quad
+        # a CUDA graph over fused extend and merge ranks, in its own process
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--graph-check", "--seed", str(args.seed)],
+                             capture_output=True, text=True, timeout=600)
+        for ln in out.stdout.splitlines():
+            log(f"  {ln}")
+        if out.returncode != 0:
+            raise AssertionError(f"CUDA graph check failed (rc "
+                                 f"{out.returncode}): {out.stderr[-2000:]}")
         flash_rows(table, args.reps, args.seed)
 
     # every session and training run below starts its kernel counts at 0

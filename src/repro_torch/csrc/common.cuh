@@ -25,6 +25,23 @@ typedef long long i64;
   kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
 #endif
 
+// Cooperative launch of a kernel of two parameters on the caller's stream:
+// every block of the grid resident at once, so the kernel may wait at
+// grid-wide barriers (cooperative_groups::this_grid().sync()).  Returns the
+// launch's error: a grid too large to be co-resident is refused
+// (cudaErrorCooperativeLaunchTooLarge), never run.
+#ifndef REPRO_LAUNCH_COOP
+#define REPRO_LAUNCH_COOP(kernel, grid, block, stream, a0, a1)            \
+  repro_launch_coop((const void*)(kernel), (grid), (block), (stream),     \
+                    (void*)&(a0), (void*)&(a1))
+inline int repro_launch_coop(const void* kernel, int grid, int block,
+                             void* stream, void* a0, void* a1) {
+  void* args[2] = {a0, a1};
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(block),
+                                          args, 0, (cudaStream_t)stream);
+}
+#endif
+
 // Launch with `smem` bytes of dynamic shared memory.
 #ifndef REPRO_LAUNCH_SMEM
 #define REPRO_LAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
@@ -109,27 +126,6 @@ __device__ __forceinline__ int lex_bound(const Region& r, int hi, i64 qk,
                                   right);
 }
 
-// Key-only bound over the FULL capacity (csr.index_range: the sentinel
-// padding sorts above every real key).
-template <typename K>
-__device__ __forceinline__ int key_bound_t(const K* key, int cap, i64 qk,
-                                           bool right) {
-  int lo = 0, hi = cap;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    i64 mk = (i64)key[mid];
-    bool less = right ? (mk <= qk) : (mk < qk);
-    if (less) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ int key_bound(const Region& r, i64 qk,
-                                         bool right) {
-  return r.k64 ? key_bound_t<i64>((const i64*)r.key, r.cap, qk, right)
-               : key_bound_t<int>((const int*)r.key, r.cap, qk, right);
-}
-
 // Is (qk, qv) among the live entries of r?  (csr.index_member)
 __device__ __forceinline__ int member_of(const Region& r, i64 qk, int qv) {
   int n = live_of(r);
@@ -166,31 +162,6 @@ __device__ __forceinline__ int lex_bound3(const Region& r, int hi, i64 qk,
                                    ql, qv, right)
                : lex_bound3_t<int>((const int*)r.key, r.lo, r.val, hi, qk,
                                    ql, qv, right);
-}
-
-// Key-only (key, lo) prefix bound over the FULL capacity (the composite
-// csr.index_range: padding is int64-max in lo and the sentinel in key).
-template <typename K>
-__device__ __forceinline__ int key_bound2_t(const K* key, const i64* lo,
-                                            int cap, i64 qk, i64 ql,
-                                            bool right) {
-  int a = 0, hi = cap;
-  while (a < hi) {
-    int mid = (a + hi) >> 1;
-    i64 mk = (i64)key[mid];
-    i64 ml = lo[mid];
-    bool less = mk < qk || (mk == qk && (right ? ml <= ql : ml < ql));
-    if (less) a = mid + 1; else hi = mid;
-  }
-  return a;
-}
-
-__device__ __forceinline__ int key_bound2(const Region& r, i64 qk, i64 ql,
-                                          bool right) {
-  return r.k64 ? key_bound2_t<i64>((const i64*)r.key, r.lo, r.cap, qk, ql,
-                                   right)
-               : key_bound2_t<int>((const int*)r.key, r.lo, r.cap, qk, ql,
-                                   right);
 }
 
 __device__ __forceinline__ int member3_of(const Region& r, i64 qk, i64 ql,

@@ -39,13 +39,13 @@
 //     all in flight together; the hits meet in shared memory and one
 //     thread per query adds them in region order, so wpos and wneg are
 //     exact integer counts.  At B = 2048 the grid fills the card.
-// The live count n is read from device memory (live_of): a launch never
-// waits on the host.  The TPU's two-level router + [BQ,128] row tile was a
+// The group search (pivots, compares, the ballot step, the lane choice)
+// lives in search.cuh, shared with fused extend and merge ranks.  The live
+// count n is read from device memory (live_of): a launch never waits on
+// the host.  The TPU's two-level router + [BQ,128] row tile was a
 // VMEM device; the searches here give the same bits.
-#include "common.cuh"
+#include "search.cuh"
 
-// lanes of all searches of a launch at most, where the searches allow
-#define MEMBER_LANES_IN_FLIGHT 98304
 // threads a block (one search group of L lanes per query and region)
 #define MEMBER_THREADS 256
 
@@ -54,26 +54,6 @@ struct MemberArgs {
   int npos;
   int nreg;
 };
-
-// Pivot j (0..L-1) of the range [lo, lo + m), m >= 1, for an (L+1)-ary
-// step: nondecreasing in j, inside the range, and every position of a
-// range of m <= L entries is a pivot.
-template <int L>
-__device__ __forceinline__ int member_pivot(int lo, int m, int j) {
-  return lo + (int)(((unsigned long long)(j + 1) * (unsigned)m) /
-                    (unsigned)(L + 1));
-}
-
-// One (L+1)-ary search step's compare of entry (ek[, el], ev) with the
-// query: (entry < q, entry == q).
-template <bool LO>
-__device__ __forceinline__ void member_cmp(i64 ek, i64 el, int ev, i64 qk,
-                                           i64 ql, int qv, bool* lt,
-                                           bool* eq) {
-  *lt = ek < qk ||
-        (ek == qk && (LO ? (el < ql || (el == ql && ev < qv)) : ev < qv));
-  *eq = ek == qk && ev == qv && (!LO || el == ql);
-}
 
 // The block: `qpb` queries x nreg regions, a group of L lanes on each
 // (query, region) pair, the groups of a warp side by side.  Each region's
@@ -105,9 +85,8 @@ __global__ void signed_member_kernel(const __grid_constant__ MemberArgs a,
   }
   __syncthreads();
   // this group's task: query q, region r
-  const int task = t / L, gl = t % L;
-  const int shift = (t & 31) - gl;  // the group's first lane in its warp
-  const unsigned gmask = L == 32 ? 0xffffffffu : ((1u << L) - 1) << shift;
+  const Group<L> g(t);
+  const int task = t / L, gl = g.gl;
   const int r = task % nreg;
   const int q = blockIdx.x * qpb + task / nreg;
   const bool active = task < qpb * nreg && q < B;
@@ -141,19 +120,7 @@ __global__ void signed_member_kernel(const __grid_constant__ MemberArgs a,
       }
       member_cmp<LO>(ek, el, ev, k, l, v, &lt, &eq);
     }
-    // the group's pivots below q are a prefix (sorted entries): entries
-    // before pivot c - 1 are < q, entries from pivot c on are >= q
-    unsigned lm = (__ballot_sync(0xffffffffu, lt) & gmask) >> shift;
-    unsigned em = (__ballot_sync(0xffffffffu, eq) & gmask) >> shift;
-    if (live) {
-      int c = __popc(lm);
-      int nlo = c > 0 ? member_pivot<L>(lo, m, c - 1) + 1 : lo;
-      if (c < L) {
-        hi = member_pivot<L>(lo, m, c);
-        hit = (em >> c) & 1;  // the first entry >= q: is it q?
-      }
-      lo = nlo;
-    }
+    group_step<L, true>(g, live, lt, eq, &lo, &hi, &hit);
   }
   if (gl == 0) hits[task] = active ? hit : 0;
   __syncthreads();
@@ -182,16 +149,6 @@ static void member_launch(const MemberArgs& a, const void* qk, int q64,
   auto kernel = signed_member_kernel<LO, L>;
   REPRO_LAUNCH(kernel, grid_for(B, qpb), threads, stream, a, qk, q64, ql, qv,
                B, qpb, bits, out);
-}
-
-// Lanes a search: 16, 8 or 4, the most that keep every search's lanes
-// together within MEMBER_LANES_IN_FLIGHT (4 beyond).  Wider groups take
-// fewer steps but load more pivots a search; past that many lanes the
-// loads, not the steps, set the time (A/B on the H100 in the header).
-static int member_lanes(long long searches) {
-  for (int L = 16; L > 4; L >>= 1)
-    if (searches * L <= MEMBER_LANES_IN_FLIGHT) return L;
-  return 4;
 }
 
 template <bool LO>

@@ -26,7 +26,7 @@ import struct
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable
 
 import torch
 
@@ -53,6 +53,7 @@ SIGNATURES = {
     "extend": {
         "repro_extend": (DESC, DESC, I, I, I, P, P, P, P, P, P, P, P, P, P),
         "repro_extend_scratch": (I, I),
+        "repro_extend_lanes": (I, I, I),
     },
     "fold": {
         "repro_commit_fold": (DESC, P, P, P, P, P, P, I, P, P, P, P, I, P),
@@ -205,7 +206,7 @@ def uniform_lo(regions) -> bool:
     return bool(first)
 
 
-def desc_key(regions) -> Tuple[tuple, ...]:
+def desc_key(regions) -> tuple:
     """The values a region descriptor is built from and checked on, region
     by region: the address, dtype and contiguity of key, val and n, the
     key's shape (its capacity), and the lo word's address, dtype, shape and
@@ -213,16 +214,20 @@ def desc_key(regions) -> Tuple[tuple, ...]:
     equal descriptor words and pass the same checks, so a descriptor cached
     under this key never goes stale.  CPU and CUDA tensors never share an
     address (unified virtual addressing), so the key also fixes the device
-    kind."""
+    kind.  Flat: fourteen values a region (the lo word's four None when
+    absent), so a key of many regions costs the host one tuple."""
     key = []
     for r in regions:
-        k, v, n, lo = r.key, r.val, r.n, lo_of(r)
-        key.append((k.data_ptr(), k.dtype, k.shape, k.is_contiguous(),
-                    v.data_ptr(), v.dtype, v.is_contiguous(),
-                    n.data_ptr(), n.dtype, n.is_contiguous(),
-                    None if lo is None else (lo.data_ptr(), lo.dtype,
-                                             lo.shape, lo.is_contiguous())))
+        k, v, n, lo = r.key, r.val, r.n, getattr(r, "lo", None)
+        key += (k.data_ptr(), k.dtype, k.shape, k.is_contiguous(),
+                v.data_ptr(), v.dtype, v.is_contiguous(),
+                n.data_ptr(), n.dtype, n.is_contiguous())
+        key += _NO_LO if lo is None else (lo.data_ptr(), lo.dtype, lo.shape,
+                                          lo.is_contiguous())
     return tuple(key)
+
+
+_NO_LO = (None, None, None, None)
 
 
 _DESCS: Dict[tuple, bytes] = {}

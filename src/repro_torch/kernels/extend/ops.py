@@ -3,12 +3,13 @@
 Replaces the TPU kernel ``src/repro/kernels/extend/extend.py``
 (``make_extend_kernel`` / ``_extend_call``, reached through
 ``ops.fused_extend``), 1-word and composite (hi, lo) bindings.  The CUDA
-kernel is
-``csrc/extend.cu``: count-minimization per window row, one block for the
-budget scans, then one thread per proposal for gather and signed
-intersection; it is bound by the scattered reads of its binary searches
-(see the source note there).  ``ref.fused_extend_ref`` is its plain
-version.
+kernel is ``csrc/extend.cu``: one cooperative launch a call, whose phases
+(range searches and count-minimization over the window, the budget scans
+and the expansion of rows into proposal slots, gather and signed
+intersection) meet at grid-wide barriers; it is bound by the chains of
+dependent loads of its searches (see the source note there).  It reads
+``valid`` and writes ``alive`` and ``consumed`` as bool, so a call makes
+no other launch.  ``ref.fused_extend_ref`` is its plain version.
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ def fused_extend(pos, neg, qks, wk, valid, batch: int):
     int32, consumed [W] bool, counters [2] int32 = (proposed,
     intersections)).
     """
+    if wk.is_cuda:
+        return _launch(pos, neg, qks, wk, valid, int(batch))
     pos = tuple(tuple(p) for p in pos)
     neg = tuple(tuple(n) for n in neg)
     # each binding compares in the promoted dtype of its queries and keys
@@ -47,13 +50,15 @@ def fused_extend(pos, neg, qks, wk, valid, batch: int):
         qh = qh.to(torch.int64 if qh.dtype == torch.int64 or any(
             r.key.dtype == torch.int64 for r in p + n) else torch.int32)
         cast.append((qh, q[1].to(torch.int64)) if comp else qh)
-    qks = tuple(cast)
-    if not wk.is_cuda:
-        return fused_extend_ref(pos, neg, qks, wk, valid, batch)
-    return _launch(pos, neg, qks, wk, valid, int(batch))
+    return fused_extend_ref(pos, neg, tuple(cast), wk, valid, batch)
 
 
 def _launch(pos, neg, qks, wk, valid, B):
+    """The kernel's launch, on the host's shortest path (a BiGJoin epoch
+    makes thousands): the kernel compares every key promoted to int64, so
+    lookup keys of either width go as they are; it refuses (invalid
+    argument) a binding whose regions and keys disagree on the composite
+    layout."""
     nb = len(pos)
     if not 1 <= nb <= MAX_BINDINGS:
         raise ValueError(f"1..{MAX_BINDINGS} bindings per level, got {nb}")
@@ -62,30 +67,50 @@ def _launch(pos, neg, qks, wk, valid, B):
     for p, n, q in zip(pos, neg, qks):
         if not p or len(p) + len(n) > MAX_REGIONS:
             raise ValueError("1..8 regions per binding, positives first")
-        qh, ql = (q if isinstance(q, tuple) else (q, None))
+        if isinstance(q, tuple):
+            qh, ql = q
+            if ql.dtype != torch.int64:
+                ql = ql.to(torch.int64)
+            ql = ql.contiguous()
+            keep.append(ql)
+            composite = True
+        else:
+            qh, ql = q, None
+        if qh.dtype != torch.int32 and qh.dtype != torch.int64:
+            qh = qh.to(torch.int64)
         qh = qh.contiguous()
-        ql = None if ql is None else ql.contiguous()
-        keep += [qh] + ([] if ql is None else [ql])
-        composite |= ql is not None
-        regions += list(p) + list(n)
-        bind += [len(p), len(n), int(qh.dtype == torch.int64),
-                 _build.ptr(qh), _build.ptr(ql)]
-    wk = wk.to(torch.int32).contiguous()
-    valid = valid.to(torch.int32).contiguous()
+        keep.append(qh)
+        regions += p
+        regions += n
+        bind += (len(p), len(n), qh.dtype == torch.int64, qh.data_ptr(),
+                 0 if ql is None else ql.data_ptr())
+    if wk.dtype != torch.int32:
+        wk = wk.to(torch.int32)
+    if valid.dtype != torch.bool:
+        valid = valid != 0
+    wk, valid = wk.contiguous(), valid.contiguous()
     _build.require_cuda(wk, valid, *keep)
     W = wk.shape[0]
-    dev = wk.device
     lib = _build.lib("extend")
-    # scratch and every output in one allocation (one call where seven
-    # cost the host a few microseconds each, on every BiGJoin step)
-    sizes = [lib.repro_extend_scratch(nb, W), B, B, B, W, W, 2]
-    scratch, cand, row, alive, allowed, consumed, counters = torch.empty(
-        sum(sizes), dtype=torch.int32, device=dev).split(sizes)
-    p = _build.ptr
+    nsc = lib.repro_extend_scratch(len(regions), W)
+    # scratch and every output in one allocation; the bool outputs are
+    # bytes at its end
+    o_row = nsc + B
+    o_allowed = o_row + B
+    o_counters = o_allowed + W
+    o_alive = o_counters + 2
+    o_consumed = o_alive + -(-B // 4)
+    buf = torch.empty(o_consumed + -(-W // 4), dtype=torch.int32,
+                      device=wk.device)
+    cand, row = buf[nsc:o_row], buf[o_row:o_allowed]
+    allowed, counters = buf[o_allowed:o_counters], buf[o_counters:o_alive]
+    alive = buf[o_alive:o_consumed].view(torch.bool)[:B]
+    consumed = buf[o_consumed:].view(torch.bool)[:W]
     rc = lib.repro_extend(
         _build.region_desc(regions), _build.int_array(bind), nb, W, B,
-        p(wk), p(valid), p(scratch), p(cand), p(row), p(alive), p(allowed),
-        p(consumed), p(counters), _build.stream_of(wk))
+        wk.data_ptr(), valid.data_ptr(), buf.data_ptr(), cand.data_ptr(),
+        row.data_ptr(), alive.data_ptr(), allowed.data_ptr(),
+        consumed.data_ptr(), counters.data_ptr(), _build.stream_of(wk))
     _build.check("extend", rc)
     count_launch("fused_extend_lex" if composite else "fused_extend")
-    return cand, row, alive > 0, allowed, consumed > 0, counters
+    return cand, row, alive, allowed, consumed, counters

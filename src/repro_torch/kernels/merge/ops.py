@@ -3,10 +3,12 @@
 Replaces the TPU kernel ``src/repro/kernels/merge/merge.py``
 (``rank_kernel`` / ``_rank_call`` / ``rank_counts``, reached through
 ``ops.rank_lt_le``), 1-word and composite (hi, lo) keys.  The CUDA
-kernel is
-``csrc/merge_rank.cu``: one thread per query, two bisections over the live
-entries; it is bound by the scattered reads of the searches (see the source
-note there).  ``ref.rank_ref`` is its plain version.
+kernel is ``csrc/merge_rank.cu``: a block ranks a chunk of consecutive
+queries; sorted ones (every caller passes a sorted region) through the
+region's slice between the chunk's first and last ranks, staged in shared
+memory; any others by lane-group searches; ``le`` from ``lt`` by one
+compare.  It is bound by the bytes of the queries and ranks (see the
+source note there).  ``ref.rank_ref`` is its plain version.
 """
 from __future__ import annotations
 
