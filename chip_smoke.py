@@ -20,11 +20,18 @@ Phases, in order, each printed with its result and seconds:
               extend and merge ranks at theirs (resumed cursors, a budget
               cut mid-row, rows without extensions, every row invalid, B'
               above the total, argmin ties, a budget cumsum that wraps;
-              unsorted queries, entries held twice); one CUDA graph
-              capture of each of those two kernels, replayed against eager
-              calls (``--graph-check``, a process of its own); then the
-              flash-attention kernels against their plain version at the
-              JAX package's six sweep shapes (f32 and bf16), at bf16 rows
+              unsorted queries, entries held twice), and the commit fold
+              in both forms (``in_ba``, and ``base`` probed inside the
+              launch, timed against the rank probe it replaced) at its
+              edge inputs (udel empty, n = capacity, every cins entry
+              deleted, uins inside cins, udel absent from base, a cins
+              capacity below the union, a one-block grid) at delta
+              capacities of 2,048, 8,192 and 32,768; one CUDA graph
+              capture of fused extend, merge ranks and both fold forms,
+              replayed against eager calls (``--graph-check``, a process
+              of its own); then the flash-attention kernels against
+              their plain version at the JAX package's six sweep shapes
+              (f32 and bf16), at bf16 rows
               without a live key and a decode plan with masked chunks and
               chunks past the cache, and at gemma2-2b's serving shapes
               (bf16 prefill on the tensor-core kernel and decode split over
@@ -42,7 +49,9 @@ Phases, in order, each printed with its result and seconds:
 5. serve    — the same session at realistic graph sizes, one cell per
               (scale, queries): warm per-epoch latency, peak device memory,
               each kernel's launch count (every kernel of the cell's path
-              must launch) and the device idle share of one profiled warm
+              must launch; merge ranks at least three times a
+              compaction, 1-word and composite apart) and the device idle
+              share of one profiled warm
               epoch;
 6. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
               defaults to step 10, relaunched to step 20: it resumes from
@@ -191,8 +200,7 @@ KERNEL_FUNCS = {
                         "flash_decode_combine", "flash_kernel"),
     "fused_extend": ("extend_kernel",),
     "rank_lt_le": ("rank_kernel",),
-    "commit_fold": ("fold_masks", "scan_tiles", "scan_tile_sums",
-                    "scan_apply", "fold_scatter"),
+    "commit_fold": ("fold_kernel",),
 }
 
 
@@ -518,6 +526,13 @@ def member_edge_checks(big, rows: np.ndarray, narrow: bool, label: str,
 # the lane counts a search of fused extend can take (extend_dispatch in
 # csrc/extend.cu): the edge checks must reach each of them
 EXTEND_LANES = (1, 2)
+# commit fold grid size -> the edge checks that took it (fold_edge_checks):
+# they must reach a one-block grid and a larger one
+FOLD_GRIDS: dict = {}
+# the delta capacities of the commit fold's edge checks: an epoch's update
+# batch, up to a relation's deltas (serve 14's `tri` removes ~20,000 rows
+# an epoch)
+FOLD_DELTA_CAPS = (2048, 8192, 32768)
 
 
 def extend_rank_edge_checks(big, rows: np.ndarray, edge: dict, label: str,
@@ -658,6 +673,179 @@ def extend_rank_edge_checks(big, rows: np.ndarray, edge: dict, label: str,
         f"run region n={int(run.n)}, n=cap={int(full.n)}, n=0: exact; "
         f"lanes a search {lanes}; {out}; ranks "
         f"(queries with le > lt, or the largest le - lt) {ranks}")
+
+
+def fold_work(regs, cc, base=None):
+    """(bytes, operations) of one commit fold into outputs of capacity
+    ``cc``: the live entries of its four regions and their counts read,
+    both outputs written whole (their padding included) and their counts;
+    the ``in_ba`` form reads udel's bits, the base form searches base for
+    udel's live rows (``search_bytes``).  Operations: a search of the
+    outputs' depth for each probe and scatter of a live entry."""
+    live = [int(r.n) for r in regs]
+    nbytes = sum(n * entry_bytes(r) + 4 for n, r in zip(live, regs)) \
+        + 2 * cc * entry_bytes(regs[0]) + 8
+    ops = sum(live) * 3 * depth(cc)
+    if base is None:
+        return nbytes + 4 * live[3], ops
+    return (nbytes + search_bytes(base, live[3]) + 4,
+            ops + live[3] * depth(max(int(base.n), 2)))
+
+
+def fold_base_line(label, regs, base, cc, reps, kernel):
+    """The base form of the commit fold (one launch, base probed inside)
+    against the sequence it replaced on the main path (the merge-rank probe
+    of base, the compare, the ``in_ba`` form), both held to the plain
+    version first: CUDA-event ms, device ms, ``host_us``, the bound.
+    Logs one JSON line ``{"commit_fold_base": {...}}`` and returns it."""
+    import torch
+    from repro_torch.core import csr
+    from repro_torch.kernels.merge import fold as mfold
+    ci, cd, ui, ud = regs
+
+    def base_k():
+        return mfold.commit_fold(ci, cd, ui, ud, base=base, cins_cap=cc,
+                                 cdel_cap=cc)
+
+    def seq():
+        lt, le = csr.index_ranks(base, csr._qcols_of(ud), ud.val)
+        return mfold.commit_fold(ci, cd, ui, ud, (le > lt).to(torch.int32),
+                                 cins_cap=cc, cdel_cap=cc)
+
+    def base_p():
+        return mfold._commit_fold_base_ref(ci, cd, ui, ud, base, cc, cc)
+
+    got, want, other = base_k(), base_p(), seq()
+    sync()
+    err = max(max_abs_err(got, want), max_abs_err(other, want))
+    nbytes, ops = fold_work(regs, cc, base)
+    b_ms, b_by = bound(nbytes, ops)
+    row = dict(label=label, kernel=kernel, max_abs_err=err,
+               ms=cuda_ms(base_k, reps), device_ms=device_ms(base_k, reps,
+                                                             kernel),
+               host_us=host_us(base_k, reps),
+               sequence_ms=cuda_ms(seq, reps),
+               sequence_device_ms=library_device_ms(
+                   seq, reps, "rank + compare + in_ba fold"),
+               sequence_host_us=host_us(seq, reps),
+               plain_ms=cuda_ms(base_p, max(reps // 10, 2)), bound_ms=b_ms,
+               bound_by=b_by, base_n=int(base.n), udel_n=int(ud.n),
+               caps=[r.capacity for r in regs] + [cc])
+    log("  " + json.dumps({"commit_fold_base": row}))
+    return row
+
+
+def fold_edge_checks(make, base, base_rows: np.ndarray, label: str, cc: int,
+                     ub: int, seed: int, timed=None) -> None:
+    """The commit fold at its edge inputs, both forms against their plain
+    versions bit for bit, at the main path's sizes: committed regions of
+    capacity ``cc``, deltas (uins and udel) of ``ub`` and of each
+    capacity of FOLD_DELTA_CAPS up to ``cc``, ``base`` itself (its rows
+    ``base_rows``).  ``make(rows, cap)`` builds a region of the layout
+    under test.  Cases, at each delta capacity: a mixed fold; udel empty;
+    n = capacity in every region (base cut to its first power-of-two
+    entries); every cins entry deleted; uins inside cins; udel absent
+    from base; cins_cap below the union (the writes past it drop); and at
+    ``ub`` every region cut to 16 entries (a one-block grid).  Each call's
+    grid size (``repro_commit_fold_grid``) goes to FOLD_GRIDS.  ``timed``
+    ``(reps, kernel)`` also times the base form of the mixed fold at each
+    delta capacity above ``ub`` (``fold_base_line``)."""
+    import torch
+    from repro_torch.core.csr import IndexData
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.merge import fold as mfold
+    t0 = time.time()
+    rng = np.random.default_rng(seed + 37)
+    ar = base_rows.shape[1]
+    top = int(base_rows.max()) + 1
+    caps = sorted({ub} | {u for u in FOLD_DELTA_CAPS if u <= cc})
+    um = caps[-1]
+
+    def absent(n):  # distinct rows whose first column no row of base has
+        r = rng.integers(0, top, (n, ar)).astype(np.int32)
+        r[:, 0] = top + np.arange(n, dtype=np.int32) // 4
+        r[:, 1] = np.arange(n, dtype=np.int32) % 4
+        return r
+
+    fresh = absent(cc + 2 * um)
+    f_ci, f_ui, gone = fresh[:cc], fresh[cc:cc + um], fresh[cc + um:]
+    held = base_rows[rng.choice(base_rows.shape[0], cc + um, replace=False)]
+
+    def cut(r, cap):  # the first cap entries of r, a region of their own
+        n = torch.tensor(min(int(r.n), cap), dtype=torch.int32,
+                         device=r.key.device)
+        return IndexData(r.key[:cap], r.val[:cap], n,
+                         None if r.lo is None else r.lo[:cap])
+
+    full_base = cut(base, 1 << (int(base.n).bit_length() - 1))
+
+    def cases_at(u):
+        """(cins, cdel, uins, udel rows, base, cins_cap) by case, deltas
+        of capacity u."""
+        ud_mix = np.concatenate([held[:u // 4], held[cc:cc + u // 4],
+                                 gone[:u // 4], f_ci[:u // 8]])
+        return {
+            "mixed": (f_ci[:cc // 2], held[:cc // 3],
+                      np.concatenate([f_ui[:u // 2], f_ci[:u // 4]]), ud_mix,
+                      base, cc),
+            "udel empty": (f_ci[:cc // 2], held[:cc // 3], f_ui[:u],
+                           ud_mix[:0], base, cc),
+            "n = cap": (f_ci, held[:cc], f_ui[:u],
+                        np.concatenate([held[:u // 2], f_ci[:u // 2]]),
+                        full_base, cc),
+            "all cins deleted": (f_ci[:u - 48], held[:cc // 3],
+                                 f_ui[:u // 2],
+                                 np.concatenate([f_ci[:u - 48],
+                                                 held[cc:cc + 48]]), base,
+                                 cc),
+            "uins in cins": (f_ci[:cc // 2], held[:cc // 3],
+                             f_ci[:min(u, cc // 2)], ud_mix, base, cc),
+            "udel not in base": (f_ci[:cc // 2], held[:cc // 3], f_ui[:u],
+                                 gone[:u // 2], base, cc),
+            "overflow": (f_ci[:cc // 2], held[:cc // 3], f_ui[:u], ud_mix,
+                         base, cc // 4),
+        }
+
+    lib = _build.lib("fold")
+    out = {}
+
+    def check(what, regs, b, cap_i, cap_d):
+        ci, cd, ui, ud = regs
+        in_ba = mfold.base_bits(b, ud)
+        for form, kw in (("in_ba", dict(in_ba=in_ba)), ("base", dict(base=b))):
+            got = mfold.commit_fold(ci, cd, ui, ud, cins_cap=cap_i,
+                                    cdel_cap=cap_d, **kw)
+            want = mfold._commit_fold_ref(ci, cd, ui, ud, in_ba, cap_i, cap_d)
+            sync()
+            max_abs_err(got, want)
+            rr = (ci, cd, ui, ud) + ((b,) if form == "base" else ())
+            g = lib.repro_commit_fold_grid(_build.region_desc(rr), len(rr),
+                                           int(ci.lo is not None), cap_i,
+                                           cap_d)
+            if g < 1:
+                raise AssertionError(f"{label} {what}: grid query failed "
+                                     f"({g})")
+            FOLD_GRIDS.setdefault(g, []).append(f"{label} {what} {form}")
+        out[what] = [int(want[0].n), int(want[1].n), int(in_ba.sum())]
+
+    for u in caps:
+        for what, (r_ci, r_cd, r_ui, r_ud, b, cap_i) in cases_at(u).items():
+            regs = (make(r_ci, cc), make(r_cd, cc), make(r_ui, u),
+                    make(r_ud, u))
+            if what == "n = cap" and not all(int(r.n) == r.capacity
+                                             for r in regs + (b,)):
+                raise AssertionError(f"{label}: n = cap case has n "
+                                     f"{[int(r.n) for r in regs + (b,)]}")
+            check(f"{what} (deltas {u})", regs, b, cap_i, cc)
+            if what == "mixed" and u == ub:
+                check("16 entries", tuple(cut(r, 16) for r in regs), base,
+                      16, 20)
+            if what == "mixed" and u != ub and timed is not None:
+                fold_base_line(f"{label} deltas {u}", regs, base, cc,
+                               *timed)
+    log(f"  commit fold edge cases {label}: base n={int(base.n)}, caps "
+        f"{cc}/{caps}: both forms exact in {time.time() - t0:.2f} s; (n of "
+        f"cins', n of cdel', udel in base) {out}")
 
 
 def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
@@ -820,10 +1008,9 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
                main=narrow, library_device_ms=ldms, host=hus,
                library="torch.searchsorted left and right, summed")
 
-        # -- commit fold (projection or live set) --------------------------
+        # -- commit fold (projection or live set): the in_ba form ---------
         ci, cd, ui, ud = regs[1], negs[0], regs[2], negs[1]
-        lt, le = csr.index_ranks(base, ud.key, ud.val, plain=True)
-        in_ba = (le > lt).to(torch.int32)
+        in_ba = mfold.base_bits(base, ud)
 
         def fold_k():
             return mfold.commit_fold(ci, cd, ui, ud, in_ba, cins_cap=cc,
@@ -839,16 +1026,18 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
         hus = host_us(fold_k, reps)
         dms = device_ms(fold_k, reps, "commit_fold")
         pms = cuda_ms(fold_p, max(reps // 10, 2))
-        # the fold reads the live entries of its four regions and of in_ba,
-        # and writes both outputs whole (their padding included)
-        live = [int(r.n) for r in (ci, cd, ui, ud)]
-        nbytes = sum(n * entry_bytes(r) + 4 for n, r in
-                     zip(live, (ci, cd, ui, ud))) + 4 * live[3] \
-            + 2 * cc * (kb + 4) + 8
-        ops = sum(live) * 3 * depth(cc)
+        nbytes, ops = fold_work((ci, cd, ui, ud), cc)
         record("commit_fold", err, ms, dms, pms, nbytes, ops, None,
                f"{label} caps={ci.capacity}/{cd.capacity}/{ui.capacity}/"
                f"{ud.capacity} out={cc}", main=narrow, host=hus)
+        # the base form (the main path's), and the fold's edge inputs
+        fold_base_line(label, (ci, cd, ui, ud), base, cc, reps,
+                       "commit_fold")
+        fold_edge_checks((lambda r, c: proj(r, True, c)) if narrow
+                         else (lambda r, c: packed(r, c)), base, edges,
+                         label if narrow else "i64 packed", cc,
+                         update_batch, seed,
+                         timed=(reps, "commit_fold") if narrow else None)
 
         # -- fused extend (one level of a triangle delta plan) -------------
         if narrow:
@@ -860,6 +1049,8 @@ def kernel_phase(edges: np.ndarray, nv: int, update_batch: int,
             wneg = [proj(gone, False, cc), proj(dels, False, update_batch)]
             pos = [tuple(wide), tuple(wide[:2])]
             neg = [tuple(wneg), tuple(wneg[:1])]
+            fold_edge_checks(lambda r, c: proj(r, False, c), wide[0], edges,
+                             "i64 projection", cc, update_batch, seed)
         edge = member_edge_checks(pos[0][0], edges, narrow, label, seed)
         extend_rank_edge_checks(pos[0][0], edges, edge, label, seed)
         del edge
@@ -1044,9 +1235,8 @@ def kernel_phase_lex(tri: np.ndarray, quad: np.ndarray, edges: np.ndarray,
                f"{label} B={Bq} cap={cd.capacity} n={int(cd.n)}", main=main,
                host=hus)
 
-        # -- commit fold of the live set
-        lt, le = csr.index_ranks(base, csr._qcols_of(ud), ud.val, plain=True)
-        in_ba = (le > lt).to(torch.int32)
+        # -- commit fold of the live set: the in_ba form
+        in_ba = mfold.base_bits(base, ud)
 
         def fold_k():
             return mfold.commit_fold(ci, cd, ui, ud, in_ba, cins_cap=cc,
@@ -1062,14 +1252,17 @@ def kernel_phase_lex(tri: np.ndarray, quad: np.ndarray, edges: np.ndarray,
         hus = host_us(fold_k, reps)
         dms = device_ms(fold_k, reps, "commit_fold_lex")
         pms = cuda_ms(fold_p, max(reps // 10, 2))
-        n4 = [int(r.n) for r in (ci, cd, ui, ud)]
-        nbytes = sum(n * entry_bytes(r) + 4 for n, r in
-                     zip(n4, (ci, cd, ui, ud))) + 4 * n4[3] \
-            + 2 * cc * entry_bytes(ci) + 8
-        ops = sum(n4) * 3 * depth(cc)
+        nbytes, ops = fold_work((ci, cd, ui, ud), cc)
         record("commit_fold_lex", err, ms, dms, pms, nbytes, ops, None,
                f"{label} caps={ci.capacity}/{cd.capacity}/{ui.capacity}/"
                f"{ud.capacity} out={cc}", main=main, host=hus)
+        if label != "quad i64":  # the base form, and the edge inputs
+            fold_base_line(label, (ci, cd, ui, ud), base, cc, reps,
+                           "commit_fold_lex")
+            fold_edge_checks(lambda r, c: live(r, narrow, c), base, rows,
+                             label, cc, update_batch, seed,
+                             timed=(reps, "commit_fold_lex") if main
+                             else None)
 
     # -- fused extend: one level of a quad-seeded 5-clique-quad delta plan,
     # a composite binding over the quad relation's 3-column projection
@@ -1179,6 +1372,7 @@ def serve_phase(edges, nv, queries, epochs, update_batch, ratio, seed):
         f"{time.time() - t:.2f} s")
     stream = EdgeUpdateStream(nv, update_batch, seed=seed + 2)
     kernels.reset_launches()
+    before = compaction_counts(session)
     live, secs = run_stream(session, stream, edges, epochs,
                             f"serve {edges.shape[0]} edges")
     counts = kernels.launches()
@@ -1187,6 +1381,7 @@ def serve_phase(edges, nv, queries, epochs, update_batch, ratio, seed):
         raise AssertionError(f"serve: live edges {n_live} != host-tracked "
                              f"{live.shape[0]}")
     require_launches("serve", counts, expected_kernels(handles, ()))
+    require_rank_launches("serve", counts, session, before)
     upd, w = stream.batch_at(epochs, live)
     wall, busy, idle, rec, exp = idle_share(lambda: session.update(upd, w))
     log(f"  serve: profiled warm epoch {wall * 1e3:.1f} ms, device busy "
@@ -1201,6 +1396,7 @@ def serve_phase(edges, nv, queries, epochs, update_batch, ratio, seed):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         compactions=session.stats.compactions,
         live_compactions=session.stats.live_compactions,
+        composite_compactions=session.stats.composite_compactions,
         escalations=session.stats.escalations, launches=counts,
         profiled_epoch_ms=wall * 1e3, device_busy_ms=busy * 1e3,
         idle_share=idle, profiled_launches_recorded=[rec, exp],
@@ -1216,8 +1412,7 @@ def serve_phase(edges, nv, queries, epochs, update_batch, ratio, seed):
 # ---------------------------------------------------------------------------
 
 FEEDS = {"tri": "triangle", "quad": "4-clique"}  # relation <- its feeder
-SESSION_KERNELS = ("signed_member", "fused_extend", "rank_lt_le",
-                   "commit_fold")
+SESSION_KERNELS = ("signed_member", "fused_extend", "commit_fold")
 PATTERNS = {"5-clique-quad": "5-clique-quad(a,b,c,d,e) := quad(a,b,c,d), "
                              "quad(a,b,c,e), e(d,e)"}
 TWINS = {"4-clique-tri": "4-clique", "5-clique-quad": "5-clique"}
@@ -1239,14 +1434,39 @@ def nary_relations(names):
     return rels
 
 
+def compaction_counts(session) -> tuple:
+    """Compactions the session has run (of a relation's live set or of a
+    stored projection, each one ``delta._compact_fold``): of 1-word
+    regions, and of composite (hi, lo) ones."""
+    st = session.stats
+    return (st.compactions + st.live_compactions - st.composite_compactions,
+            st.composite_compactions)
+
+
+def require_rank_launches(label, counts, session, before: tuple) -> None:
+    """Since the commit fold probes base itself, merge ranks run only in
+    ``delta._compact_fold``: in every compaction, three launches each (the
+    select's and the merge's two), and where a relation's live rows are
+    read back to the host.  Each layout on its own: the run's
+    ``rank_lt_le`` launches must be at least three a compaction of a
+    1-word region, its ``rank_lt_le_lex`` three a composite one."""
+    n = [a - b for a, b in zip(compaction_counts(session), before)]
+    for name, k in zip(("rank_lt_le", "rank_lt_le_lex"), n):
+        if counts[name] < 3 * k:
+            raise AssertionError(f"{label}: {counts[name]} {name} launches "
+                                 f"for {k} compactions of that layout "
+                                 f"({counts})")
+
+
 def expected_kernels(handles, rels):
-    """The launch names a session path must show: the four 1-word kernels
-    of the streaming engine; with an n-ary relation its composite
-    normalize, commit fold and ranks; and the composite fused extend where
-    a delta plan binds 3-4 columns."""
+    """The launch names a session path must show: the 1-word membership,
+    fused-extend and commit-fold kernels of the streaming engine; with an
+    n-ary relation its composite normalize and commit fold; and the
+    composite fused extend where a delta plan binds 3-4 columns.  Merge
+    ranks run in compactions only (``require_rank_launches``)."""
     names = list(SESSION_KERNELS)
     if rels:
-        names += ["signed_member_lex", "rank_lt_le_lex", "commit_fold_lex"]
+        names += ["signed_member_lex", "commit_fold_lex"]
     if any(len(b.key_attrs) >= 3 for h in handles.values()
            for plan in h.engine.plans for lv in plan.levels
            for b in lv.bindings):
@@ -1386,6 +1606,7 @@ def verify_phase(scale: int, names, epochs: int, update_batch: int,
     prev = {n: full(h.query, edges) for n, h in handles.items()}
     compactions = {rel: 0 for rel in rels}
     kernels.reset_launches()
+    before = compaction_counts(session)
     stream = EdgeUpdateStream(1 << scale, update_batch, seed=seed + 1)
     live = edges
     for epoch in range(epochs):
@@ -1443,6 +1664,7 @@ def verify_phase(scale: int, names, epochs: int, update_batch: int,
     if thin:
         raise AssertionError(f"verify: {thin} compacted fewer than twice")
     require_launches("verify", counts, expected_kernels(handles, rels))
+    require_rank_launches("verify", counts, session, before)
     return counts
 
 
@@ -1465,6 +1687,7 @@ def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
         f"{time.time() - t:.2f} s")
     stream = EdgeUpdateStream(nv, update_batch, seed=seed + 2)
     kernels.reset_launches()
+    before = compaction_counts(session)
     live = edges
     e_secs, r_secs = [], []
     for epoch in range(epochs):
@@ -1493,6 +1716,7 @@ def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
         raise AssertionError("serve: live edge count differs")
     expected = expected_kernels(handles, rels)
     require_launches("serve", counts, expected)
+    require_rank_launches("serve", counts, session, before)
     upd, w = stream.batch_at(epochs, live)
     held = {}
     e_prof = idle_share(lambda: held.update(r1=session.update(upd, w)))
@@ -1519,6 +1743,7 @@ def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         compactions=session.stats.compactions,
         live_compactions=session.stats.live_compactions,
+        composite_compactions=session.stats.composite_compactions,
         escalations=session.stats.escalations, launches=counts,
         expected_kernels=expected,
         idle_share={"edge": e_prof[2], "relation": r_prof[2]},
@@ -2481,8 +2706,10 @@ def lm_serve_phase(seed: int) -> dict:
 def graph_check(seed: int) -> int:
     """``--graph-check``: one ``torch.cuda.graph`` capture of a fused
     extend call (one level of a triangle plan over an R-MAT scale-16 edge
-    projection, W = B' = 8192) and of a merge-rank call, replayed, against
-    eager calls, bit for bit.  Prints one JSON line per kernel: captured
+    projection, W = B' = 8192), of a merge-rank call and of a commit fold
+    in each form (``in_ba`` and ``base``, committed regions of 32,768 and
+    deltas of 2,048 over the same projection), replayed, against eager
+    calls, bit for bit.  Prints one JSON line per kernel: captured
     and equal, or the runtime's refusal.  Returns 1 when a replay differs,
     else 0.  Runs in a process of its own, so that a refused capture leaves
     no state behind in the main run."""
@@ -2490,6 +2717,7 @@ def graph_check(seed: int) -> int:
     from repro_torch.core import csr
     from repro_torch.data.synthetic import rmat_graph
     from repro_torch.kernels.extend import ops as eops
+    from repro_torch.kernels.merge import fold as mfold
     from repro_torch.kernels.merge import ops as mops
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
@@ -2509,6 +2737,20 @@ def graph_check(seed: int) -> int:
         "rank_lt_le": lambda: mops.rank_lt_le(part.key, part.val, part.n,
                                               idx.key, idx.val),
     }
+    cc, ub = 1 << 15, 1 << 11
+    fresh = rng.integers(0, 1 << 16, (40_000, 2)).astype(np.int32)
+    ci, cd = (csr.build_index(r, (0,), 1, capacity=cc, narrow=True,
+                              device=dev)
+              for r in (fresh[:cc - 2000], edges[:cc // 3]))
+    ui, ud = (csr.build_index(r, (0,), 1, capacity=ub, narrow=True,
+                              device=dev)
+              for r in (fresh[cc:cc + ub // 2],
+                        np.concatenate([edges[:ub // 4], fresh[:ub // 4]])))
+    in_ba = mfold.base_bits(idx, ud)
+    calls["commit_fold in_ba"] = lambda: mfold.commit_fold(
+        ci, cd, ui, ud, in_ba, cins_cap=cc, cdel_cap=cc)
+    calls["commit_fold base"] = lambda: mfold.commit_fold(
+        ci, cd, ui, ud, base=idx, cins_cap=cc, cdel_cap=cc)
     rc = 0
     for name, fn in calls.items():
         want = fn()
@@ -2676,6 +2918,12 @@ def main() -> int:
             args.update_batch, 16 * args.update_batch, args.reps,
             args.seed))
         del tri, quad
+        log(f"  commit fold edge checks by grid size: "
+            f"{ {g: len(v) for g, v in sorted(FOLD_GRIDS.items())} }")
+        if 1 not in FOLD_GRIDS or max(FOLD_GRIDS) < 2:
+            raise AssertionError(f"the commit fold edge checks reached grids "
+                                 f"{sorted(FOLD_GRIDS)}, not one block and "
+                                 f"more")
         # a CUDA graph over fused extend and merge ranks, in its own process
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--graph-check", "--seed", str(args.seed)],

@@ -207,11 +207,9 @@ def _commit_fold(base: IndexData, cins: IndexData, cdel: IndexData,
         cins' = (cins \\ udel) ∪ (uins \\ cdel)
         cdel' = cdel ∪ (udel ∩ base)
 
-    One fold-kernel call; ``base`` is only probed, for the delta-sized
-    ``udel ∩ base`` bits, through the merge-rank kernel."""
-    lt, le = csr.index_ranks(base, csr._qcols_of(udel), udel.val)
-    in_ba = (le > lt).to(torch.int32)
-    return commit_fold(cins, cdel, uins, udel, in_ba, cins_cap=cins_cap,
+    One fold-kernel launch; ``base`` is only probed, for the delta-sized
+    ``udel ∩ base`` bits, inside it."""
+    return commit_fold(cins, cdel, uins, udel, base=base, cins_cap=cins_cap,
                        cdel_cap=cdel_cap)
 
 
@@ -456,6 +454,7 @@ class StoreStats:
     compactions: int = 0
     epochs: int = 0
     live_compactions: int = 0
+    composite_compactions: int = 0  # of the two above, (hi, lo) regions
     mirror_pulls: int = 0
     escalations: int = 0  # capacity rungs bumped after CapacityOverflow
     replays: int = 0  # epoch dataflow re-runs after an escalation
@@ -798,6 +797,7 @@ class RegionStore:
                 st.lc_del = _empty_packed(self.device, st.arity)
                 st.n_live = [new_nb, 0, 0]
                 self.stats.live_compactions += 1
+                self.stats.composite_compactions += st.lb.lo is not None
                 st.mirror = None
                 # the committed regions drained: restart their rung ladder
                 self.ratchet.reset(("committed", rel))
@@ -826,6 +826,7 @@ class RegionStore:
                 reg.n_cins = 0
                 reg.n_cdel = 0
                 self.stats.compactions += 1
+                self.stats.composite_compactions += reg.d_base.lo is not None
                 reg._mirror.clear()
 
     def _as_batches(self, ins, dels=None) -> Dict:

@@ -1,270 +1,497 @@
-// The per-relation epoch commit fold:
+// The per-relation epoch commit fold, both outputs in ONE launch:
 //     cins' = (cins \ udel) ∪ (uins \ cdel)
 //     cdel' = cdel ∪ (udel ∩ base)
-// both outputs, sentinel-padded exactly like csr._empty_like_caps (key
-// sentinel by dtype, val 0), from the four committed/staged regions and
-// the precomputed `in_ba` bits of udel's rows in base.
+// sentinel-padded exactly like csr._empty_like_caps (key sentinel by
+// dtype, val 0, lo int64-max), from the four committed/staged regions and
+// either the precomputed `in_ba` bits of udel's rows in base (the TPU
+// kernel's own function) or base itself, probed inside the launch.
 //
 // Replaces the TPU kernel src/repro/kernels/merge/fold.py
 // (make_fold_kernel(composite) / _fold_call): the 1-word form and, as the
 // LO instantiation, the composite form that carries the int64 lo word
 // through every probe (3-word compares) and every scatter (lo padded with
-// int64-max).
+// int64-max).  The TPU kernel left base out only because it would not fit
+// in VMEM (the caller probed it with a separate rank search); on the H100
+// base is read from device memory like every other region, so the probe
+// joins the launch.
 //
-// Bound on the H100: bytes.  Every entry of the four regions is read and
-// both outputs are written; the probes between the (delta-sized and
-// committed-sized) regions are binary searches.  The TPU kernel was
-// gather-only because Pallas on a TPU scatters badly; Hopper scatters
-// well, so this keeps the outputs and drops that method:
-//   1. fold_masks: one thread per entry of cins | uins | udel -> keep bits
-//      (membership probes; uins also drops entries that survive in the
-//      kept cins, so both merges are of disjoint sets);
-//   2. a multi-block exclusive scan of the concatenated keep bits
-//      (per-tile sums, one block scanning the tile sums, per-tile scans);
-//   3. fold_scatter: every kept entry goes to its merge position
-//      i + |{entries of the other operand below it}|, read off the scan;
-//      slots past the output's live count get the padding; one thread
-//      writes both counts.
-#include "common.cuh"
+// Bound on the H100: the bytes bound (the four regions' live entries
+// read, both outputs written whole) is below a microsecond at the
+// sessions' sizes; what the card waits on is the launch itself and the
+// chains of dependent loads of the probes.  A first port ran five kernels
+// a call (keep bits, three passes of a multi-block scan, the scatter),
+// three of them only to carry the scan across blocks, and the caller two
+// more launches and two PyTorch ops for the base probe.  Design:
+//   * one cooperative launch (cudaLaunchCooperativeKernel) of a grid no
+//     larger than the blocks that can be resident at once (the occupancy
+//     query times the SMs; a grid that cannot be co-resident is refused
+//     with an error, never run smaller), its phases met at one grid-wide
+//     barrier (cooperative_groups::this_grid().sync()), as extend.cu;
+//   * phase 1: every probe and every merge rank, once.  The keep bits of
+//     cins | uins | udel, a word of 32 entries per warp-iteration, a lane
+//     per entry, packed by __ballot_sync; block k owns words
+//     [k C, (k + 1) C) and writes each word's bits and popcount prefix
+//     within its chunk, and the chunk's sum.  The same searches give the
+//     entry's merge rank in the other operand (a cins entry searches udel
+//     for membership and uins for its rank, in lockstep; a uins entry
+//     cins, udel and cdel; a udel entry cdel, and in the base form base
+//     too), and a thread per live cdel entry ranks it in udel; the ranks
+//     go to scratch.  Lockstep bisections keep one dependent chain an
+//     entry, not two or three;
+//   * the base form: base is the one large region (a 2^24-entry edge set
+//     at the main path's size, beyond the L2 cache, though its upper
+//     levels, which every probe reads, stay there), probed by the udel
+//     entry's own lane in lockstep with its cdel rank.  Timed in turns on
+//     the H100 (chip_ab.py --fold), this beat group searches of 16, 8 or 4
+//     lanes a probe spread over the grid (fewer dependent steps, but a
+//     second grid barrier and a pass to fold their hits into the bits) at
+//     every delta capacity from 2,048 to 32,768;
+//   * one grid barrier, then phase 2: every block scans the G chunk sums
+//     in shared memory (G is at most the resident blocks, FOLD_MAX_GRID,
+//     so one block scans them cheaply: no second pass);
+//   * phase 3, grid-stride over the entries and both outputs' slots, no
+//     search left: a kept entry goes to its merge position i + |{kept
+//     entries of the other operand below it}|, read off its rank, where
+//     the exclusive count of keep bits before position x is
+//         chunk_off[x / 32 / C] + word_prefix[x / 32]
+//           + popc(bits[x / 32] & below(x)),
+//     in place of a materialised scan; slots past an output's live count
+//     get the padding, and out-of-range positions drop (csr._scatter_drop);
+//     block 0 writes both counts.
+// The grid is sized by phase 1 (a warp a word, a thread a cdel rank) and
+// by phase 3 at four slots a thread, so at the main path's sizes its
+// phase-1 warps all run at once; a first form with a second search chain
+// in phase 3 and a grid sized by its slots was slower on the H100.
+#include <cooperative_groups.h>
 
-#define REPRO_SCAN_TILE 2048  // keep bits per scan tile (256 threads x 8)
-#define REPRO_SCAN_THREADS 1024
+#include "search.cuh"
 
-struct FoldArgs {
-  Region ci, cd, ui, ud;
-  const int* in_ba;
-};
+#define FOLD_THREADS 256
+#define FOLD_WARPS (FOLD_THREADS / 32)
+#define FOLD_MAX_GRID 2048  // blocks at most (the chunk sums in shared)
 
-template <bool LO>
-__global__ void fold_masks(const __grid_constant__ FoldArgs a, int* flags) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int cap_ci = a.ci.cap, cap_ui = a.ui.cap, cap_ud = a.ud.cap;
-  if (i >= cap_ci + cap_ui + cap_ud) return;
-  int keep = 0;
-  if (i < cap_ci) {  // kept = cins \ udel
-    if (i < live_of(a.ci)) {
-      i64 k = load_key(a.ci.key, a.ci.k64, i);
-      keep = !member_w<LO>(a.ud, k, load_lo<LO>(a.ci, i), a.ci.val[i]);
-    }
-  } else if (i < cap_ci + cap_ui) {  // fresh = uins \ cdel \ kept
-    int j = i - cap_ci;
-    if (j < live_of(a.ui)) {
-      i64 k = load_key(a.ui.key, a.ui.k64, j);
-      i64 l = load_lo<LO>(a.ui, j);
-      int v = a.ui.val[j];
-      bool in_kept = member_w<LO>(a.ci, k, l, v) &&
-                     !member_w<LO>(a.ud, k, l, v);
-      keep = !member_w<LO>(a.cd, k, l, v) && !in_kept;
-    }
-  } else {  // dead = (udel ∩ base) \ cdel
-    int j = i - cap_ci - cap_ui;
-    if (j < live_of(a.ud) && a.in_ba[j] != 0) {
-      i64 k = load_key(a.ud.key, a.ud.k64, j);
-      keep = !member_w<LO>(a.cd, k, load_lo<LO>(a.ud, j), a.ud.val[j]);
-    }
-  }
-  flags[i] = keep;
-}
-
-// ---- multi-block exclusive scan: excl[0..L] with excl[L] = total --------
-__global__ void scan_tiles(const int* flags, int L, unsigned* tile_sum) {
-  __shared__ unsigned sh[REPRO_THREADS];
-  int per = REPRO_SCAN_TILE / REPRO_THREADS;
-  int base = blockIdx.x * REPRO_SCAN_TILE + threadIdx.x * per;
-  unsigned s = 0;
-  for (int k = 0; k < per; ++k)
-    if (base + k < L) s += (unsigned)flags[base + k];
-  unsigned total;
-  block_excl_scan(s, sh, &total);
-  if (threadIdx.x == 0) tile_sum[blockIdx.x] = total;
-}
-
-__global__ void scan_tile_sums(unsigned* tile_sum, int ntiles) {
-  __shared__ unsigned sh[REPRO_SCAN_THREADS];
-  int chunk = (ntiles + blockDim.x - 1) / blockDim.x;
-  int lo = imin(threadIdx.x * chunk, ntiles);
-  int hi = imin(lo + chunk, ntiles);
-  unsigned s = 0;
-  for (int i = lo; i < hi; ++i) s += tile_sum[i];
-  unsigned total;
-  unsigned run = block_excl_scan(s, sh, &total);
-  for (int i = lo; i < hi; ++i) {  // in place: exclusive tile offsets
-    unsigned x = tile_sum[i];
-    tile_sum[i] = run;
-    run += x;
-  }
-}
-
-__global__ void scan_apply(const int* flags, int L, const unsigned* tile_off,
-                           int* excl) {
-  __shared__ unsigned sh[REPRO_THREADS];
-  int per = REPRO_SCAN_TILE / REPRO_THREADS;
-  int base = blockIdx.x * REPRO_SCAN_TILE + threadIdx.x * per;
-  unsigned s = 0;
-  for (int k = 0; k < per; ++k)
-    if (base + k < L) s += (unsigned)flags[base + k];
-  unsigned total;
-  unsigned run = tile_off[blockIdx.x] + block_excl_scan(s, sh, &total);
-  for (int k = 0; k < per; ++k) {
-    if (base + k < L) {
-      excl[base + k] = (int)run;
-      run += (unsigned)flags[base + k];
-    }
-    if (base + k == L - 1) excl[L] = (int)run;
-  }
-}
-
-// ---- merge positions + padding ------------------------------------------
-template <typename K>
-__device__ __forceinline__ void put(void* key, int* val, int cap, int pos,
-                                    i64 k, int v) {
-  if (pos >= 0 && pos < cap) {  // out-of-range writes drop
-    ((K*)key)[pos] = (K)k;
-    val[pos] = v;
-  }
-}
-
-// One output region: key (int32 or int64), val, and the composite lo word.
+// One output region: key (int32 or int64), val, the composite lo word,
+// its capacity and its live count.
 struct Out {
   void* key;
   int* val;
   i64* lo;
+  int* n;
   int cap;
 };
 
+struct FoldArgs {
+  Region ci, cd, ui, ud;
+  Region ba;           // base (the base form)
+  const int* in_ba;    // udel's bits in base (the in_ba form)
+};
+
+struct FoldBufs {
+  Out oci, ocd;
+  uint2* winfo;         // [NW] (keep bits, popcount prefix in the chunk)
+  int* part;            // [FOLD_MAX_GRID] chunk sums
+  int* rank;            // [L + cap_cd] merge ranks in the other operand
+  int k64;
+};
+
+// scratch (int32 words): winfo (8-byte aligned) first, then the chunk
+// sums and the ranks; NW = L / 32 + 1 words cover positions 0..L
+__host__ __device__ inline long long fold_words(long long L) {
+  return L / 32 + 1;
+}
+
+__host__ __device__ inline long long fold_scratch_words(int cap_ci,
+                                                        int cap_cd,
+                                                        int cap_ui,
+                                                        int cap_ud) {
+  long long L = (long long)cap_ci + cap_ui + cap_ud;
+  return 2 * fold_words(L) + FOLD_MAX_GRID + L + cap_cd;
+}
+
+// Exclusive scan of one value per thread across the block, the block
+// total in *total: warp shuffles, then the warp totals in `sh`
+// (FOLD_WARPS words).  Every thread of the block must call it.
+__device__ __forceinline__ unsigned block_scan32(unsigned v, unsigned* sh,
+                                                 unsigned* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned x = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    unsigned y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) sh[warp] = x;
+  __syncthreads();
+  unsigned before = 0, all = 0;
+  for (int w = 0; w < FOLD_WARPS; ++w) {
+    unsigned s = sh[w];
+    if (w < warp) before += s;
+    all += s;
+  }
+  __syncthreads();
+  *total = all;
+  return before + x - v;
+}
+
+// Entry m of r against the query: (entry < q, entry == q).
+template <bool LO>
+__device__ __forceinline__ void entry_cmp(const Region& r, int m, i64 qk,
+                                          i64 ql, int qv, bool* lt,
+                                          bool* eq) {
+  member_cmp<LO>(load_key(r.key, r.k64, m), load_lo<LO>(r, m), r.val[m], qk,
+                 ql, qv, lt, eq);
+}
+
+// The query's rank among the live entries of each of NR regions (the
+// count of entries below it, csr.lex_searchsorted_cols "left") and
+// whether it is one of them.  The NR bisections step in lockstep, so
+// their loads are in flight together; a step that meets an entry equal to
+// the query records the hit (the first entry >= q lies at or before it),
+// so no load follows the search.
+template <bool LO, int NR>
+__device__ __forceinline__ void members(const Region* const (&r)[NR],
+                                        const int (&n)[NR], i64 qk, i64 ql,
+                                        int qv, int (&lo)[NR],
+                                        bool (&hit)[NR]) {
+  int hi[NR];
+#pragma unroll
+  for (int s = 0; s < NR; ++s) {
+    lo[s] = 0;
+    hi[s] = n[s];
+    hit[s] = false;
+  }
+  bool open = true;
+  while (open) {
+    open = false;
+#pragma unroll
+    for (int s = 0; s < NR; ++s) {
+      if (lo[s] < hi[s]) {
+        const int mid = (lo[s] + hi[s]) >> 1;
+        bool lt, eq;
+        entry_cmp<LO>(*r[s], mid, qk, ql, qv, &lt, &eq);
+        if (lt) lo[s] = mid + 1; else hi[s] = mid;
+        hit[s] = hit[s] || eq;
+        open = open || lo[s] < hi[s];
+      }
+    }
+  }
+}
+
+template <typename K>
+__device__ __forceinline__ void put(void* key, int* val, int pos, i64 k,
+                                    int v) {
+  ((K*)key)[pos] = (K)k;
+  val[pos] = v;
+}
+
+// Write (k[, l], v) at pos of o; out-of-range positions drop.
 template <bool LO>
 __device__ __forceinline__ void put_any(int k64, const Out& o, int pos,
                                         i64 k, i64 l, int v) {
-  if (k64) put<i64>(o.key, o.val, o.cap, pos, k, v);
-  else put<int>(o.key, o.val, o.cap, pos, k, v);
-  if (LO && pos >= 0 && pos < o.cap) o.lo[pos] = l;
+  if (pos < 0 || pos >= o.cap) return;
+  if (k64) put<i64>(o.key, o.val, pos, k, v);
+  else put<int>(o.key, o.val, pos, k, v);
+  if (LO) o.lo[pos] = l;
 }
 
-template <bool LO>
-__global__ void fold_scatter(const __grid_constant__ FoldArgs a,
-                             const int* excl, int k64, Out oci, int* oci_n,
-                             Out ocd, int* ocd_n) {
-  const int cap_oci = oci.cap, cap_ocd = ocd.cap;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int cap_ci = a.ci.cap, cap_ui = a.ui.cap, cap_ud = a.ud.cap;
-  int s_ui = cap_ci, s_ud = cap_ci + cap_ui, L = s_ud + cap_ud;
-  int cap_cd = a.cd.cap;
-  int n_kept = excl[s_ui] - excl[0];
-  int n_fresh = excl[s_ud] - excl[s_ui];
-  int n_dead = excl[L] - excl[s_ud];
-  int n_cd = live_of(a.cd);
-  int n_oci = n_kept + n_fresh;
-  int n_ocd = n_cd + n_dead;
+// Keep bits before position x (0 <= x <= L): the chunk's offset, the
+// word's prefix within the chunk, the word's bits below x.
+__device__ __forceinline__ int excl_at(const uint2* winfo, const int* off,
+                                       int C, int x) {
+  const int w = x >> 5;
+  const uint2 wi = winfo[w];
+  return off[w / C] + (int)wi.y + __popc(wi.x & ((1u << (x & 31)) - 1u));
+}
+
+__device__ __forceinline__ bool kept_at(const uint2* winfo, int x) {
+  return (winfo[x >> 5].x >> (x & 31)) & 1u;
+}
+
+// BASE: the base form (base probed in phase 1), else the in_ba form.
+template <bool LO, bool BASE>
+__global__ void __launch_bounds__(FOLD_THREADS)
+    fold_kernel(const __grid_constant__ FoldArgs a,
+                const __grid_constant__ FoldBufs p) {
+  __shared__ int s_off[FOLD_MAX_GRID];
+  __shared__ unsigned s_red[FOLD_WARPS];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int t = threadIdx.x, T = blockDim.x;
+  const int k = blockIdx.x, G = gridDim.x;
+  const int lane = t & 31, warp = t >> 5, nwarps = T >> 5;
+  const int cap_ci = a.ci.cap, cap_ui = a.ui.cap, cap_ud = a.ud.cap;
+  const int s_ui = cap_ci, s_ud = cap_ci + cap_ui, L = s_ud + cap_ud;
+  const int n_ci = live_of(a.ci), n_cd = live_of(a.cd);
+  const int n_ui = live_of(a.ui), n_ud = live_of(a.ud);
+  const int NW = L / 32 + 1;
+  const int C = (NW + G - 1) / G;
+  const int w0 = imin(k * C, NW), w1 = imin(w0 + C, NW);
+  const Region* const r_ci2[2] = {&a.ud, &a.ui};
+  const Region* const r_ui3[3] = {&a.ci, &a.ud, &a.cd};
+  const Region* const r_ud1[1] = {&a.cd};
+  const Region* const r_ud2[2] = {&a.cd, &a.ba};
+  const Region* const r_cd1[1] = {&a.ud};
+  const int n_ci2[2] = {n_ud, n_ui}, n_ui3[3] = {n_ci, n_ud, n_cd};
+  const int n_ud1[1] = {n_cd}, n_ud2[2] = {n_cd, live_of(a.ba)};
+  const int n_cd1[1] = {n_ud};
+
+  // ---- phase 1: probes and ranks; keep bits of this block's words ------
+  for (int w = w0 + warp; w < w1; w += nwarps) {  // warp-uniform
+    const int x = w * 32 + lane;
+    bool keep = false;
+    if (x < s_ui) {  // kept = cins \ udel; its rank in uins
+      if (x < n_ci) {
+        int q[2];
+        bool h[2];
+        members<LO, 2>(r_ci2, n_ci2, load_key(a.ci.key, a.ci.k64, x),
+                       load_lo<LO>(a.ci, x), a.ci.val[x], q, h);
+        keep = !h[0];
+        p.rank[x] = q[1];
+      }
+    } else if (x < s_ud) {  // fresh = uins \ cdel \ kept; rank in cins
+      const int j = x - s_ui;
+      if (j < n_ui) {
+        int q[3];
+        bool h[3];
+        members<LO, 3>(r_ui3, n_ui3, load_key(a.ui.key, a.ui.k64, j),
+                       load_lo<LO>(a.ui, j), a.ui.val[j], q, h);
+        keep = !h[2] && !(h[0] && !h[1]);
+        p.rank[x] = q[0];
+      }
+    } else if (x < L) {  // dead = (udel ∩ base) \ cdel; rank in cdel
+      const int j = x - s_ud;
+      if (j < n_ud && (BASE || a.in_ba[j] != 0)) {
+        const i64 qk = load_key(a.ud.key, a.ud.k64, j);
+        const i64 ql = load_lo<LO>(a.ud, j);
+        const int qv = a.ud.val[j];
+        if constexpr (BASE) {  // cdel and base in lockstep
+          int q[2];
+          bool h[2];
+          members<LO, 2>(r_ud2, n_ud2, qk, ql, qv, q, h);
+          keep = !h[0] && h[1];
+          p.rank[x] = q[0];
+        } else {
+          int q[1];
+          bool h[1];
+          members<LO, 1>(r_ud1, n_ud1, qk, ql, qv, q, h);
+          keep = !h[0];
+          p.rank[x] = q[0];
+        }
+      }
+    }
+    const unsigned bits = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) p.winfo[w].x = bits;
+  }
+  // cdel's live entries: their ranks in udel
+  for (int j = k * T + t; j < n_cd; j += G * T) {
+    int q[1];
+    bool h[1];
+    members<LO, 1>(r_cd1, n_cd1, load_key(a.cd.key, a.cd.k64, j),
+                   load_lo<LO>(a.cd, j), a.cd.val[j], q, h);
+    p.rank[L + j] = q[0];
+  }
+
+  __syncthreads();
+
+  // popcount prefixes of this block's words; a thread owns a run of them
+  {
+    const int nc = w1 - w0, per = (nc + T - 1) / T;
+    const int a0 = w0 + imin(t * per, nc), a1 = w0 + imin((t + 1) * per, nc);
+    unsigned s = 0;
+    for (int w = a0; w < a1; ++w) s += __popc(p.winfo[w].x);
+    unsigned blk;
+    unsigned run = block_scan32(s, s_red, &blk);
+    for (int w = a0; w < a1; ++w) {
+      p.winfo[w].y = run;
+      run += __popc(p.winfo[w].x);
+    }
+    if (t == 0) p.part[k] = (int)blk;
+  }
+  grid.sync();
+
+  // ---- phase 2: the chunks' offsets, every block its own copy -----------
+  {
+    const int per = (G + T - 1) / T;
+    const int a0 = imin(t * per, G), a1 = imin((t + 1) * per, G);
+    unsigned s = 0;
+    for (int i = a0; i < a1; ++i) s += (unsigned)p.part[i];
+    unsigned all;
+    unsigned run = block_scan32(s, s_red, &all);
+    for (int i = a0; i < a1; ++i) {
+      s_off[i] = (int)run;
+      run += (unsigned)p.part[i];
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 3: merge positions, padding, counts --------------------------
+  const int n_oci = excl_at(p.winfo, s_off, C, s_ud);
+  const int ex_ud = n_oci;
+  const int n_ocd = n_cd + (excl_at(p.winfo, s_off, C, L) - ex_ud);
+  const int k64 = p.k64;
+  const Out& oci = p.oci;
+  const Out& ocd = p.ocd;
   const i64 sent = k64 ? (i64)0x7fffffffffffffffLL : (i64)0x7fffffff;
   const i64 sent_lo = (i64)0x7fffffffffffffffLL;
-  if (i < cap_ci) {  // kept cins entry -> a + |{fresh < it}|
-    int j = (int)i;
-    if (excl[j + 1] != excl[j]) {
-      i64 k = load_key(a.ci.key, a.ci.k64, j);
-      i64 l = load_lo<LO>(a.ci, j);
-      int v = a.ci.val[j];
-      int p = lex_bound_w<LO>(a.ui, live_of(a.ui), k, l, v, false);
-      int pos = (excl[j] - excl[0]) + (excl[s_ui + p] - excl[s_ui]);
-      put_any<LO>(k64, oci, pos, k, l, v);
+  const int ex_ui = excl_at(p.winfo, s_off, C, s_ui);
+  const long long total = (long long)L + a.cd.cap + oci.cap + ocd.cap;
+  for (long long i = (long long)k * T + t; i < total;
+       i += (long long)G * T) {
+    if (i < s_ud) {  // kept cins entry -> a + |{fresh < it}|, or
+      const int x = (int)i;  // fresh uins entry -> f + |{kept < it}|
+      if (kept_at(p.winfo, x)) {
+        const bool c = x < s_ui;
+        const Region& r = c ? a.ci : a.ui;
+        const int j = c ? x : x - s_ui;
+        const int q = p.rank[x];
+        const int pos = c ? excl_at(p.winfo, s_off, C, x) +
+                                (excl_at(p.winfo, s_off, C, s_ui + q) - ex_ui)
+                          : (excl_at(p.winfo, s_off, C, x) - ex_ui) +
+                                excl_at(p.winfo, s_off, C, q);
+        put_any<LO>(k64, oci, pos, load_key(r.key, r.k64, j),
+                    load_lo<LO>(r, j), r.val[j]);
+      }
+    } else if (i < L) {  // dead udel entry -> d + |{cdel < it}|
+      const int x = (int)i, j = x - s_ud;
+      if (kept_at(p.winfo, x)) {
+        const int pos = (excl_at(p.winfo, s_off, C, x) - ex_ud) + p.rank[x];
+        put_any<LO>(k64, ocd, pos, load_key(a.ud.key, a.ud.k64, j),
+                    load_lo<LO>(a.ud, j), a.ud.val[j]);
+      }
+    } else if (i < (long long)L + a.cd.cap) {  // cdel -> i + |{dead < it}|
+      const int j = (int)(i - L);
+      if (j < n_cd) {
+        const int pos =
+            j + (excl_at(p.winfo, s_off, C, s_ud + p.rank[i]) - ex_ud);
+        put_any<LO>(k64, ocd, pos, load_key(a.cd.key, a.cd.k64, j),
+                    load_lo<LO>(a.cd, j), a.cd.val[j]);
+      }
+    } else if (i < (long long)L + a.cd.cap + oci.cap) {  // cins' padding
+      const int s = (int)(i - L - a.cd.cap);
+      if (s >= n_oci) put_any<LO>(k64, oci, s, sent, sent_lo, 0);
+    } else {  // cdel' padding
+      const int s = (int)(i - L - a.cd.cap - oci.cap);
+      if (s >= n_ocd) put_any<LO>(k64, ocd, s, sent, sent_lo, 0);
     }
-  } else if (i < s_ud) {  // fresh uins entry -> f + |{kept < it}|
-    int j = (int)i - s_ui;
-    if (excl[s_ui + j + 1] != excl[s_ui + j]) {
-      i64 k = load_key(a.ui.key, a.ui.k64, j);
-      i64 l = load_lo<LO>(a.ui, j);
-      int v = a.ui.val[j];
-      int q = lex_bound_w<LO>(a.ci, live_of(a.ci), k, l, v, false);
-      int pos = (excl[s_ui + j] - excl[s_ui]) + (excl[q] - excl[0]);
-      put_any<LO>(k64, oci, pos, k, l, v);
-    }
-  } else if (i < L) {  // dead udel entry -> d + |{cdel < it}|
-    int j = (int)i - s_ud;
-    if (excl[s_ud + j + 1] != excl[s_ud + j]) {
-      i64 k = load_key(a.ud.key, a.ud.k64, j);
-      i64 l = load_lo<LO>(a.ud, j);
-      int v = a.ud.val[j];
-      int q = lex_bound_w<LO>(a.cd, n_cd, k, l, v, false);
-      int pos = (excl[s_ud + j] - excl[s_ud]) + q;
-      put_any<LO>(k64, ocd, pos, k, l, v);
-    }
-  } else if (i < (long long)L + cap_cd) {  // cdel entry -> i + |{dead < it}|
-    int j = (int)(i - L);
-    if (j < n_cd) {
-      i64 k = load_key(a.cd.key, a.cd.k64, j);
-      i64 l = load_lo<LO>(a.cd, j);
-      int v = a.cd.val[j];
-      int p = lex_bound_w<LO>(a.ud, live_of(a.ud), k, l, v, false);
-      int pos = j + (excl[s_ud + p] - excl[s_ud]);
-      put_any<LO>(k64, ocd, pos, k, l, v);
-    }
-  } else if (i < (long long)L + cap_cd + cap_oci) {  // cins' padding
-    int t = (int)(i - L - cap_cd);
-    if (t >= n_oci) put_any<LO>(k64, oci, t, sent, sent_lo, 0);
-  } else if (i < (long long)L + cap_cd + cap_oci + cap_ocd) {  // cdel' pad
-    int t = (int)(i - L - cap_cd - cap_oci);
-    if (t >= n_ocd) put_any<LO>(k64, ocd, t, sent, sent_lo, 0);
   }
-  if (i == 0) {
-    *oci_n = n_oci;
-    *ocd_n = n_ocd;
+  if (k == 0 && t == 0) {
+    *oci.n = n_oci;
+    *ocd.n = n_ocd;
   }
 }
 
-static int ntiles_of(long long L) {
-  return (int)((L + REPRO_SCAN_TILE - 1) / REPRO_SCAN_TILE);
+// Blocks of one instantiation that the card holds at once (occupancy for
+// its registers and shared memory, times the SMs; asked once), or a
+// negative CUDA error.
+template <bool LO, bool BASE>
+static int fold_resident() {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fold_kernel<LO, BASE>, FOLD_THREADS, 0);
+    if (e != cudaSuccess) return -(int)e;
+    resident = per_sm * sms;
+  }
+  return resident;
 }
 
-// scratch layout (int32 words): flags [L], excl [L + 1], tile sums [T]
-extern "C" int repro_commit_fold_scratch(int cap_ci, int cap_ui, int cap_ud) {
-  long long L = (long long)cap_ci + cap_ui + cap_ud;
-  return (int)(2 * L + 1 + ntiles_of(L));
+// The grid: every block resident at once, no more than the largest phase
+// fills (a warp a word of keep bits, a thread a cdel rank, four entries or
+// output slots of phase 3 a thread), or a negative CUDA error.
+template <bool LO, bool BASE>
+static int fold_grid(const FoldArgs& a, const FoldBufs& p) {
+  int resident = fold_resident<LO, BASE>();
+  if (resident < 0) return resident;
+  long long L = (long long)a.ci.cap + a.ui.cap + a.ud.cap;
+  long long units = fold_words(L) * 32;
+  long long items = (L + a.cd.cap + p.oci.cap + p.ocd.cap + 3) / 4;
+  if (a.cd.cap > units) units = a.cd.cap;
+  if (items > units) units = items;
+  long long want = (units + FOLD_THREADS - 1) / FOLD_THREADS;
+  int G = (int)(want < resident ? want : resident);
+  return imax(1, imin(G, FOLD_MAX_GRID));
 }
 
-// `oci_lo` / `ocd_lo` are the outputs' lo words for composite regions,
-// null otherwise.
-extern "C" int repro_commit_fold(const int64_t* desc, const int* in_ba,
-                                 int* scratch, void* oci_key, int* oci_val,
-                                 i64* oci_lo, int* oci_n, int cap_oci,
-                                 void* ocd_key, int* ocd_val, i64* ocd_lo,
-                                 int* ocd_n, int cap_ocd, void* stream) {
+template <bool LO, bool BASE>
+static int fold_launch(const FoldArgs& a, const FoldBufs& p, void* stream) {
+  int resident = fold_resident<LO, BASE>();
+  if (resident < 0) return -resident;
+  if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  auto kernel = fold_kernel<LO, BASE>;
+  const int G = fold_grid<LO, BASE>(a, p);
+  return REPRO_LAUNCH_COOP(kernel, G, FOLD_THREADS, stream, a, p);
+}
+
+extern "C" int repro_commit_fold_scratch(int cap_ci, int cap_cd, int cap_ui,
+                                         int cap_ud) {
+  return (int)fold_scratch_words(cap_ci, cap_cd, cap_ui, cap_ud);
+}
+
+// The grid a call would take (for the card's checks, which must reach a
+// one-block and a multi-block grid), or a negative CUDA error.  Regions
+// as repro_commit_fold's; `nreg` 5 is the base form.
+extern "C" int repro_commit_fold_grid(const int64_t* desc, int nreg, int lo,
+                                      int cap_oci, int cap_ocd) {
   FoldArgs a;
   a.ci = region_from(desc);
   a.cd = region_from(desc + REPRO_DESC_WORDS);
   a.ui = region_from(desc + 2 * REPRO_DESC_WORDS);
   a.ud = region_from(desc + 3 * REPRO_DESC_WORDS);
-  a.in_ba = in_ba;
-  int k64 = a.ci.k64;
+  FoldBufs p;
+  p.oci.cap = cap_oci;
+  p.ocd.cap = cap_ocd;
+  const bool base = nreg == 5;
+  if (lo)
+    return base ? fold_grid<true, true>(a, p) : fold_grid<true, false>(a, p);
+  return base ? fold_grid<false, true>(a, p) : fold_grid<false, false>(a, p);
+}
+
+// `desc`: the regions cins, cdel, uins, udel, and base in the base form
+// (nreg 5; `in_ba` null), or the four with `in_ba` (nreg 4).  All share
+// one key width and one layout (all composite or none): a base of another
+// layout is refused, never cast.  `oci_lo` / `ocd_lo` are the outputs' lo
+// words for composite regions, null otherwise.
+extern "C" int repro_commit_fold(const int64_t* desc, int nreg,
+                                 const int* in_ba, int* scratch,
+                                 void* oci_key, int* oci_val, i64* oci_lo,
+                                 int* oci_n, int cap_oci, void* ocd_key,
+                                 int* ocd_val, i64* ocd_lo, int* ocd_n,
+                                 int cap_ocd, void* stream) {
+  const int base = nreg == 5;
   int lo = 0;
-  if (a.cd.k64 != k64 || a.ui.k64 != k64 || a.ud.k64 != k64 ||
-      !lo_uniform(desc, 4, &lo) || (lo != 0) != (oci_lo != nullptr) ||
-      (lo != 0) != (ocd_lo != nullptr))
+  if ((nreg != 4 && nreg != 5) || (base != (in_ba == nullptr)) ||
+      !lo_uniform(desc, nreg, &lo) || (lo != 0) != (oci_lo != nullptr) ||
+      (lo != 0) != (ocd_lo != nullptr) || cap_oci < 0 || cap_ocd < 0)
     return (int)cudaErrorInvalidValue;
-  Out oci = {oci_key, oci_val, oci_lo, cap_oci};
-  Out ocd = {ocd_key, ocd_val, ocd_lo, cap_ocd};
+  FoldArgs a;
+  a.ci = region_from(desc);
+  a.cd = region_from(desc + REPRO_DESC_WORDS);
+  a.ui = region_from(desc + 2 * REPRO_DESC_WORDS);
+  a.ud = region_from(desc + 3 * REPRO_DESC_WORDS);
+  a.ba = base ? region_from(desc + 4 * REPRO_DESC_WORDS) : a.ud;
+  a.in_ba = in_ba;
+  const int k64 = a.ci.k64;
+  if (a.cd.k64 != k64 || a.ui.k64 != k64 || a.ud.k64 != k64 ||
+      a.ba.k64 != k64)
+    return (int)cudaErrorInvalidValue;
   long long L = (long long)a.ci.cap + a.ui.cap + a.ud.cap;
-  int T = ntiles_of(L);
-  int* flags = scratch;
-  int* excl = scratch + L;
-  unsigned* tiles = (unsigned*)(scratch + 2 * L + 1);
-  if (lo)
-    REPRO_LAUNCH(fold_masks<true>, grid_for(L, REPRO_THREADS), REPRO_THREADS,
-                 stream, a, flags);
-  else
-    REPRO_LAUNCH(fold_masks<false>, grid_for(L, REPRO_THREADS),
-                 REPRO_THREADS, stream, a, flags);
-  REPRO_LAUNCH(scan_tiles, T, REPRO_THREADS, stream, flags, (int)L, tiles);
-  REPRO_LAUNCH(scan_tile_sums, 1, REPRO_SCAN_THREADS, stream, tiles, T);
-  REPRO_LAUNCH(scan_apply, T, REPRO_THREADS, stream, flags, (int)L, tiles,
-               excl);
-  long long total = L + a.cd.cap + cap_oci + cap_ocd;
-  if (lo)
-    REPRO_LAUNCH(fold_scatter<true>, grid_for(total, REPRO_THREADS),
-                 REPRO_THREADS, stream, a, excl, k64, oci, oci_n, ocd,
-                 ocd_n);
-  else
-    REPRO_LAUNCH(fold_scatter<false>, grid_for(total, REPRO_THREADS),
-                 REPRO_THREADS, stream, a, excl, k64, oci, oci_n, ocd,
-                 ocd_n);
+  if (L + a.cd.cap + cap_oci + cap_ocd > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  FoldBufs p;
+  p.oci = {oci_key, oci_val, oci_lo, oci_n, cap_oci};
+  p.ocd = {ocd_key, ocd_val, ocd_lo, ocd_n, cap_ocd};
+  p.winfo = (uint2*)scratch;
+  p.part = scratch + 2 * fold_words(L);
+  p.rank = p.part + FOLD_MAX_GRID;
+  p.k64 = k64;
+  int rc = lo ? (base ? fold_launch<true, true>(a, p, stream)
+                      : fold_launch<true, false>(a, p, stream))
+              : (base ? fold_launch<false, true>(a, p, stream)
+                      : fold_launch<false, false>(a, p, stream));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -56,8 +56,10 @@ SIGNATURES = {
         "repro_extend_lanes": (I, I, I),
     },
     "fold": {
-        "repro_commit_fold": (DESC, P, P, P, P, P, P, I, P, P, P, P, I, P),
-        "repro_commit_fold_scratch": (I, I, I),
+        "repro_commit_fold": (DESC, I, P, P, P, P, P, P, I, P, P, P, P, I,
+                              P),
+        "repro_commit_fold_scratch": (I, I, I, I),
+        "repro_commit_fold_grid": (DESC, I, I, I, I),
     },
     "segment_sum": {
         "repro_segment_sum": (P, I, P, I, I, I, P, P, P),

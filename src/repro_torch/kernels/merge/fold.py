@@ -1,4 +1,4 @@
-"""The per-relation epoch commit fold, both outputs in one kernel call:
+"""The per-relation epoch commit fold, both outputs in one kernel launch:
 
     cins' = (cins \\ udel) ∪ (uins \\ cdel)
     cdel' = cdel ∪ (udel ∩ base)
@@ -6,17 +6,27 @@
 Replaces the TPU kernel ``src/repro/kernels/merge/fold.py``
 (``make_fold_kernel(composite)`` / ``_fold_call`` / ``commit_fold``),
 1-word and composite (hi, lo) keys.
-The CUDA kernel is ``csrc/fold.cu``: keep-mask probes, a multi-block scan,
-and a scatter to merge positions; it is bound by reading the four regions
-and writing both outputs (see the source note there).  The plain version
-is the five-fold rank chain of the reference store
-(``_commit_fold_ref``).  ``base`` enters only as ``in_ba``, the membership
-bits of udel's rows in base, which the caller computes with the plain
-fixed-depth search.
+The CUDA kernel is ``csrc/fold.cu``: one cooperative launch a call (keep
+bits packed by ballots, the chunk sums scanned in every block after a grid
+barrier, a scatter to merge positions); see the source note there.
+
+Two forms, exactly one of ``in_ba`` and ``base`` given:
+
+* ``in_ba``, the TPU kernel's own function: the membership bits of udel's
+  rows in base, computed by the caller;
+* ``base``: the kernel probes base itself, in the same launch (the TPU
+  kernel kept base out of VMEM; on the card it is read from device memory
+  like the other regions).  ``base`` must share the four regions' key
+  width and layout: a CUDA call refuses any other, where the plain version
+  casts the probes to base's key dtype as ``csr.index_ranks`` does.
+
+The plain versions are the five-fold rank chain of the reference store
+(``_commit_fold_ref``), behind the fixed-depth rank probe of base for the
+base form (``_commit_fold_base_ref``).
 """
 from __future__ import annotations
 
-from types import SimpleNamespace
+from typing import Dict, Optional
 
 import torch
 
@@ -50,51 +60,117 @@ def _commit_fold_ref(cins: IndexData, cdel: IndexData, uins: IndexData,
     return new_cins, new_cdel
 
 
+def base_bits(base: IndexData, udel: IndexData) -> torch.Tensor:
+    """``in_ba`` of the plain version: udel's rows in base, int32 [cap],
+    through the plain fixed-depth rank search."""
+    lt, le = csr.index_ranks(base, csr._qcols_of(udel), udel.val,
+                             plain=True)
+    return (le > lt).to(torch.int32)
+
+
+def _commit_fold_base_ref(cins: IndexData, cdel: IndexData, uins: IndexData,
+                          udel: IndexData, base: IndexData, cins_cap: int,
+                          cdel_cap: int):
+    """The base form's plain version: the rank probe of base, then the
+    chain (runs on any device)."""
+    return _commit_fold_ref(cins, cdel, uins, udel, base_bits(base, udel),
+                            cins_cap, cdel_cap)
+
+
 def commit_fold(cins: IndexData, cdel: IndexData, uins: IndexData,
-                udel: IndexData, in_ba: torch.Tensor, *, cins_cap: int,
+                udel: IndexData, in_ba: Optional[torch.Tensor] = None, *,
+                base: Optional[IndexData] = None, cins_cap: int,
                 cdel_cap: int):
-    """(cins', cdel') of one epoch; ``in_ba`` int32/bool [cap_udel]."""
-    in_ba = in_ba.to(torch.int32)
+    """(cins', cdel') of one epoch, from ``in_ba`` (int32/bool
+    [cap_udel], udel's rows in base) or from ``base`` itself."""
+    if (in_ba is None) == (base is None):
+        raise ValueError("commit_fold takes exactly one of in_ba and base")
     if not cins.key.is_cuda:
-        return _commit_fold_ref(cins, cdel, uins, udel, in_ba, cins_cap,
-                                cdel_cap)
-    return _launch(cins, cdel, uins, udel, in_ba, cins_cap, cdel_cap)
+        if base is not None:
+            return _commit_fold_base_ref(cins, cdel, uins, udel, base,
+                                         cins_cap, cdel_cap)
+        return _commit_fold_ref(cins, cdel, uins, udel,
+                                in_ba.to(torch.int32), cins_cap, cdel_cap)
+    return _launch(cins, cdel, uins, udel, in_ba, base, int(cins_cap),
+                   int(cdel_cap))
 
 
-def _launch(cins, cdel, uins, udel, in_ba, cins_cap, cdel_cap):
-    regions = (cins, cdel, uins, udel)
-    kd = cins.key.dtype
-    if any(r.key.dtype != kd for r in regions):
-        raise ValueError("commit_fold regions must share one key dtype")
-    composite = _build.uniform_lo(regions)
-    regions = tuple(SimpleNamespace(
-        key=r.key.contiguous(), val=r.val.contiguous(),
-        n=r.n.to(torch.int32),
-        lo=None if r.lo is None else r.lo.contiguous()) for r in regions)
-    in_ba = in_ba.contiguous()
-    _build.require_cuda(in_ba)
-    dev = cins.key.device
+# (key dtype, composite, the four regions' capacities, cins_cap, cdel_cap)
+# -> the int64 words of the one allocation and its offsets
+_LAYOUTS: Dict[tuple, tuple] = {}
+
+
+def _layout(lib, kd, composite, caps, cins_cap, cdel_cap):
+    """Both outputs and the kernel's scratch carved from one int64
+    allocation: int64 keys and the lo words first (in int64 words), then
+    in int32 words int32 keys, both vals, both counts and the scratch
+    (8-byte aligned).  Returns (words, ((key, val, lo, n) of cins',
+    the same of cdel'), scratch), each offset in its dtype's units."""
+    key = (kd, composite, caps, cins_cap, cdel_cap)
+    got = _LAYOUTS.get(key)
+    if got is not None:
+        return got
+    wide = kd == torch.int64
+    w64 = 0
+    outs = []
+    for cap in (cins_cap, cdel_cap):
+        k = lo = None
+        if wide:
+            k, w64 = w64, w64 + cap
+        if composite:
+            lo, w64 = w64, w64 + cap
+        outs.append([k, None, lo, None, cap])
+    w32 = 2 * w64
+    for o in outs:
+        if not wide:
+            o[0], w32 = w32, w32 + o[4]
+        o[1], w32 = w32, w32 + o[4]
+    for o in outs:
+        o[3], w32 = w32, w32 + 1
+    scratch = w32 + (w32 & 1)
+    w32 = scratch + lib.repro_commit_fold_scratch(*caps)
+    got = ((w32 + 1) // 2, tuple(tuple(o[:4]) for o in outs), scratch)
+    _LAYOUTS[key] = got
+    return got
+
+
+def _launch(cins, cdel, uins, udel, in_ba, base, cins_cap, cdel_cap):
+    regions = (cins, cdel, uins, udel) if base is None else \
+        (cins, cdel, uins, udel, base)
+    kd, composite = cins.key.dtype, cins.lo is not None
+    for r in regions:
+        if r.key.dtype != kd or (r.lo is not None) != composite:
+            raise ValueError("commit_fold regions (base included) must "
+                             "share one key dtype and layout (composite "
+                             "or not)")
+    desc = _build.region_desc(regions)
     lib = _build.lib("fold")
-    scratch = torch.empty(
-        lib.repro_commit_fold_scratch(cins.capacity, uins.capacity,
-                                      udel.capacity),
-        dtype=torch.int32, device=dev)
-    def out(cap):
-        cap = int(cap)
-        return (torch.empty(cap, dtype=kd, device=dev),
-                torch.empty(cap, dtype=torch.int32, device=dev),
-                torch.empty(cap, dtype=torch.int64, device=dev)
-                if composite else None,
-                torch.empty((), dtype=torch.int32, device=dev))
-
-    oci_k, oci_v, oci_l, oci_n = out(cins_cap)
-    ocd_k, ocd_v, ocd_l, ocd_n = out(cdel_cap)
-    p = _build.ptr
-    rc = lib.repro_commit_fold(
-        _build.region_desc(regions), p(in_ba), p(scratch), p(oci_k),
-        p(oci_v), p(oci_l), p(oci_n), int(cins_cap), p(ocd_k), p(ocd_v),
-        p(ocd_l), p(ocd_n), int(cdel_cap), _build.stream_of(oci_k))
+    words, outs, scratch = _layout(
+        lib, kd, composite, (cins.key.shape[0], cdel.key.shape[0],
+                             uins.key.shape[0], udel.key.shape[0]),
+        cins_cap, cdel_cap)
+    buf = torch.empty(words, dtype=torch.int64, device=cins.key.device)
+    b32 = buf.view(torch.int32)
+    at = buf.data_ptr()
+    wide = kd == torch.int64
+    views, ptrs = [], []
+    for (k, v, lo, n), cap in zip(outs, (cins_cap, cdel_cap)):
+        kb = buf if wide else b32
+        views.append(IndexData(
+            kb.as_strided((cap,), (1,), k), b32.as_strided((cap,), (1,), v),
+            b32.as_strided((), (), n),
+            None if lo is None else buf.as_strided((cap,), (1,), lo)))
+        ptrs += [at + k * (8 if wide else 4), at + 4 * v,
+                 0 if lo is None else at + 8 * lo, at + 4 * n, cap]
+    if in_ba is not None:
+        if in_ba.dtype != torch.int32:
+            in_ba = in_ba.to(torch.int32)
+        _build.require_cuda(in_ba)
+        if in_ba.shape[0] < udel.capacity:
+            raise ValueError("in_ba covers udel's capacity")
+    rc = lib.repro_commit_fold(desc, len(regions), _build.ptr(in_ba),
+                               at + 4 * scratch, *ptrs,
+                               _build.stream_of(buf))
     _build.check("fold", rc)
     count_launch("commit_fold_lex" if composite else "commit_fold")
-    return (IndexData(oci_k, oci_v, oci_n, oci_l),
-            IndexData(ocd_k, ocd_v, ocd_n, ocd_l))
+    return views[0], views[1]

@@ -7,6 +7,8 @@ store holding ``tri``, ``quad`` and ``edge`` region for region, the
 and against the edge-only 4-clique, 5-clique-quad likewise against the JAX
 session and against 5-clique, and the relation and batch validation
 errors."""
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -376,6 +378,46 @@ def test_mixed_nary_store_matches_jax_region_for_region():
     assert ts.stats.compactions > 0 and ts.stats.live_compactions > 0
     assert (ts.stats.compactions, ts.stats.live_compactions) == \
         (js.stats.compactions, js.stats.live_compactions)
+
+
+def test_composite_compactions_count_the_hi_lo_regions(monkeypatch):
+    """``stats.composite_compactions`` counts, of the compactions the store
+    runs (a relation's live set or a stored projection), those of (hi, lo)
+    regions: here the tri and quad live sets and the quad projection."""
+    rng = np.random.default_rng(81)
+    nv = 10
+    seed = np.random.default_rng(77)
+    cur = {"tri": np.unique(rows(seed, 80, 3, nv), axis=0),
+           "quad": np.unique(rows(seed, 60, 4, nv), axis=0),
+           "edge": np.unique(rows(seed, 40, 2, nv), axis=0)}
+    ts = tdelta.RegionStore({k: v.copy() for k, v in cur.items()},
+                            compact_ratio=0.4, device="cpu")
+    ts.ensure("tri", (0, 1), 2)
+    ts.ensure("quad", (0, 1, 2), 3)
+    ts.ensure("edge", (0,), 1)
+    seen = []  # composite or not, for each compaction _maybe_compact runs
+    real = tdelta._compact_fold
+
+    def spy(base, *args, **kw):
+        if sys._getframe(1).f_code.co_name == "_maybe_compact":
+            seen.append(base.lo is not None)
+        return real(base, *args, **kw)
+
+    monkeypatch.setattr(tdelta, "_compact_fold", spy)
+    for _ in range(10):
+        batch = {name: _dirty_batch(rng, nv, cur[name], 8, ar)
+                 for name, ar in (("tri", 3), ("quad", 4), ("edge", 2))}
+        out = ts.normalize({k: (u.copy(), w.copy())
+                            for k, (u, w) in batch.items()})
+        if any(a.size or b.size for a, b in out.values()):
+            ts.begin_epoch(out)
+            ts.commit(out)
+        for name in cur:
+            cur[name] = _apply_net(cur[name], *batch[name])
+    st = ts.stats
+    assert True in seen and False in seen
+    assert st.compactions + st.live_compactions == len(seen)
+    assert st.composite_compactions == sum(seen)
 
 
 # ---------------------------------------------------------------------------
