@@ -33,8 +33,9 @@ version first; device ms there sum every activity a call records.
 
 With ``--serve`` it runs ``chip_smoke.py``'s serve 16:triangle,diamond
 cell (a GraphSession over the R-MAT scale-16 edges, triangle and diamond
-standing, 6 epochs of 2048 dirty updates) and reports its warm epoch p50
-and p99: a whole session's latency, compared in turns.
+standing, 6 epochs of 2048 dirty updates) and its serve 20:triangle cell
+(the scale-20 edges, 20 epochs) and reports each one's warm epoch p50 and
+p99: a whole session's latency, compared in turns.
 
 Prints nvidia-smi's name and power limit, then one JSON line per
 measurement.  Needs one CUDA device; run from the repository root.
@@ -180,20 +181,24 @@ def serve_cases(tree: str) -> None:
     from repro_torch.kernels import _build
 
     _build.build(["intersect", "extend", "merge_rank", "fold"], force=True)
-    scale, ub, epochs, seed = 16, 2048, 6, 0
-    edges = rmat_graph(scale, 16, seed=seed)
-    session = GraphSession(edges, device="cuda", update_batch=ub,
-                           compact_ratio=8 * ub / edges.shape[0])
-    for name in ("triangle", "diamond"):
-        session.register(name)
-    stream = EdgeUpdateStream(1 << scale, ub, seed=seed + 2)
-    _live, secs = cs.run_stream(session, stream, edges, epochs, tree)
-    warm = np.asarray(secs[1:]) * 1e3
-    print(json.dumps(dict(
-        tree=tree, case="serve 16:triangle,diamond",
-        first_ms=secs[0] * 1e3, warm_p50_ms=float(np.percentile(warm, 50)),
-        warm_p99_ms=float(np.percentile(warm, 99)),
-        warm_ms=warm.tolist())), flush=True)
+    ub, seed = 2048, 0
+    for scale, queries, epochs in ((16, ("triangle", "diamond"), 6),
+                                   (20, ("triangle",), 20)):
+        edges = rmat_graph(scale, 16, seed=seed)
+        session = GraphSession(edges, device="cuda", update_batch=ub,
+                               compact_ratio=8 * ub / edges.shape[0])
+        for name in queries:
+            session.register(name)
+        stream = EdgeUpdateStream(1 << scale, ub, seed=seed + 2)
+        _live, secs = cs.run_stream(session, stream, edges, epochs, tree)
+        warm = np.asarray(secs[1:]) * 1e3
+        print(json.dumps(dict(
+            tree=tree, case=f"serve {scale}:{','.join(queries)}",
+            first_ms=secs[0] * 1e3,
+            warm_p50_ms=float(np.percentile(warm, 50)),
+            warm_p99_ms=float(np.percentile(warm, 99)),
+            warm_ms=warm.tolist())), flush=True)
+        del session
 
 
 def extend_rank_cases(tree: str) -> None:

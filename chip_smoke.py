@@ -53,10 +53,29 @@ Phases, in order, each printed with its result and seconds:
               compaction, 1-word and composite apart) and the device idle
               share of one profiled warm
               epoch;
-6. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
+6. txn      — transactions at the serve 20:triangle cell's size: session
+              A runs 4 epochs, its snapshot goes through the port's
+              checkpoint under ``build/`` and is restored into session B
+              (built over 1,024 edges; every restored tensor on the card),
+              then A and B run 6 epochs in lockstep, deltas bit for bit, B
+              on the session kernels, and end with equal snapshots; a
+              fault at a projection fold and one at normalize leave A
+              equal to its pre-epoch snapshot and the retried batch gives
+              B's delta; the same restore and lockstep on a composite
+              session (scale 12, triangle,4-clique-tri, ``lo`` leaves and
+              a derived projection, B on the ``_lex`` kernels); §5.4 on the
+              card (tri rows and 4-cliques through tri at scale 12 against
+              the host oracle, at scale 14 against a static symmetric
+              4-clique count on the card); and the public folds of ``csr``
+              on the card against the same calls on CPU copies, bit for
+              bit, over the scale-20 edge set and the scale-14 ``tri``
+              rows, at a capacity below the union too;
+7. examples — every ``examples/torch_*.py`` twin in a process of its own
+              on the card: exit 0 and its "✓" lines;
+8. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
               defaults to step 10, relaunched to step 20: it resumes from
               its checkpoint and ends with a finite loss;
-7. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
+9. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
               shape) on a 232,965-node graph: triangle features from the
               port's BiGJoin on the card, sampled union graphs, the
               segment_sum kernel against its plain version at that shape
@@ -65,13 +84,13 @@ Phases, in order, each printed with its result and seconds:
               equal), the first step against the host's, then
               6 steps: step ms, peak memory, idle share of a profiled step,
               2 segment_sum launches per layer and step;
-8. train archs — one step of each GNN arch at smoke width and of a
+10. train archs — one step of each GNN arch at smoke width and of a
               graph_reg batch, the card's loss against the host's;
-9. lm verify — the LM transformer on the card against the host, f32 on
+11. lm verify — the LM transformer on the card against the host, f32 on
               both: the yi-34b, gemma-7b and gemma2-2b smoke configs
               (forward, loss, prefill, 4 decode steps) and gemma2-2b at
               full width and depth 2 on a 4,160-token request;
-10. lm serve gemma2-2b — full width and depth, bf16, random parameters
+12. lm serve gemma2-2b — full width and depth, bf16, random parameters
               from the seed: 4 prompts of 8,192 tokens, prefill and 32
               greedy decode steps, 3 rounds (1 cold) and one profiled
               prefill and decode step; decode held against prefill; 26
@@ -1759,7 +1778,425 @@ def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
 
 
 # ---------------------------------------------------------------------------
-# phases 6-8: GNN training (motif features -> sampler -> GNN with
+# phase 6: transactions (snapshot, restore, faults), §5.4, the public folds
+# ---------------------------------------------------------------------------
+
+TXN_EPOCHS = 4  # epochs on session A before its snapshot
+TXN_LOCKSTEP = 6  # then epochs 4-9 on A and the restored B in lockstep
+TXN_B_EDGES = 1024  # B is built over these first edges only
+TXN_NARY_SCALE = 12  # the composite session's R-MAT scale
+TXN_NARY_EPOCHS = (2, 2)  # its epochs before / after the restore
+OPT_SCALES = (12, 14)  # §5.4: against the host oracle / a card count
+TXN_FAULTS = ("store.commit.fold@2", "store.normalize@1")
+OPT_CFG = dict(batch=8192, seed_chunk=8192)  # §5.4 on the card
+FOLD_SAMPLE = 65_536  # rows of the public folds' second region
+
+
+def snapshot_leaves_equal(a, b, label: str) -> None:
+    """Two snapshots' leaves equal: names, dtypes, shapes and bits."""
+    (la, ma), (lb, mb) = a, b
+    if ma["names"] != mb["names"] or len(la) != len(lb):
+        raise AssertionError(f"{label}: snapshot leaf names differ")
+    for name, x, y in zip(ma["names"], la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                not np.array_equal(x, y):
+            raise AssertionError(f"{label}: snapshot leaf {name} differs")
+
+
+def snapshots_equal(a, b, label: str) -> None:
+    """Leaf for leaf, and the metas equal outside ``stats`` once through
+    JSON (as a checkpoint stores them)."""
+    snapshot_leaves_equal(a, b, label)
+    ma, mb = (json.loads(json.dumps(m)) for m in (a[1], b[1]))
+    ma.pop("stats")
+    mb.pop("stats")
+    if ma != mb:
+        raise AssertionError(f"{label}: snapshot metas differ: "
+                             f"{sorted(k for k in ma if ma[k] != mb.get(k))}")
+
+
+def deltas_equal(ra, rb, label: str) -> None:
+    """Two epoch results bit for bit: every relation's normalized batch,
+    and every query's tuples, weights and count delta."""
+    if set(ra.deltas) != set(rb.deltas) or set(ra.by_rel) != set(rb.by_rel):
+        raise AssertionError(f"{label}: different queries or relations")
+    for rel, pair in ra.by_rel.items():
+        for x, y in zip(pair, rb.by_rel[rel]):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{label}: {rel} batch differs")
+    for name, a in ra.deltas.items():
+        b = rb.deltas[name]
+        same = a.count_delta == b.count_delta and \
+            (a.tuples is None) == (b.tuples is None) and \
+            (a.tuples is None or (np.array_equal(a.tuples, b.tuples)
+                                  and np.array_equal(a.weights, b.weights)))
+        if not same:
+            raise AssertionError(f"{label}: {name} delta differs")
+
+
+def region_devices(session) -> set:
+    """Device types of every tensor of a session's store."""
+    store = session.store
+    idxs = [i for st in store._rels.values()
+            for i in (st.lb, st.lc_ins, st.lc_del)]
+    idxs += [getattr(r, "d_" + n) for r in store.projections.values()
+             if not r.derived
+             for n in ("base", "cins", "cdel", "uins", "udel")]
+    return {t.device.type for i in idxs
+            for t in (i.key, i.val, i.n, i.lo) if t is not None}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def counted(total: dict, fn):
+    """``fn()`` with the kernel counts set to 0 before and added to
+    ``total`` after."""
+    from repro_torch import kernels
+    kernels.reset_launches()
+    out = fn()
+    add_counts(total, kernels.launches())
+    return out
+
+
+def timed(fn):
+    sync()
+    t = time.time()
+    out = fn()
+    sync()
+    return out, time.time() - t
+
+
+def txn_restore(session, new_session, label: str):
+    """Snapshot ``session``, save it with the port's checkpoint under
+    ``build/`` (gitignored), read it back with ``restore_latest_raw`` and
+    restore it into ``new_session()``; returns the restored session and
+    each step's seconds."""
+    from repro_torch.checkpoint import CheckpointManager
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"txn_{label}")
+    (leaves, meta), t_snap = timed(session.snapshot)
+    mgr = CheckpointManager(root, keep_last=1)
+    _, t_save = timed(lambda: mgr.save(leaves, session.epoch, extra=meta))
+    (got, manifest), t_load = timed(mgr.restore_latest_raw)
+    b = new_session()
+    _, t_restore = timed(lambda: b.restore(got, manifest["extra"]))
+    if region_devices(b) != {DEVICE}:
+        raise AssertionError(f"{label}: restored regions on "
+                             f"{region_devices(b)}, not all on the card")
+    if b.epoch != session.epoch:
+        raise AssertionError(f"{label}: restored epoch {b.epoch}")
+    out = dict(leaves=len(leaves),
+               leaf_bytes=int(sum(x.nbytes for x in leaves)),
+               snapshot_s=t_snap, save_s=t_save, load_s=t_load,
+               restore_s=t_restore)
+    log(f"  txn {label}: " + json.dumps(out))
+    return b, out
+
+
+def txn_edge(edges, nv, update_batch, ratio, seed, total):
+    """Steps 1-3 at the serve 20:triangle cell's size."""
+    from repro_torch import faults
+    from repro_torch.api import GraphSession
+    from repro_torch.data.synthetic import EdgeUpdateStream
+    from repro_torch.errors import FaultInjected
+
+    def session(rows):
+        s = GraphSession(rows, device=DEVICE, update_batch=update_batch,
+                         compact_ratio=ratio)
+        s.register("triangle")
+        return s
+
+    a, t_build = timed(lambda: session(edges))
+    stream = EdgeUpdateStream(nv, update_batch, seed=seed + 3)
+    live = edges
+    for epoch in range(TXN_EPOCHS):
+        upd, w = stream.batch_at(epoch, live)
+        res = counted(total, lambda: a.update(upd, w))
+        live = res.advance(live)
+    b, out = txn_restore(a, lambda: session(edges[:TXN_B_EDGES]), "edge")
+    out["build_a_s"] = t_build
+    b_counts, a_secs, b_secs = {}, [], []
+    for epoch in range(TXN_EPOCHS, TXN_EPOCHS + TXN_LOCKSTEP):
+        upd, w = stream.batch_at(epoch, live)
+        ra, ta = timed(lambda: counted(total, lambda: a.update(upd, w)))
+        rb, tb = timed(lambda: counted(b_counts, lambda: b.update(upd, w)))
+        deltas_equal(ra, rb, f"txn edge epoch {epoch}")
+        a_secs.append(ta)
+        b_secs.append(tb)
+        rows = 0 if ra.deltas["triangle"].tuples is None \
+            else ra.deltas["triangle"].tuples.shape[0]
+        log(f"  txn edge epoch {epoch}: A {ta * 1e3:.1f} ms, B "
+            f"{tb * 1e3:.1f} ms, {rows} delta rows equal")
+        live = ra.advance(live)
+    require_launches("txn B", b_counts, SESSION_KERNELS)
+    add_counts(total, b_counts)
+    snapshots_equal(a.snapshot(), b.snapshot(), "txn edge lockstep")
+    out.update(b_launches=b_counts, b_first_epoch_ms=b_secs[0] * 1e3,
+               a_p50_ms=float(np.percentile(np.asarray(a_secs) * 1e3, 50)),
+               b_p50_ms=float(np.percentile(np.asarray(b_secs) * 1e3, 50)))
+    # step 3: a fault at a projection fold (hit 2: the live set's fold is
+    # staged) and one at normalize; A rolls back, the retry equals B's
+    for k, spec in enumerate(TXN_FAULTS):
+        epoch = TXN_EPOCHS + TXN_LOCKSTEP + k
+        upd, w = stream.batch_at(epoch, live)
+        pre, e0 = a.snapshot(), a.epoch
+        faults.install(spec)
+        try:
+            a.update(upd, w)
+            raise AssertionError(f"txn: {spec} did not fault")
+        except FaultInjected as exc:
+            log(f"  txn fault {spec}: {exc}")
+        finally:
+            faults.clear()
+        if a.epoch != e0:
+            raise AssertionError(f"txn: {spec} moved the epoch")
+        snapshot_leaves_equal(pre, a.snapshot(), f"txn after {spec}")
+        ra = counted(total, lambda: a.update(upd, w))
+        rb = counted(total, lambda: b.update(upd, w))
+        deltas_equal(ra, rb, f"txn retry after {spec}")
+        log(f"  txn fault {spec}: store equal to its pre-epoch snapshot; "
+            f"the retry equals B's delta")
+        live = ra.advance(live)
+    out["faults"] = list(TXN_FAULTS)
+    log("  txn edge: " + json.dumps(out))
+    return out
+
+
+def txn_nary(seed, update_batch, total):
+    """Step 4: steps 1-2 on a composite session (R-MAT scale 12,
+    triangle,4-clique-tri, ``tri`` fed the triangle deltas)."""
+    from repro_torch.api import GraphSession
+    from repro_torch.data.synthetic import EdgeUpdateStream, rmat_graph
+    edges = rmat_graph(TXN_NARY_SCALE, 16, seed=seed)
+    ratio = 8 * update_batch / edges.shape[0]
+    names = ["triangle", "4-clique-tri"]
+    a, _, rels, _, _ = open_nary_session(edges, names, update_batch, ratio)
+    # the static 4-clique-tri plan's projections, one of them derived from
+    # tri's live rows (ensured, not run: 14.6M cliques to count at scale 12)
+    a._static_plan(a["4-clique-tri"].query)
+    stream = EdgeUpdateStream(1 << TXN_NARY_SCALE, update_batch,
+                              seed=seed + 4)
+    live = edges
+    before, after = TXN_NARY_EPOCHS
+    for epoch in range(before):
+        upd, w = stream.batch_at(epoch, live)
+        r1, _, _, _ = counted(total, lambda: nary_epoch(a, rels, upd, w))
+        live = r1.advance(live)
+    b, out = txn_restore(
+        a, lambda: GraphSession(edges[:TXN_B_EDGES], device=DEVICE,
+                                update_batch=update_batch,
+                                compact_ratio=ratio), "nary")
+    leaves, meta = a.snapshot()
+    if not any(n.endswith(".lo") for n in meta["names"]) or \
+            not any(p["derived"] for p in meta["projections"]):
+        raise AssertionError("txn nary: no lo leaves or derived projection")
+    b_counts = {}
+    for epoch in range(before, before + after):
+        upd, w = stream.batch_at(epoch, live)
+        ra1, ra2, _, _ = counted(total, lambda: nary_epoch(a, rels, upd, w))
+        rb1, rb2, _, _ = counted(b_counts,
+                                 lambda: nary_epoch(b, rels, upd, w))
+        deltas_equal(ra1, rb1, f"txn nary edge epoch {epoch}")
+        deltas_equal(ra2, rb2, f"txn nary tri epoch {epoch}")
+        live = ra1.advance(live)
+    require_launches("txn nary B", b_counts,
+                     expected_kernels(b.handles, rels))
+    add_counts(total, b_counts)
+    snapshots_equal(a.snapshot(), b.snapshot(), "txn nary lockstep")
+    out.update(b_launches=b_counts,
+               derived=sum(p["derived"] for p in meta["projections"]))
+    log(f"  txn nary: lockstep equal; {json.dumps(out)}")
+    return out
+
+
+def opt_phase(seed, total):
+    """Step 5: the §5.4 transformations on the card."""
+    from repro_torch import kernels
+    from repro_torch.core import query as Q
+    from repro_torch.core.bigjoin import (BigJoinConfig, build_indices,
+                                          run_bigjoin, seed_tuples_for)
+    from repro_torch.core.csr import Graph
+    from repro_torch.core.delta import _unique_rows
+    from repro_torch.core.generic_join import generic_join
+    from repro_torch.core.optimizations import (build_triangle_relation,
+                                                four_clique_via_tri,
+                                                symmetry_break)
+    from repro_torch.core.plan import make_plan
+    from repro_torch.data.synthetic import rmat_graph
+
+    out = {}
+    host, card = OPT_SCALES
+    g_host = symmetry_break(Graph.from_edges(rmat_graph(host, 16, seed=seed)))
+    rels = {Q.EDGE: g_host.edges}
+    tri, t_tri = timed(lambda: counted(total, lambda: build_triangle_relation(
+        g_host, "bigjoin", device=DEVICE)))
+    ref, t_ref = timed(lambda: build_triangle_relation(g_host, "oracle"))
+    if not np.array_equal(_unique_rows(tri), _unique_rows(ref)):
+        raise AssertionError("§5.4: the card's tri rows differ from the "
+                             "host oracle's")
+    cfg = BigJoinConfig(out_capacity=1 << 23, **OPT_CFG)
+    (c4, _), t_c4 = timed(lambda: counted(total, lambda: four_clique_via_tri(
+        g_host, "bigjoin", cfg=cfg, device=DEVICE)))
+    flat, t_flat = timed(lambda: generic_join(
+        Q.four_clique(symmetric=True), rels, enumerate_results=False)[1])
+    if c4 != flat:
+        raise AssertionError(f"§5.4 scale {host}: 4-cliques via tri {c4} "
+                             f"!= generic_join {flat}")
+    out[host] = dict(edges=int(g_host.edges.shape[0]), tri=int(tri.shape[0]),
+                   four_cliques=int(c4), tri_s=t_tri, oracle_tri_s=t_ref,
+                   via_tri_s=t_c4, host_flat_s=t_flat)
+    log(f"  §5.4 scale {host}: " + json.dumps(out[host]))
+    g_card = symmetry_break(Graph.from_edges(rmat_graph(card, 16, seed=seed)))
+    kernels.reset_launches()
+    cfg = BigJoinConfig(out_capacity=1 << 26, **OPT_CFG)
+    (c4, _), t_c4 = timed(lambda: four_clique_via_tri(g_card, "bigjoin",
+                                                      cfg=cfg,
+                                                      device=DEVICE))
+    via = kernels.launches()
+    add_counts(total, via)
+    q = Q.four_clique(symmetric=True)
+    plan = make_plan(q)
+    rels = {Q.EDGE: g_card.edges}
+
+    def flat_count():
+        idx = build_indices(plan, rels, device=DEVICE)
+        return run_bigjoin(plan, idx, seed_tuples_for(plan, rels),
+                           cfg=BigJoinConfig(mode="count", **OPT_CFG)).count
+    flat, t_flat = timed(lambda: counted(total, flat_count))
+    out[card] = dict(edges=int(g_card.edges.shape[0]), four_cliques=int(c4),
+                     flat=int(flat), via_tri_s=t_c4, flat_s=t_flat,
+                     via_launches={k: v for k, v in via.items() if v})
+    log(f"  §5.4 scale {card}: " + json.dumps(out[card]))
+    if c4 != flat:
+        raise AssertionError(f"§5.4 scale {card}: 4-cliques via tri {c4} "
+                             f"!= the static count {flat}")
+    return out
+
+
+def public_folds_phase(edges, tri, seed):
+    """Step 6: ``merge_index``, ``diff_index`` and ``intersect_index`` on
+    the card (the rank kernels) against the same calls on CPU copies (the
+    plain searches), bit for bit with the padding, over the scale-20
+    edge set and the scale-14 ``tri`` rows (composite) with a region of
+    65,536 rows, half of them in the relation: the whole relation merged
+    with the small region (as a compaction merges), the small region
+    less and within the relation (as a commit probes), each at a
+    capacity that holds the result and at half of it, below the union.
+    The CPU copies' plain searches take most of the step's time."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import csr
+    from repro_torch.core.delta import _packed_index
+
+    rng = np.random.default_rng(seed + 5)
+    dev = torch.device(DEVICE)
+    out = {}
+    for label, rows, arity in (("edge", edges, 2), ("tri", tri, 3)):
+        nv = int(rows.max()) + 1
+        other = np.concatenate([
+            rows[rng.integers(0, rows.shape[0], FOLD_SAMPLE // 2)],
+            rng.integers(0, nv, (FOLD_SAMPLE // 2, arity)).astype(np.int32)])
+        a = _packed_index(rows, dev, arity)
+        b = _packed_index(other, dev, arity)
+        ha = csr.IndexData(*(None if t is None else t.cpu()
+                             for t in (a.key, a.val, a.n, a.lo)))
+        hb = csr.IndexData(*(None if t is None else t.cpu()
+                             for t in (b.key, b.val, b.n, b.lo)))
+        for fold, (x, y), (hx, hy) in (
+                ("merge_index", (a, b), (ha, hb)),
+                ("diff_index", (b, a), (hb, ha)),
+                ("intersect_index", (b, a), (hb, ha))):
+            fn = getattr(csr, fold)
+            full = csr.round_capacity(x.capacity + y.capacity)
+            n_full = None
+            for cap in (full, None):
+                cap = cap or csr.round_capacity(max(n_full // 2, 1))
+                kernels.reset_launches()
+                got, t_card = timed(lambda: fn(x, y, cap))
+                counts = kernels.launches()
+                want = fn(hx, hy, cap)
+                for u, v in ((got.key, want.key), (got.val, want.val),
+                             (got.lo, want.lo)):
+                    if (u is None) != (v is None) or (
+                            u is not None and not torch.equal(u.cpu(), v)):
+                        raise AssertionError(f"folds: {label} {fold} at "
+                                             f"capacity {cap} differs")
+                if int(got.n) != int(want.n):
+                    raise AssertionError(f"folds: {label} {fold} count")
+                rank = "rank_lt_le_lex" if arity > 2 else "rank_lt_le"
+                if counts[rank] == 0:
+                    raise AssertionError(f"folds: {label} {fold} launched "
+                                         f"no {rank}")
+                n_full = n_full or int(got.n)
+                out[f"{label} {fold} {cap}"] = dict(
+                    n=int(got.n), card_s=t_card, **{rank: counts[rank]})
+        log(f"  folds {label}: |a|={int(a.n)} |b|={int(b.n)} bit-exact "
+            f"against the CPU copies")
+    log("  folds: " + json.dumps(out))
+    return out
+
+
+def txn_phase(edges, nv, update_batch, seed, built):
+    """Transactions on the card: restore and lockstep, faults, the
+    composite form, §5.4 and the public folds.  Returns the kernel counts
+    of the sessions and BiGJoin runs (the folds' checks excluded)."""
+    total = {}
+    ratio = 8 * update_batch / edges.shape[0]
+    steps = (("edge", lambda: txn_edge(edges, nv, update_batch, ratio,
+                                       seed, total)),
+             ("nary", lambda: txn_nary(seed, update_batch, total)),
+             ("§5.4", lambda: opt_phase(seed, total)),
+             ("folds", lambda: public_folds_phase(
+                 edges, built["tri"][1], seed)))
+    for label, fn in steps:
+        _, secs = timed(fn)
+        log(f"  txn step {label}: {secs:.2f} s")
+    log(f"  txn launches: {json.dumps(total)}")
+    return total
+
+
+EXAMPLE_TWINS = ("torch_quickstart", "torch_incremental_motifs",
+                 "torch_multi_relation", "torch_train_gnn_with_motifs")
+
+
+def examples_phase() -> None:
+    """Every example twin in a process of its own on the card, all at
+    once: each must exit 0 and print its "✓" lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = {}
+    try:
+        for name in EXAMPLE_TWINS:
+            procs[name] = (time.time(), subprocess.Popen(
+                [sys.executable, os.path.join(root, "examples",
+                                              f"{name}.py")],
+                env=env, cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        bad = []
+        for name, (t0, p) in procs.items():
+            out, err = p.communicate(timeout=600)
+            checks = [ln for ln in out.splitlines() if "✓" in ln]
+            log(f"  example {name}: rc {p.returncode}, "
+                f"{time.time() - t0:.2f} s, {len(checks)} ✓ lines")
+            for ln in checks[-3:]:
+                log(f"    {ln}")
+            if p.returncode != 0 or not checks:
+                bad.append(name)
+                log(f"    stderr: {err[-2000:]}")
+        if bad:
+            raise AssertionError(f"examples failed: {bad}")
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: GNN training (motif features -> sampler -> GNN with
 # segment_sum -> loss -> autograd -> AdamW -> checkpoint)
 # ---------------------------------------------------------------------------
 
@@ -2108,7 +2545,7 @@ def train_archs_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 9-10 and the flash rows of phase 3: the LM serving path (gemma2-2b;
+# phases 11-12 and the flash rows of phase 3: the LM serving path (gemma2-2b;
 # prefill and KV-cache decode through the flash-attention kernel)
 # ---------------------------------------------------------------------------
 
@@ -2959,6 +3396,18 @@ def main() -> int:
                                     ub, ratio, args.seed)
             for name in VARIANTS:
                 launches[name] += serve["launches"][name]
+
+    # transactions at the serve 20:triangle cell's size, then the example
+    # twins, each in a process of its own
+    with phase("txn"):
+        top = graphs.get(20)
+        if top is None:
+            top = rmat_graph(20, 16, seed=args.seed)
+        counts = txn_phase(top, 1 << 20, args.update_batch, args.seed, built)
+        for name in VARIANTS:
+            launches[name] += counts.get(name, 0)
+    with phase("examples"):
+        examples_phase()
 
     # the GNN training path, segment_sum's kernel rows from the full-width
     # phase at the trainer's shape; then the LM serving path

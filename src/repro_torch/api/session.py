@@ -9,7 +9,10 @@ query → ONE commit per epoch off the shared regions.
 
 Everything runs on the card (``device="cuda"``, the default) unless the
 caller asks for the CPU, where every kernel wrapper takes its plain
-version.  Only the local (single-device) session is ported.
+version.  Only the local (single-device) session is ported.  An update is
+a transaction (a failure rolls the store back to the epoch boundary), and
+:meth:`GraphSession.snapshot` / :meth:`GraphSession.restore` carry a
+session's state in the JAX package's snapshot format, either way.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.api.dsl import parse_pattern
+from repro_torch.api.dsl import parse_pattern, pattern_of
 from repro_torch.core import delta as _delta
 from repro_torch.core.bigjoin import BigJoinConfig, run_bigjoin
 from repro_torch.core.csr import pow2_capacity, resolve_device
@@ -211,6 +214,10 @@ class GraphSession:
         self.handles[name] = handle
         return handle
 
+    def query_by_name(self, name: str) -> QueryHandle:
+        """Fetch a registered handle; registers the named motif on miss."""
+        return self.handles.get(name) or self.register(name)
+
     def __getitem__(self, name: str) -> QueryHandle:
         return self.handles[name]
 
@@ -294,6 +301,47 @@ class GraphSession:
         for name, h in self.handles.items():
             h._deliver(self.epoch, deltas[name])
         return EpochResult(self.epoch, e_ins, e_dels, deltas, batches)
+
+    # -- durability ---------------------------------------------------------
+    def snapshot(self) -> Tuple[List[np.ndarray], dict]:
+        """The session's state as ``(leaves, meta)``: the store's
+        (``RegionStore.snapshot``) plus, under ``meta["session"]``, the
+        epoch counter and every handle (its DSL pattern and
+        ``net_change``) — the JAX session's format, ``w`` 1 and ``local``
+        true.  Save it with ``repro_torch.checkpoint.save_pytree(leaves,
+        ..., extra=meta)``."""
+        leaves, meta = self.store.snapshot()
+        meta["session"] = {
+            "epoch": int(self.epoch),
+            "w": 1,
+            "local": True,
+            "update_batch": int(self.update_batch),
+            "handles": {name: {"pattern": pattern_of(h.query),
+                               "net_change": int(h.net_change)}
+                        for name, h in self.handles.items()},
+        }
+        return leaves, meta
+
+    def restore(self, leaves: List[np.ndarray], meta: dict) -> None:
+        """Restore a :meth:`snapshot` (of either package's local session)
+        in place: the store's regions and ratchet marks, then the epoch
+        and every handle, re-registered from its pattern with its
+        ``net_change``.  A handle already registered under the same name
+        keeps its object and subscribers."""
+        sess = meta.get("session", {})
+        w = int(sess.get("w", 1))
+        if w != 1:
+            raise ValueError(
+                f"snapshot was taken on a {w}-worker session; this one has "
+                "1 workers — failover restores onto the same mesh width")
+        if not bool(sess.get("local", True)):
+            raise ValueError("snapshot engine mode (local/mesh) mismatch")
+        self.store.restore(leaves, meta)
+        self.epoch = int(sess.get("epoch", 0))
+        for name, rec in sess.get("handles", {}).items():
+            h = self.register(rec["pattern"], name=name)
+            h.net_change = int(rec["net_change"])
+            h.last_delta = None
 
     # -- static evaluation over the shared regions --------------------------
     def _static_plan(self, q: Query) -> Plan:

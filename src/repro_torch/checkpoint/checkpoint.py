@@ -11,7 +11,10 @@ The JAX package's on-disk layout:
     checkpoint, skipping corrupt ones.
 
 Leaves are tensors (restored onto the template leaf's device), numpy
-arrays, or Python ints (an optimizer's step counter).
+arrays, or Python ints (an optimizer's step counter), in dicts and lists
+named as the JAX package names them (``['key']``, ``[0]``), so either
+package reads the other's checkpoints; a store snapshot's list of leaves
+comes back through :meth:`CheckpointManager.restore_latest_raw`.
 """
 from __future__ import annotations
 
@@ -26,11 +29,17 @@ import torch
 
 
 def _flatten(tree, path=""):
-    """(keystr, leaf) pairs of a nested dict, keys sorted at every level."""
+    """(keystr, leaf) pairs of nested dicts and lists, dict keys sorted at
+    every level."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += _flatten(tree[k], f"{path}[{k!r}]")
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, x in enumerate(tree):
+            out += _flatten(x, f"{path}[{i}]")
         return out
     return [(path, tree)]
 
@@ -41,6 +50,8 @@ def _unflatten(template, leaves):
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
         return next(it)
     return build(template)
 
@@ -170,6 +181,17 @@ class CheckpointManager:
             path = os.path.join(self.directory, f"ckpt_{s:010d}")
             try:
                 return load_pytree(template, path)
+            except (IOError, ValueError):
+                continue
+        return None
+
+    def restore_latest_raw(self):
+        """Newest intact checkpoint as ``(leaves, manifest)`` — no
+        template (see :func:`load_raw`); None when nothing restorable."""
+        for s in reversed(self.all_steps()):
+            path = os.path.join(self.directory, f"ckpt_{s:010d}")
+            try:
+                return load_raw(path)
             except (IOError, ValueError):
                 continue
         return None

@@ -55,6 +55,19 @@ def pow2_capacity(n: int) -> int:
     return round_capacity(1 << max(int(n) - 1, 0).bit_length())
 
 
+def capacity_ladder(lo: int, hi: int) -> list:
+    """All :func:`pow2_capacity` rungs covering live sizes in [lo, hi]:
+    the capacities a buffer can take while its live size stays in the
+    range (``pow2_capacity`` maps any size in (rung/2, rung] to rung)."""
+    lo_cap, hi_cap = pow2_capacity(lo), pow2_capacity(max(hi, lo))
+    rungs = []
+    c = lo_cap
+    while c <= hi_cap:
+        rungs.append(c)
+        c = pow2_capacity(c + 1)
+    return rungs
+
+
 @dataclasses.dataclass
 class IndexData:
     """One sorted (key[, lo], val) extension index.
@@ -258,6 +271,19 @@ def index_range(idx: IndexData, qkey: PackedKey
     return start.to(torch.int32), (end - start).to(torch.int32)
 
 
+def index_count(idx: IndexData, qkey: PackedKey) -> torch.Tensor:
+    """Extension count of each packed key [B], int32."""
+    return index_range(idx, qkey)[1]
+
+
+def index_kth(idx: IndexData, start: torch.Tensor, k: torch.Tensor
+              ) -> torch.Tensor:
+    """k-th extension given the range start (no bounds check: the caller
+    masks; positions clamp into the capacity)."""
+    pos = (start.long() + k.long()).clamp(0, idx.capacity - 1)
+    return idx.val[pos]
+
+
 def search_depth(cap: int) -> int:
     """Iterations of the fixed-depth binary search over ``cap`` entries
     (+1: an interval of length 1 still needs one comparison)."""
@@ -414,6 +440,25 @@ def _select_core(a: IndexData, b: IndexData, capacity: int, keep_in_b: bool,
     if out_lo is not None:
         _scatter_drop(out_lo, pos, a.lo)
     return IndexData(out_k, out_v, k.sum(dtype=torch.int32), out_lo)
+
+
+# The public folds: the tensors' device picks the path (merge ranks through
+# the rank kernel, 1-word or composite, on CUDA; the plain search on CPU).
+
+def merge_index(a: IndexData, b: IndexData, capacity: int) -> IndexData:
+    """Sorted union a ∪ b at static ``capacity`` (see :func:`_merge_core`)."""
+    return _merge_core(a, b, capacity)
+
+
+def diff_index(a: IndexData, b: IndexData, capacity: int) -> IndexData:
+    """Sorted difference a \\ b at static ``capacity``."""
+    return _select_core(a, b, capacity, False)
+
+
+def intersect_index(a: IndexData, b: IndexData, capacity: int) -> IndexData:
+    """Sorted intersection a ∩ b at static ``capacity`` (probe-sized:
+    O(|a|·log|b|))."""
+    return _select_core(a, b, capacity, True)
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,14 @@ LSM keyed on the full row: arity 3-4 rows pack into the composite (hi, lo)
 word pair, so their regions carry the ``lo`` word and every kernel runs its
 composite variant.  Projections that do not cover a relation's full row are
 DERIVED from its live rows on demand instead of folded (see
-:class:`_Regions`).  One device only; the mesh, snapshots, faults and
-prewarm come later.
+:class:`_Regions`).
+
+A commit is atomic (stage, then swap), the ``store.normalize`` and
+``store.commit.fold`` fault points (:mod:`repro_torch.faults`) fire where
+the JAX store fires them, and :meth:`RegionStore.snapshot` /
+:meth:`RegionStore.restore` write and read the JAX store's snapshot format,
+so a session's state moves between the packages.  One device only; the
+mesh and prewarm come later.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch.core import csr
 from repro_torch.core.bigjoin import (BigJoinConfig, Indices, JoinResult,
                                       run_bigjoin)
@@ -50,7 +57,7 @@ from repro_torch.core.dataflow_index import VersionedIndex
 from repro_torch.core.plan import Plan, make_delta_plan
 from repro_torch.core.query import EDGE, Query, delta_queries
 from repro_torch.errors import (CapacityOverflow, ESCALATES_BATCH,
-                                ESCALATES_OUT)
+                                ESCALATES_OUT, SnapshotError)
 from repro_torch.kernels.intersect.ops import member
 from repro_torch.kernels.merge.fold import commit_fold
 
@@ -723,6 +730,7 @@ class RegionStore:
     def normalize_prepared(self, prep: PreparedBatch) -> Dict:
         """Stage B: net the prepared batch against the live set on device.
         Returns ``{rel: (ins, dels)}``."""
+        faults.fire("store.normalize")
         self.stats.normalize_calls += 1
         return {rel: self._normalize_device(rel, *prep.rels[rel])
                 for rel in prep.raw}
@@ -895,8 +903,9 @@ class RegionStore:
         and advance the live set — once per epoch, shared by every query.
 
         Stage-then-swap: every fold output is computed first and the store
-        is mutated only after all folds succeeded, so a failure leaves it
-        at the epoch boundary for :meth:`rollback`."""
+        is mutated only after all folds succeeded, so a failure (an
+        injected ``store.commit.fold`` fault) leaves it at the epoch
+        boundary for :meth:`rollback`; the swap has no fault point."""
         if self._staged is None:
             # raw commit without begin_epoch: net the args first
             raw = self._as_batches(ins, dels)
@@ -915,6 +924,7 @@ class RegionStore:
             if not (r_ins.size or r_dels.size):
                 continue
             st = self._rel(rel)
+            faults.fire("store.commit.fold")
             li = _packed_index(r_ins, self.device, st.arity,
                                capacity=self._delta_cap(rel, r_ins.shape[0]))
             self.ratchet.observe(("delta", rel), li.key.shape[-1])
@@ -940,6 +950,7 @@ class RegionStore:
                 continue
             if not (r_ins.size or r_dels.size):
                 continue  # untouched relation: regions pass through
+            faults.fire("store.commit.fold")
             need = max(reg.n_cins + _count_of(reg.d_uins),
                        reg.n_cdel + _count_of(reg.d_udel))
             cc = self._committed_cap(reg.rel, need)
@@ -948,7 +959,7 @@ class RegionStore:
                 cins_cap=cc, cdel_cap=cc)
             staged_projs.append((reg, d_cins, d_cdel, r_ins[:0],
                                  r_dels[:0]))
-        # ---- swap: pure host assignments ----------------------------------
+        # ---- swap: pure host assignments, no fault points -----------------
         self._staged = None
         for st, new_ci, new_cd, n_live in staged_rels:
             st.lc_ins, st.lc_del = new_ci, new_cd
@@ -976,6 +987,149 @@ class RegionStore:
             empty = np.zeros((0, reg.arity), np.int32)
             reg.set_uncommitted(empty, empty)
         self.stats.rollbacks += 1
+
+    # -- durability: the JAX store's snapshot format ----------------------
+    SNAPSHOT_FORMAT = 1
+
+    @staticmethod
+    def _index_parts(idx: IndexData):
+        parts = [("key", idx.key), ("val", idx.val), ("n", idx.n)]
+        if idx.lo is not None:
+            parts.append(("lo", idx.lo))
+        return parts
+
+    def snapshot(self) -> Tuple[List[np.ndarray], dict]:
+        """The store's state as ``(leaves, meta)``: host numpy leaves in
+        ``meta["names"]`` order and a JSON-safe ``meta``, leaf for leaf and
+        key for key the JAX store's ``snapshot()`` (``shard_w`` 0), so
+        either package restores the other's.
+
+        Per relation (sorted): the live set's three regions
+        ``rel/<rel>/{lb,lc_ins,lc_del}.{key,val,n[,lo]}`` and its counts;
+        per non-derived projection (sorted by ``repr`` of its key):
+        ``proj/<i>/{d_base,d_cins,d_cdel}.*`` and its counts; both ratchets'
+        marks and the epoch counters.  Only at an epoch boundary: the
+        staged batch is transient."""
+        if self._staged is not None:
+            raise SnapshotError(
+                "snapshot mid-epoch: commit (or rollback) the staged batch "
+                "first — snapshots are epoch-boundary consistent")
+        leaves: List[np.ndarray] = []
+        names: List[str] = []
+
+        def emit(prefix, idx):
+            for suffix, t in self._index_parts(idx):
+                names.append(f"{prefix}.{suffix}")
+                # a copy even on the host: the leaves share no memory
+                # with the store's tensors
+                leaves.append(t.to("cpu", copy=True).numpy())
+
+        meta_rels = {}
+        for rel in sorted(self._rels):
+            st = self._rels[rel]
+            for region, idx in (("lb", st.lb), ("lc_ins", st.lc_ins),
+                                ("lc_del", st.lc_del)):
+                emit(f"rel/{rel}/{region}", idx)
+            meta_rels[rel] = {"arity": st.arity,
+                              "n_live": [int(n) for n in st.n_live]}
+        projs = []
+        for i, (_, reg) in enumerate(
+                sorted(self.projections.items(), key=lambda kv: repr(kv[0]))):
+            spec = {"rel": reg.rel, "key_pos": list(reg.key_pos),
+                    "ext_pos": int(reg.ext_pos),
+                    "rel_arity": int(reg.rel_arity),
+                    "narrow": bool(reg.narrow),
+                    "derived": bool(reg.derived)}
+            if not reg.derived:
+                for region in ("d_base", "d_cins", "d_cdel"):
+                    emit(f"proj/{i}/{region}", getattr(reg, region))
+                spec["n_base"] = int(reg.n_base)
+                spec["n_cins"] = int(reg.n_cins)
+                spec["n_cdel"] = int(reg.n_cdel)
+            projs.append(spec)
+
+        def marks(ratchet):
+            return [[list(k), v] for k, v in
+                    sorted(ratchet.marks().items(),
+                           key=lambda kv: repr(kv[0]))]
+
+        meta = {
+            "format": self.SNAPSHOT_FORMAT,
+            "shard_w": 0,
+            "compact_ratio": float(self.compact_ratio),
+            "rels": meta_rels,
+            "projections": projs,
+            "ratchet": marks(self.ratchet),
+            "base_ratchet": marks(self.base_ratchet),
+            "stats": {f: getattr(self.stats, f) for f in
+                      ("normalize_calls", "commit_calls", "compactions",
+                       "epochs", "live_compactions")},
+            "names": names,
+        }
+        return leaves, meta
+
+    def restore(self, leaves: List[np.ndarray], meta: dict) -> None:
+        """Replace this store's state by a :meth:`snapshot` (of either
+        package), in place, every tensor on ``self.device``.  Engines
+        resolve their regions through :meth:`indices_for` each run, so
+        they read the restored state without a rebuild."""
+        if meta.get("format") != self.SNAPSHOT_FORMAT:
+            raise ValueError(
+                f"unknown snapshot format {meta.get('format')!r}")
+        if int(meta["shard_w"]) != 0:
+            raise ValueError(
+                f"snapshot was taken on a shard_w={meta['shard_w']} store; "
+                "this store has shard_w=0 — restore onto the same mesh "
+                "width")
+        by_name = dict(zip(meta["names"], leaves))
+        if len(by_name) != len(meta["names"]) or \
+                len(leaves) != len(meta["names"]):
+            raise ValueError("snapshot leaves do not match meta['names']")
+        dev = self.device
+
+        def pull(prefix) -> IndexData:
+            lo = by_name.get(f"{prefix}.lo")
+            return IndexData(
+                *(torch.tensor(np.asarray(by_name[f"{prefix}.{part}"]),
+                               device=dev) for part in ("key", "val", "n")),
+                None if lo is None else torch.tensor(np.asarray(lo),
+                                                     device=dev))
+
+        # ratchet marks first (JSON lists back to tuple keys): the empty
+        # uncommitted regions built below land on the snapshot's rungs
+        for ratchet, recs in ((self.ratchet, meta["ratchet"]),
+                              (self.base_ratchet, meta["base_ratchet"])):
+            ratchet.reset()
+            for key, cap in recs:
+                ratchet.observe(tuple(key), int(cap))
+        self._staged = None
+        self._rels = {}
+        for rel, rec in meta["rels"].items():
+            st = _RelLive(arity=int(rec["arity"]))
+            st.lb = pull(f"rel/{rel}/lb")
+            st.lc_ins = pull(f"rel/{rel}/lc_ins")
+            st.lc_del = pull(f"rel/{rel}/lc_del")
+            st.n_live = [int(n) for n in rec["n_live"]]
+            self._rels[rel] = st
+        self.projections = {}
+        for i, spec in enumerate(meta["projections"]):
+            reg = _Regions(tuple(spec["key_pos"]), int(spec["ext_pos"]),
+                           rel=spec["rel"], rel_arity=int(spec["rel_arity"]),
+                           narrow=bool(spec["narrow"]),
+                           derived=bool(spec["derived"]), _store=self)
+            if not reg.derived:
+                reg.d_base = pull(f"proj/{i}/d_base")
+                reg.d_cins = pull(f"proj/{i}/d_cins")
+                reg.d_cdel = pull(f"proj/{i}/d_cdel")
+                reg.n_base = int(spec["n_base"])
+                reg.n_cins = int(spec["n_cins"])
+                reg.n_cdel = int(spec["n_cdel"])
+                empty = np.zeros((0, reg.arity), np.int32)
+                reg.set_uncommitted(empty, empty)
+            self.projections[(spec["rel"], tuple(spec["key_pos"]),
+                              int(spec["ext_pos"]))] = reg
+        for f, v in meta["stats"].items():
+            setattr(self.stats, f, int(v))
 
 
 class DeltaBigJoin:

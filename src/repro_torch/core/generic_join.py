@@ -1,7 +1,11 @@
 """Serial Generic Join (§2.2) — numpy implementation.
 
 The *oracle* every dataflow of the port is tested against: a host-only,
-framework-free evaluation of the same plans over the same packed keys.
+framework-free evaluation of the same plans over the same packed keys;
+and, copied from the JAX package, the baselines of the paper's
+comparisons: the *edge-at-a-time* binary join (§1.2.1), whose
+intermediate results blow up where Generic Join's cannot, and the
+single-threaded triangle count of the COST experiment (Fig 4).
 """
 from __future__ import annotations
 
@@ -241,3 +245,125 @@ def generic_join(query: Query, relations: Dict[str, np.ndarray],
     perm = np.argsort(np.asarray(plan.attr_order))
     result = prefix[:, perm] if enumerate_results else prefix[:0]
     return result.astype(np.int32), int(prefix.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Edge-at-a-time (binary join) baseline — §1.2.1.
+# ---------------------------------------------------------------------------
+
+class IntermediateBlowup(RuntimeError):
+    pass
+
+
+def binary_join(query: Query, relations: Dict[str, np.ndarray],
+                max_intermediate: int = 50_000_000,
+                ) -> Tuple[np.ndarray, int, int]:
+    """Left-deep binary join in a greedy connected atom order.
+
+    Returns (results, count, peak_intermediate).  Raises IntermediateBlowup
+    if any intermediate exceeds ``max_intermediate`` rows — the failure mode
+    the paper's worst-case-optimal approach provably avoids.
+    """
+    atoms = list(query.atoms)
+    order = [0]
+    bound = set(atoms[0].attrs)
+    remaining = set(range(1, len(atoms)))
+    while remaining:
+        nxt = max(remaining,
+                  key=lambda i: len(set(atoms[i].attrs) & bound))
+        if not set(atoms[nxt].attrs) & bound:
+            raise ValueError("disconnected query")
+        order.append(nxt)
+        bound |= set(atoms[nxt].attrs)
+        remaining.discard(nxt)
+
+    first = atoms[order[0]]
+    cur = np.asarray(relations[first.rel], np.int64)
+    cur_attrs = list(first.attrs)
+    peak = cur.shape[0]
+    for oi in order[1:]:
+        atom = atoms[oi]
+        rel = np.asarray(relations[atom.rel], np.int64)
+        shared = [a for a in atom.attrs if a in cur_attrs]
+        new = [a for a in atom.attrs if a not in cur_attrs]
+        kc = [cur_attrs.index(a) for a in shared]
+        kr = [atom.attrs.index(a) for a in shared]
+
+        def pk(arr, cols):
+            key = arr[:, cols[0]].astype(np.int64)
+            for c in cols[1:]:
+                key = (key << 21) | arr[:, c].astype(np.int64)
+            return key
+
+        ck, rk = pk(cur, kc), pk(rel, kr)
+        srt = np.argsort(rk, kind="stable")
+        rk_s, rel_s = rk[srt], rel[srt]
+        s = np.searchsorted(rk_s, ck, "left")
+        e = np.searchsorted(rk_s, ck, "right")
+        cnt = e - s
+        total = int(cnt.sum())
+        peak = max(peak, total)
+        if total > max_intermediate:
+            raise IntermediateBlowup(
+                f"intermediate of {total} rows exceeds cap "
+                f"{max_intermediate} at atom {atom}")
+        row = np.repeat(np.arange(cur.shape[0]), cnt)
+        cum = np.concatenate([[0], np.cumsum(cnt)])
+        k = np.arange(total) - cum[row]
+        match = rel_s[s[row] + k]
+        new_cols = [match[:, atom.attrs.index(a)][:, None] for a in new]
+        cur = np.concatenate([cur[row]] + new_cols, axis=1)
+        cur_attrs = cur_attrs + new
+    for f in query.filters:
+        keep = cur[:, cur_attrs.index(f.lo)] < cur[:, cur_attrs.index(f.hi)]
+        cur = cur[keep]
+    perm = [cur_attrs.index(a) for a in range(query.num_attrs)]
+    out = cur[:, perm]
+    out = np.unique(out, axis=0)  # binary joins can duplicate under dedup'd
+    return out.astype(np.int32), int(out.shape[0]), peak
+
+
+# ---------------------------------------------------------------------------
+# Optimized single-threaded triangle count (COST baseline, Fig 4).
+# ---------------------------------------------------------------------------
+
+def fast_triangle_count(edges: np.ndarray) -> int:
+    """Degree-ordered merge-intersection triangle counting; vectorized numpy.
+
+    Counts triangles of the *undirected* graph induced by ``edges`` (the
+    standard COST formulation).
+    """
+    e = np.asarray(edges, np.int64)
+    lo = np.minimum(e[:, 0], e[:, 1])
+    hi = np.maximum(e[:, 0], e[:, 1])
+    keep = lo != hi
+    e = np.unique(np.stack([lo[keep], hi[keep]], 1), axis=0)
+    nv = int(e.max()) + 1 if e.size else 0
+    deg = np.bincount(e.reshape(-1), minlength=nv)
+    rank = np.empty(nv, np.int64)
+    rank[np.lexsort((np.arange(nv), deg))] = np.arange(nv)
+    a, b = rank[e[:, 0]], rank[e[:, 1]]
+    src = np.minimum(a, b)
+    dst = np.maximum(a, b)
+    order = np.lexsort((dst, src))
+    src, dst = src[order], dst[order]
+    packed = (src << 32) | dst
+    # For each edge (u,v): |N+(u) ∩ N+(v)| via membership probes of the
+    # smaller out-neighborhood against packed edges.
+    starts = np.searchsorted(src, np.arange(nv), "left")
+    ends = np.searchsorted(src, np.arange(nv), "right")
+    cnt_u = ends[src] - starts[src]
+    cnt_v = ends[dst] - starts[dst]
+    small_is_u = cnt_u <= cnt_v
+    probe_n = np.where(small_is_u, cnt_u, cnt_v)
+    probe_start = np.where(small_is_u, starts[src], starts[dst])
+    other = np.where(small_is_u, dst, src)
+    total = int(probe_n.sum())
+    row = np.repeat(np.arange(src.shape[0]), probe_n)
+    cum = np.concatenate([[0], np.cumsum(probe_n)])
+    k = np.arange(total) - cum[row]
+    w = dst[probe_start[row] + k]
+    q = (other[row].astype(np.int64) << 32) | w
+    pos = np.searchsorted(packed, q)
+    pos_c = np.minimum(pos, len(packed) - 1)
+    return int((packed[pos_c] == q).sum())

@@ -1,7 +1,8 @@
 """Synthetic data — deterministic numpy generators (framework-free).
 
 The streaming session's inputs: ``rmat_graph`` (skewed power-law degrees,
-Graph500 parameters) and the dirty :class:`EdgeUpdateStream`; the GNN
+Graph500 parameters), the dirty :class:`EdgeUpdateStream` and the clean,
+net-balanced :func:`clean_update_batches` of the serving pool; the GNN
 trainer's graph, ``uniform_graph``; the LM's token batches,
 :class:`TokenStream`.  All are pure functions of their seed, so any run
 can re-derive any epoch's batch.
@@ -122,3 +123,40 @@ class EdgeUpdateStream:
         w = np.concatenate([np.ones(n_ins, np.int32),
                             -np.ones(upd.shape[0] - n_ins, np.int32)])
         return upd, w
+
+
+def clean_update_batches(edges: np.ndarray, num_vertices: int,
+                         batch_size: int, epochs: int, seed: int = 0):
+    """Pre-generate ``epochs`` CLEAN, net-balanced edge-update batches.
+
+    Clean = sign-consistent at its point in the stream: every delete names
+    a then-live edge, every insert a then-absent one, no duplicates inside
+    a batch.  Two properties follow that the dirty
+    :class:`EdgeUpdateStream` deliberately lacks (serving contract,
+    DESIGN.md §9): (a) concatenating consecutive clean batches and
+    normalizing ONCE nets to the same state as applying them one at a time
+    — what makes the serving pool's adaptive coalescing exact — and (b)
+    the live count stays pinned at ``|edges|`` (each batch deletes and
+    inserts ``batch_size // 2``), so the base region never outgrows its
+    pow2 rung and the post-prewarm zero-compile budget holds for streams
+    of any length.  Returns ``[(rows [B,2], weights [B]), ...]``.
+    """
+    rng = np.random.default_rng(seed * 7_654_321 + 17)
+    live = {(int(u), int(v))
+            for u, v in np.asarray(edges, np.int32).reshape(-1, 2)}
+    half = batch_size // 2
+    out = []
+    for _ in range(epochs):
+        dels = [live.pop() for _ in range(min(half, len(live) - 1))]
+        ins = []
+        while len(ins) < half:
+            u, v = rng.integers(0, num_vertices, 2)
+            e = (int(u), int(v))
+            if u != v and e not in live:
+                live.add(e)
+                ins.append(e)
+        rows = np.array(dels + ins, np.int32)
+        w = np.concatenate([-np.ones(len(dels), np.int32),
+                            np.ones(len(ins), np.int32)])
+        out.append((rows, w))
+    return out

@@ -14,8 +14,8 @@ dispatch on:
   staged epoch;
 - :class:`WalError` / :class:`SnapshotError` type the durability paths so
   the serving pool can retry/degrade instead of killing a tenant;
-- :class:`FaultInjected` is raised by fault points — the deterministic
-  chaos harness (its registry is not ported yet).
+- :class:`FaultInjected` is raised by :mod:`repro_torch.faults` fault
+  points — the deterministic chaos harness.
 
 Every class subclasses :class:`RuntimeError`: pre-existing callers that
 caught ``RuntimeError`` keep working unchanged.
@@ -90,7 +90,8 @@ class SnapshotError(ReproError):
 
 
 class FaultInjected(ReproError):
-    """Raised by a fault point when its schedule fires."""
+    """Raised by a :mod:`repro_torch.faults` fault point when its schedule
+    fires."""
 
     def __init__(self, point: str, hit: int):
         self.point = point

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, the example twins
+(``examples/torch_*.py``) and ``chip_smoke.py`` import neither ``jax`` nor
+the JAX package ``repro``."""
 import json
 import os
 import re
@@ -15,16 +16,23 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .replace(".__init__", "")
     for p in PKG.rglob("*.py"))
+TWINS = sorted(p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "examples").glob("torch_*.py"))
 
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 
 def test_every_module_imports_without_jax_or_repro():
+    assert len(TWINS) == 4, TWINS
     code = (
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
+        "import importlib.util as u\n"
+        f"for p in {TWINS!r}:\n"
+        "    s = u.spec_from_file_location(p.split('/')[-1][:-3], p)\n"
+        "    s.loader.exec_module(u.module_from_spec(s))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps(bad))\n")
@@ -37,7 +45,7 @@ def test_every_module_imports_without_jax_or_repro():
 
 @pytest.mark.parametrize(
     "path", [p.relative_to(ROOT).as_posix() for p in sorted(PKG.rglob("*.py"))]
-    + ["chip_smoke.py"])
+    + TWINS + ["chip_smoke.py"])
 def test_source_has_no_jax_or_repro_import(path):
     src = (ROOT / path).read_text()
     assert not _FORBIDDEN.findall(src), path
