@@ -40,8 +40,10 @@ Phases, in order, each printed with its result and seconds:
               the check must reject, with compiled flex_attention's or
               scaled_dot_product_attention's time beside them;
 4. verify   — a GraphSession over dirty update epochs, one cell per
-              (scale, queries): each epoch's signed delta equal to the numpy
-              oracle (full recomputation), compaction included.  A cell
+              (scale, queries), each cell in a process of its own
+              (``--verify-only``), all started together: each epoch's
+              signed delta equal to the numpy oracle (full
+              recomputation), compaction included.  A cell
               naming an n-ary query (``4-clique-tri``, ``5-clique-quad``)
               materialises its relation from the feeding query
               (``triangle``, ``4-clique``), feeds it that query's delta every
@@ -70,12 +72,27 @@ Phases, in order, each printed with its result and seconds:
               on the card against the same calls on CPU copies, bit for
               bit, over the scale-20 edge set and the scale-14 ``tri``
               rows, at a capacity below the union too;
-7. examples — every ``examples/torch_*.py`` twin in a process of its own
+7. pool     — serving: four tenants (R-MAT scale 18 each) on one
+              ``SessionPool(device="cuda")`` with a fsynced WAL and a
+              snapshot every 4 epochs under ``build/pool``; three take
+              12 dirty batches of 2,048 at coalesce 1, one bursts of 8
+              clean batches of 256 at coalesce 8; every epoch's delta
+              equal to an isolated session's fed the batches the
+              tenant's WAL logged, every session kernel launched by the
+              apply thread alone, no compile event after admission; one
+              tenant recovered from its directory (snapshot + WAL) equal
+              to the uninterrupted one; updates/s, apply and prep ms,
+              queue depth, restore and replay seconds, peak memory and
+              the idle share of a profiled window; and, in processes of
+              their own, ``_serve_check --supervise`` and ``--chaos``,
+              ``launch.serve`` (stream, concurrent, gemma2-2b) and
+              ``launch.run_query --mode delta``;
+8. examples — every ``examples/torch_*.py`` twin in a process of its own
               on the card: exit 0 and its "✓" lines;
-8. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
+9. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
               defaults to step 10, relaunched to step 20: it resumes from
               its checkpoint and ends with a finite loss;
-9. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
+10. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
               shape) on a 232,965-node graph: triangle features from the
               port's BiGJoin on the card, sampled union graphs, the
               segment_sum kernel against its plain version at that shape
@@ -84,13 +101,13 @@ Phases, in order, each printed with its result and seconds:
               equal), the first step against the host's, then
               6 steps: step ms, peak memory, idle share of a profiled step,
               2 segment_sum launches per layer and step;
-10. train archs — one step of each GNN arch at smoke width and of a
+11. train archs — one step of each GNN arch at smoke width and of a
               graph_reg batch, the card's loss against the host's;
-11. lm verify — the LM transformer on the card against the host, f32 on
+12. lm verify — the LM transformer on the card against the host, f32 on
               both: the yi-34b, gemma-7b and gemma2-2b smoke configs
               (forward, loss, prefill, 4 decode steps) and gemma2-2b at
               full width and depth 2 on a 4,160-token request;
-12. lm serve gemma2-2b — full width and depth, bf16, random parameters
+13. lm serve gemma2-2b — full width and depth, bf16, random parameters
               from the seed: 4 prompts of 8,192 tokens, prefill and 32
               greedy decode steps, 3 rounds (1 cold) and one profiled
               prefill and decode step; decode held against prefill; 26
@@ -1687,6 +1704,73 @@ def verify_phase(scale: int, names, epochs: int, update_batch: int,
     return counts
 
 
+def cell_spec(scale, queries, epochs, batch) -> str:
+    """The ``SCALE:query,query[@EPOCHS[/BATCH]]`` text of a cell."""
+    spec = f"{scale}:{','.join(queries)}"
+    if epochs or batch:
+        spec += f"@{epochs or ''}" + (f"/{batch}" if batch else "")
+    return spec
+
+
+VERIFY_LAUNCHES = "verify launches: "
+
+
+def verify_only(checks, update_batch: int, seed: int) -> int:
+    """``--verify-only``: the verify cells in this process, then their
+    launch counts summed, as one JSON line."""
+    from repro_torch.kernels import VARIANTS
+    total = {name: 0 for name in VARIANTS}
+    for scale, queries, epochs, batch in checks:
+        with phase(f"verify {cell_spec(scale, queries, epochs, batch)}"):
+            counts = verify_phase(scale, queries, epochs or 8,
+                                  batch or update_batch, seed)
+        for name in VARIANTS:
+            total[name] += counts[name]
+    log(VERIFY_LAUNCHES + json.dumps(total))
+    return 0
+
+
+def verify_cells(checks, update_batch: int, seed: int) -> dict:
+    """Every verify cell in a process of its own (``--verify-only``), all
+    started together: the cells are independent and bound by the host's
+    numpy oracle, so they overlap on the host's cores.  Each must exit 0
+    and print its launch counts; returns them summed."""
+    from concurrent.futures import ThreadPoolExecutor
+    procs = [(cell_spec(*c), subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--verify-only",
+         "--verify", cell_spec(*c), "--update-batch", str(update_batch),
+         "--seed", str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for c in checks]
+    try:
+        with ThreadPoolExecutor(len(procs)) as ex:
+            outs = list(ex.map(lambda sp: sp[1].communicate(timeout=900),
+                               procs))
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    total, bad = {}, []
+    for (spec, p), (out, err) in zip(procs, outs):
+        counts = None
+        for ln in out.splitlines():
+            if ln.startswith(VERIFY_LAUNCHES):
+                counts = json.loads(ln[len(VERIFY_LAUNCHES):])
+            else:
+                log(ln)
+        if p.returncode != 0 or counts is None:
+            bad.append(spec)
+            log(f"  verify {spec}: rc {p.returncode}; stderr: "
+                f"{err[-2000:]}")
+            continue
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    if bad:
+        raise AssertionError(f"verify cells failed: {bad}")
+    return total
+
+
 def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
                      built):
     """The n-ary path at a realistic state size: warm latency of the edge
@@ -2158,6 +2242,343 @@ def txn_phase(edges, nv, update_batch, seed, built):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving pool — four tenants on one card, WAL and snapshots
+# ---------------------------------------------------------------------------
+
+POOL_SCALE = 18  # four tenants hold the serve 20:triangle cell's edges
+POOL_TENANTS = 4
+POOL_EPOCHS = 12  # timed pipelined steps
+POOL_IDLE_STEPS = 3  # then a profiled window of about 2 s
+POOL_SNAPSHOT_EVERY = 4
+POOL_BURST = (8, 256)  # the coalescing tenant: 8 clean batches of 256
+POOL_RECOVER = "t0"  # 15 epochs: snapshot at 12, epochs 13-15 replayed
+# the subprocesses, each in a process of its own, all started together:
+# (label, module, arguments, what its output must show)
+POOL_CHILDREN = (
+    ("serve_check supervise", "repro_torch.serve._serve_check",
+     ["--supervise", "--tenants", "4", "--nv", "65536", "--ne", "1048576",
+      "--batch-size", "2048", "--update-batch", "2048", "--epochs", "12",
+      "--kill-at", "7"], '"all_exact": true'),
+    ("serve_check chaos", "repro_torch.serve._serve_check",
+     ["--chaos", "--tenants", "4", "--nv", "16384", "--ne", "262144",
+      "--batch-size", "512", "--update-batch", "512", "--epochs", "30",
+      "--tight-out", "32"], '"oracle_exact": true'),
+    ("serve stream", "repro_torch.launch.serve",
+     ["--stream", "--query", "triangle,diamond", "--scale", "12",
+      "--epochs", "4", "--verify"], "✓"),
+    ("serve concurrent", "repro_torch.launch.serve",
+     ["--concurrent", "2", "--query", "triangle", "--scale", "12",
+      "--epochs", "4", "--verify"], "✓"),
+    ("serve gemma2-2b", "repro_torch.launch.serve",
+     ["--arch", "gemma2-2b", "--steps", "8"], "decode:"),
+    ("run_query delta", "repro_torch.launch.run_query",
+     ["--mode", "delta", "--scale", "12", "--verify"], "recompute diff ✓"),
+)
+SESSION_OPS = ("repro_torch.kernels.intersect.ops",
+               "repro_torch.kernels.extend.ops",
+               "repro_torch.kernels.merge.fold",
+               "repro_torch.kernels.merge.ops")
+
+
+def launch_threads():
+    """Wrap the session kernels' launch counters so each launch also
+    records its thread's name; returns (counts by (kernel, thread),
+    undo)."""
+    import importlib
+    import threading
+    by_thread, undo = {}, []
+    for name in SESSION_OPS:
+        mod = importlib.import_module(name)
+        inner = mod.count_launch
+
+        def count(kernel, inner=inner):
+            inner(kernel)
+            key = (kernel, threading.current_thread().name)
+            by_thread[key] = by_thread.get(key, 0) + 1
+        mod.count_launch = count
+        undo.append((mod, inner))
+
+    def restore():
+        for mod, inner in undo:
+            mod.count_launch = inner
+    return by_thread, restore
+
+
+def require_apply_thread(by_thread: dict) -> None:
+    threads = sorted({t for (_k, t) in by_thread})
+    if threads != ["pool-apply"]:
+        raise AssertionError(f"pool: session kernels launched from "
+                             f"{threads}, not the apply thread alone")
+
+
+def start_children(root: str) -> dict:
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    return {label: (time.time(), subprocess.Popen(
+        [sys.executable, "-m", module] + args, env=env, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for label, module, args, _ in POOL_CHILDREN}
+
+
+def finish_children(procs: dict) -> dict:
+    """Wait for every child; each must exit 0 and print what its entry of
+    POOL_CHILDREN names.  Returns each child's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    want = {label: mark for label, _m, _a, mark in POOL_CHILDREN}
+
+    def wait(t0, p):  # each child's output and its own seconds
+        out, err = p.communicate(timeout=600)
+        return out, err, time.time() - t0
+
+    secs, bad = {}, []
+    try:
+        with ThreadPoolExecutor(len(procs)) as ex:
+            futs = {label: ex.submit(wait, t0, p)
+                    for label, (t0, p) in procs.items()}
+        for label, (_t0, p) in procs.items():
+            out, err, secs[label] = futs[label].result()
+            lines = out.strip().splitlines()
+            shown = [ln for ln in lines if want[label] in ln]
+            log(f"  pool child {label}: rc {p.returncode}, "
+                f"{secs[label]:.2f} s")
+            for ln in (shown or lines)[-2:]:
+                log(f"    {ln[:600]}")
+            if p.returncode != 0 or not shown:
+                bad.append(label)
+                log(f"    stderr: {err[-2000:]}")
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if bad:
+        raise AssertionError(f"pool children failed: {bad}")
+    return secs
+
+
+def pool_phase(update_batch: int, seed: int) -> dict:
+    """Four tenants on one ``SessionPool(device="cuda")``, WAL fsynced and
+    a snapshot every 4 epochs under ``build/pool``: t0-t2 dirty
+    ``EdgeUpdateStream`` batches at coalesce 1, t3 bursts of clean batches
+    at coalesce 8; every epoch's deltas against an isolated session fed
+    the batches the tenant's WAL logged; t0 recovered from its directory;
+    the serve-check harness and the launch drivers in processes of their
+    own.  Returns the kernel counts of the pool's serving."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import GraphSession
+    from repro_torch.core.delta import canon_arrays
+    from repro_torch.data.synthetic import (EdgeUpdateStream,
+                                            clean_update_batches, rmat_graph)
+    from repro_torch.serve import SessionPool, WriteAheadLog
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    durable = os.path.join(root, "build", "pool")
+    shutil.rmtree(durable, ignore_errors=True)
+    names = [f"t{i}" for i in range(POOL_TENANTS)]
+    nv = 1 << POOL_SCALE
+    per, size = POOL_BURST
+    total = (POOL_EPOCHS + POOL_IDLE_STEPS) * per
+    t0 = time.time()
+    with ThreadPoolExecutor(POOL_TENANTS) as ex:  # numpy frees the GIL
+        made = {n: ex.submit(rmat_graph, POOL_SCALE, 16, seed=seed + i)
+                for i, n in enumerate(names)}
+        graphs = {n: f.result() for n, f in made.items()}
+    secs = time.time() - t0
+    clean, t_clean = timed(lambda: iter(clean_update_batches(
+        graphs["t3"], nv, size, total, seed=seed + 3)))
+    streams = {n: EdgeUpdateStream(nv, update_batch, seed=seed + 10 + i)
+               for i, n in enumerate(names[:3])}
+    log(f"  pool: {POOL_TENANTS} graphs of R-MAT scale {POOL_SCALE}, "
+        f"|E| {[int(g.shape[0]) for g in graphs.values()]} in "
+        f"{secs:.2f} s; {total} clean batches in {t_clean:.2f} s")
+
+    logged = {n: [] for n in names}  # (epoch, batches) as the WAL holds it
+
+    def on_logged(name, epoch):
+        # the apply thread, right after the append: read the record back
+        with open(os.path.join(durable, name, "wal.log"), "rb") as f:
+            rec = WriteAheadLog._decode(f.read().splitlines()[-1])
+        if rec is None or rec[0] != epoch:
+            raise AssertionError(f"pool: {name}'s WAL tail is not epoch "
+                                 f"{epoch}")
+        logged[name].append(rec)
+
+    torch.cuda.reset_peak_memory_stats()
+    pool = SessionPool(device=DEVICE, update_batch=update_batch,
+                       durable_dir=durable, fsync=True,
+                       snapshot_every=POOL_SNAPSHOT_EVERY,
+                       on_logged=on_logged)
+    handles, per_tenant = {}, {}
+    for n in names:
+        h, t_admit = timed(lambda: pool.admit(
+            n, graphs[n], queries=("triangle",),
+            coalesce=per if n == "t3" else 1))
+        handles[n] = h
+        per_tenant[n] = {}
+        update = h.session.update
+
+        def counted_update(*a, _update=update, _total=per_tenant[n], **kw):
+            before = kernels.launches()
+            try:
+                return _update(*a, **kw)
+            finally:
+                after = kernels.launches()
+                add_counts(_total, {k: after[k] - before[k] for k in after})
+        h.session.update = counted_update
+        log(f"  pool: admitted {n} in {t_admit:.2f} s "
+            f"({h.stats.prewarm_compiles} compile events)")
+    lives = {n: np.asarray(handles[n].session.edges) for n in names[:3]}
+    served = {n: {} for n in names}  # epoch -> EpochResult
+    depth = [0]
+
+    def step(k):
+        tickets = []
+        for n in names[:3]:
+            upd, w = streams[n].batch_at(k, live=lives[n])
+            tickets.append((n, handles[n].submit(upd, w)))
+        for _ in range(per):
+            upd, w = next(clean)
+            tickets.append(("t3", handles["t3"].submit(upd, w)))
+        depth[0] = max([depth[0]] + [h.stats.queue_depth
+                                     for h in handles.values()])
+        for n, t in tickets:
+            res = t.result(timeout=600)
+            served[n][res.epoch] = res
+            if n != "t3":
+                lives[n] = res.advance(lives[n])
+
+    kernels.reset_launches()
+    by_thread, restore_counts = launch_threads()
+    try:
+        sync()
+        t0 = time.time()
+        for k in range(POOL_EPOCHS):
+            step(k)
+        sync()
+        wall = time.time() - t0
+        tstats = {n: h.stats.as_dict() for n, h in handles.items()}
+        agg = pool.stats().aggregate()
+        rows = 3 * POOL_EPOCHS * update_batch + POOL_EPOCHS * per * size
+        wall_p, busy, idle, rec, exp = idle_share(
+            lambda: [step(k) for k in range(POOL_EPOCHS,
+                                            POOL_EPOCHS + POOL_IDLE_STEPS)])
+        pool.drain()
+        counts = kernels.launches()
+        stats = pool.stats()
+    finally:
+        restore_counts()
+    final = {n: handles[n].session for n in names}
+    pool.close()
+    require_apply_thread(by_thread)
+    for n in names:
+        require_launches(f"pool {n}", per_tenant[n], SESSION_KERNELS)
+    agg_all = stats.aggregate()
+    submitted = sum(t.submitted for t in stats.tenants.values())
+    if submitted != agg_all["retired"] or agg_all["failed"]:
+        raise AssertionError(f"pool: {submitted} submitted, "
+                             f"{agg_all['retired']} retired, "
+                             f"{agg_all['failed']} failed")
+    if stats.serve_compiles != 0:
+        raise AssertionError(f"pool: {stats.serve_compiles} serving "
+                             f"compile events")
+
+    # t0 closed (the pool is) and re-admitted from its directory, with
+    # the card to itself: restore and replay each end with a device wait
+    again = SessionPool(device=DEVICE, update_batch=update_batch,
+                        durable_dir=durable, fsync=True,
+                        snapshot_every=POOL_SNAPSHOT_EVERY)
+    h2, t_admit = timed(lambda: again.admit(
+        POOL_RECOVER, graphs[POOL_RECOVER], queries=("triangle",),
+        coalesce=1))
+    dur = again._tenants[POOL_RECOVER].durability
+    snapshots_equal(h2.session.snapshot(),
+                    final[POOL_RECOVER].snapshot(), "pool recover")
+    recover = dict(restore_s=dur.restore_s, replay_s=dur.replay_s,
+                   replayed=dur.replayed, admit_s=t_admit,
+                   epoch=h2.session.epoch)
+    again.close()
+    if recover["replayed"] == 0:
+        raise AssertionError("pool: the recovery replayed no epoch")
+    log(f"  pool recover {POOL_RECOVER}: " + json.dumps(recover))
+
+    # each tenant's WAL, replayed into an isolated session on the card
+    # alone, each epoch timed between device waits: the same epochs
+    # without the pool's other threads
+    t_iso = time.time()
+    iso_ms = {}
+    for n in names:
+        iso = GraphSession(graphs[n], device=DEVICE,
+                           update_batch=update_batch)
+        iso.register("triangle")
+        iso.prewarm()
+        epochs = [e for e, _ in logged[n]]
+        if epochs != sorted(served[n]) or \
+                epochs != list(range(1, len(epochs) + 1)):
+            raise AssertionError(f"pool {n}: logged epochs {epochs}")
+        iso_ms[n] = []
+        for epoch, batches in logged[n]:
+            a = served[n][epoch].deltas["triangle"]
+            res, secs = timed(lambda: iso.update(batches))
+            iso_ms[n].append(1e3 * secs)
+            b = res.deltas["triangle"]
+            ca = canon_arrays(a.tuples, a.weights, 3) \
+                if a.tuples is not None else None
+            cb = canon_arrays(b.tuples, b.weights, 3) \
+                if b.tuples is not None else None
+            same = a.count_delta == b.count_delta and (
+                (ca is None and cb is None) or
+                (ca is not None and cb is not None and
+                 all(np.array_equal(x, y) for x, y in zip(ca, cb))))
+            if not same:
+                raise AssertionError(f"pool {n}: epoch {epoch} delta "
+                                     f"differs from the isolated one")
+        if not np.array_equal(iso.edges, final[n].edges) or \
+                iso["triangle"].net_change != \
+                final[n]["triangle"].net_change:
+            raise AssertionError(f"pool {n}: final state differs")
+        log(f"  pool {n}: {len(epochs)} epochs equal to the isolated "
+            f"session's, net change {iso['triangle'].net_change} "
+            f"({time.time() - t_iso:.2f} s)")
+        del iso
+
+    # then the processes of their own, all started together
+    child_s = finish_children(start_children(root))
+
+    out = dict(
+        device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line(),
+        tenants=POOL_TENANTS, scale=POOL_SCALE,
+        edges={n: int(g.shape[0]) for n, g in graphs.items()},
+        steps=POOL_EPOCHS, updates=rows, wall_s=wall,
+        updates_per_s=rows / wall,
+        apply_ms={n: [d["latency_ms"]["p50"], d["latency_ms"]["p99"]]
+                  for n, d in tstats.items()},
+        prep_ms_p50={n: d["prep_ms_p50"] for n, d in tstats.items()},
+        # the epochs apply_ms covers (the timed steps'), replayed alone:
+        # p50 and p99 ms of the update
+        isolated_ms={n: [float(np.percentile(v[:POOL_EPOCHS], 50)),
+                         float(np.percentile(v[:POOL_EPOCHS], 99))]
+                     for n, v in iso_ms.items()},
+        epochs={n: d["epochs"] for n, d in tstats.items()},
+        max_queue_depth=depth[0],
+        coalesced_away=agg["retired"] - agg["epochs"],
+        snapshots=agg_all["snapshots"],
+        prewarm_compiles=stats.prewarm_compiles,
+        serve_compiles=stats.serve_compiles,
+        recover=recover,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        profiled_s=wall_p, device_busy_s=busy, idle_share=idle,
+        profiled_launches_recorded=[rec, exp],
+        launches_by_thread={f"{k}@{t}": v
+                            for (k, t), v in sorted(by_thread.items())},
+        children_s=child_s)
+    log("pool: " + json.dumps(out))
+    return counts
+
+
 EXAMPLE_TWINS = ("torch_quickstart", "torch_incremental_motifs",
                  "torch_multi_relation", "torch_train_gnn_with_motifs")
 
@@ -2196,7 +2617,7 @@ def examples_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 8-10: GNN training (motif features -> sampler -> GNN with
+# phases 9-11: GNN training (motif features -> sampler -> GNN with
 # segment_sum -> loss -> autograd -> AdamW -> checkpoint)
 # ---------------------------------------------------------------------------
 
@@ -2545,7 +2966,7 @@ def train_archs_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 11-12 and the flash rows of phase 3: the LM serving path (gemma2-2b;
+# phases 12-13 and the flash rows of phase 3: the LM serving path (gemma2-2b;
 # prefill and KV-cache decode through the flash-attention kernel)
 # ---------------------------------------------------------------------------
 
@@ -3264,7 +3685,7 @@ def main() -> int:
     ap.add_argument("--serve", action="append", type=parse_cell,
                     help="a serve cell SCALE:query,query[@EPOCHS[/BATCH]] "
                     "(repeatable, 20 epochs unless given); default "
-                    "16:triangle,diamond@6, 20:triangle@20 and "
+                    "16:triangle,diamond@4, 20:triangle@20 and "
                     "14:triangle,4-clique-tri@7")
     ap.add_argument("--verify", action="append", type=parse_cell,
                     help="a verify cell SCALE:query,query[@EPOCHS[/BATCH]] "
@@ -3275,16 +3696,19 @@ def main() -> int:
     ap.add_argument("--update-batch", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verify-only", action="store_true",
+                    help="only run the --verify cells in this process and "
+                    "print their launch counts (the main run starts one "
+                    "such process per verify cell, all together)")
     ap.add_argument("--graph-check", action="store_true",
                     help="only capture fused extend and merge ranks in a "
                     "CUDA graph and hold the replay to eager calls (the "
                     "kernels phase runs this in a process of its own)")
     args = ap.parse_args()
-    # diamond's epochs at scale 16 take 9-20 s each on the host-bound
-    # BiGJoin loop and the triangle oracle at scale 14 seconds per epoch,
-    # so those cells run fewer epochs to keep the whole script well inside
-    # its time limit on a slow host
-    cells = args.serve or [(16, ["triangle", "diamond"], 6, None),
+    # diamond's epochs at scale 16 take 9-25 s each on the host-bound
+    # BiGJoin loop, so that cell runs 4 epochs to keep the whole script
+    # inside its time limit on a slow host (1,175 s of phases at 6)
+    cells = args.serve or [(16, ["triangle", "diamond"], 4, None),
                            (20, ["triangle"], 20, None),
                            (14, ["triangle", "4-clique-tri"], 7, None)]
     checks = args.verify or [
@@ -3299,6 +3723,8 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     if args.graph_check:
         return graph_check(args.seed)
+    if args.verify_only:
+        return verify_only(checks, args.update_batch, args.seed)
     # f32 matmuls in full f32 (the defaults, stated): the train phases
     # hold the card's steps to the host's
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3375,12 +3801,10 @@ def main() -> int:
     # every session and training run below starts its kernel counts at 0
     # and reads them after; the table's launches sum them over these runs
     launches = {name: 0 for name in VARIANTS}
-    for scale, queries, epochs, batch in checks:
-        with phase(f"verify {scale}:{','.join(queries)}"):
-            counts = verify_phase(scale, queries, epochs or 8,
-                                  batch or args.update_batch, args.seed)
-            for name in VARIANTS:
-                launches[name] += counts[name]
+    with phase("verify"):
+        counts = verify_cells(checks, args.update_batch, args.seed)
+        for name in VARIANTS:
+            launches[name] += counts[name]
 
     for scale, queries, epochs, batch in cells:
         with phase(f"serve {scale}:{','.join(queries)}"):
@@ -3397,13 +3821,17 @@ def main() -> int:
             for name in VARIANTS:
                 launches[name] += serve["launches"][name]
 
-    # transactions at the serve 20:triangle cell's size, then the example
-    # twins, each in a process of its own
+    # transactions at the serve 20:triangle cell's size, the serving pool,
+    # then the example twins, each in a process of its own
     with phase("txn"):
         top = graphs.get(20)
         if top is None:
             top = rmat_graph(20, 16, seed=args.seed)
         counts = txn_phase(top, 1 << 20, args.update_batch, args.seed, built)
+        for name in VARIANTS:
+            launches[name] += counts.get(name, 0)
+    with phase("pool"):
+        counts = pool_phase(args.update_batch, args.seed)
         for name in VARIANTS:
             launches[name] += counts.get(name, 0)
     with phase("examples"):

@@ -11,6 +11,7 @@
 from repro_torch.api.dsl import PatternSyntaxError, parse_pattern, pattern_of
 from repro_torch.api.session import (EpochResult, GraphSession, QueryHandle,
                                      Sizing, auto_sizing)
+from repro_torch.core import compilestats
 from repro_torch.core.capacity import Ratchet
 from repro_torch.core.csr import Graph, pow2_capacity
 from repro_torch.core.delta import canon_signed
@@ -23,7 +24,7 @@ __all__ = [
     "parse_pattern", "pattern_of", "PatternSyntaxError",
     "Query", "query_by_name", "QUERY_NAMES", "QUERY_REGISTRY",
     "PAPER_QUERIES", "agm_bound", "Graph", "oracle_count", "canon_signed",
-    "pow2_capacity", "Ratchet",
+    "pow2_capacity", "Ratchet", "compilestats",
 ]
 
 

@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.api.dsl import parse_pattern, pattern_of
+from repro_torch.core import compilestats
 from repro_torch.core import delta as _delta
 from repro_torch.core.bigjoin import BigJoinConfig, run_bigjoin
 from repro_torch.core.csr import pow2_capacity, resolve_device
@@ -67,7 +68,10 @@ class EpochResult:
 
     ``ins`` / ``dels`` are the edge relation's normalized rows (empty when
     the epoch touched other relations only); ``by_rel`` carries every
-    relation's normalized ``(ins, dels)`` pair."""
+    relation's normalized ``(ins, dels)`` pair.  ``compile_events`` counts
+    the compile events (kernel libraries built or loaded,
+    :mod:`~repro_torch.core.compilestats`) the epoch triggered: zero on
+    every epoch after :meth:`GraphSession.prewarm`."""
 
     epoch: int
     ins: np.ndarray
@@ -75,6 +79,7 @@ class EpochResult:
     deltas: Dict[str, _delta.DeltaResult]
     by_rel: Dict[str, Tuple[np.ndarray, np.ndarray]] = \
         dataclasses.field(default_factory=dict)
+    compile_events: int = 0
 
     @property
     def is_noop(self) -> bool:
@@ -161,13 +166,15 @@ class GraphSession:
 
     ``device=None`` means ``"cuda"`` and raises when CUDA is absent; pass
     ``device="cpu"`` to run the plain versions on the host.  Only the
-    local session is ported: ``local=False`` or a ``mesh`` raise."""
+    local session is ported: ``local=False`` or a ``mesh`` raise.
+    ``prewarm=True`` runs :meth:`prewarm` at every :meth:`register`."""
 
     def __init__(self, initial_edges, *, device=None, local: bool = None,
                  mesh=None, batch: Optional[int] = None,
                  out_capacity: Optional[int] = None,
                  update_batch: int = 2048,
-                 compact_ratio: float = 0.5):
+                 compact_ratio: float = 0.5,
+                 prewarm: bool = False):
         if local is False or mesh is not None:
             raise NotImplementedError(
                 "only the local single-device session is ported")
@@ -181,6 +188,7 @@ class GraphSession:
         self.handles: Dict[str, QueryHandle] = {}
         self.epoch = 0
         self._static_plans: Dict[Query, Plan] = {}
+        self.auto_prewarm = bool(prewarm)
 
     # -- registration -------------------------------------------------------
     def register(self, pattern, name: Optional[str] = None,
@@ -212,7 +220,31 @@ class GraphSession:
                     atom.rel, np.zeros((0, atom.arity), np.int32))
         handle = QueryHandle(self, name, q, batch, out_capacity)
         self.handles[name] = handle
+        if self.auto_prewarm:
+            self.prewarm()
         return handle
+
+    def prewarm(self, horizon: Optional[int] = None) -> int:
+        """The admission prewarm: build every registered query's engine,
+        pin the store's probe and delta marks to ``update_batch``, and on
+        the card load every kernel library an epoch launches
+        (:meth:`DeltaBigJoin.prewarm`), so that each later epoch with
+        batches of at most ``update_batch`` reports
+        ``EpochResult.compile_events == 0``.  The ratchet marks then equal
+        a prewarmed JAX session's, which matters because snapshots carry
+        them.  ``horizon`` is the JAX signature's (the stream's expected
+        churn).  Returns the compile events spent (also added to
+        ``StoreStats.prewarm_compiles``)."""
+        snap = compilestats.snapshot()
+        # engines first: their lazily-created projections must exist
+        # before the marks are pinned for every relation
+        engines = [h.engine for h in self.handles.values()]
+        self.store.pin_delta_marks(self.update_batch)
+        for engine in engines:
+            self.store.stats.prewarm_compiles += \
+                engine.prewarm(self.update_batch, horizon)
+        self.store._sync_compile_stats()
+        return compilestats.since(snap)
 
     def query_by_name(self, name: str) -> QueryHandle:
         """Fetch a registered handle; registers the named motif on miss."""
@@ -271,6 +303,7 @@ class GraphSession:
         optional ``weights``) or a per-relation dict ``{"edge": (rows, w),
         "tri": (rows, w), ...}``.  Transactional: any failure between
         staging and commit rolls the store back and re-raises."""
+        snap = compilestats.snapshot()
         if prepared is None:
             prepared = self.store.prepare(updates, weights)
         elif updates is not None or weights is not None:
@@ -284,7 +317,8 @@ class GraphSession:
             deltas = {name: zero for name in self.handles}
             for name, h in self.handles.items():
                 h._deliver(self.epoch, zero)
-            return EpochResult(self.epoch, e_ins, e_dels, deltas, batches)
+            return EpochResult(self.epoch, e_ins, e_dels, deltas, batches,
+                               compile_events=compilestats.since(snap))
         # touch every handle's engine BEFORE staging: a lazily-built engine
         # must create its projections first
         engines = [(name, h.engine) for name, h in self.handles.items()]
@@ -300,7 +334,8 @@ class GraphSession:
         self.epoch += 1
         for name, h in self.handles.items():
             h._deliver(self.epoch, deltas[name])
-        return EpochResult(self.epoch, e_ins, e_dels, deltas, batches)
+        return EpochResult(self.epoch, e_ins, e_dels, deltas, batches,
+                           compile_events=compilestats.since(snap))
 
     # -- durability ---------------------------------------------------------
     def snapshot(self) -> Tuple[List[np.ndarray], dict]:

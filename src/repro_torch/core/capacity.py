@@ -106,8 +106,8 @@ class Ratchet:
         ``max(mark, floor)`` and return it — the overflow-recovery
         primitive (DESIGN.md §10): a
         :class:`~repro_torch.errors.CapacityOverflow` names the buffer
-        that overflowed, the driver escalates its rung,
-        re-prewarms the new signature and replays the staged epoch.
+        that overflowed, the driver escalates its rung and replays the
+        staged epoch.
         Monotone like every other mark mutation, so escalations persist
         through snapshot/restore and never flap."""
         cur = max(self._caps.get(name, 0), int(floor))

@@ -36,8 +36,11 @@ A commit is atomic (stage, then swap), the ``store.normalize`` and
 ``store.commit.fold`` fault points (:mod:`repro_torch.faults`) fire where
 the JAX store fires them, and :meth:`RegionStore.snapshot` /
 :meth:`RegionStore.restore` write and read the JAX store's snapshot format,
-so a session's state moves between the packages.  One device only; the
-mesh and prewarm come later.
+so a session's state moves between the packages.  The admission prewarm
+(:meth:`DeltaBigJoin.prewarm`) pins the delta and probe marks to the update
+batch and loads every kernel library an epoch launches, so a warm epoch
+records no compile event (:mod:`repro_torch.core.compilestats`).  One
+device only; the mesh comes later.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import faults
-from repro_torch.core import csr
+from repro_torch.core import compilestats, csr
 from repro_torch.core.bigjoin import (BigJoinConfig, Indices, JoinResult,
                                       run_bigjoin)
 from repro_torch.core.capacity import Ratchet
@@ -454,7 +457,13 @@ class DeltaResult:
 @dataclasses.dataclass
 class StoreStats:
     """Per-store epoch accounting: one normalize and one commit per update
-    epoch whatever the number of standing queries."""
+    epoch whatever the number of standing queries.  ``compile_events``
+    counts the compile events (kernel libraries built or loaded,
+    :mod:`~repro_torch.core.compilestats`) since the store was created;
+    ``prewarm_compiles`` the part the admission prewarm spent.
+    ``escalation_compiles`` keeps the JAX store's key (snapshots carry
+    these stats) and stays 0: the port re-prewarms nothing after an
+    escalation, its libraries being loaded already."""
 
     normalize_calls: int = 0
     commit_calls: int = 0
@@ -463,9 +472,12 @@ class StoreStats:
     live_compactions: int = 0
     composite_compactions: int = 0  # of the two above, (hi, lo) regions
     mirror_pulls: int = 0
+    compile_events: int = 0
+    prewarm_compiles: int = 0
     escalations: int = 0  # capacity rungs bumped after CapacityOverflow
     replays: int = 0  # epoch dataflow re-runs after an escalation
     rollbacks: int = 0  # rollback() calls
+    escalation_compiles: int = 0  # the JAX store's key; 0 in the port
 
 
 @dataclasses.dataclass
@@ -506,6 +518,7 @@ class RegionStore:
         self.compact_ratio = compact_ratio
         self.projections: Dict[Projection, _Regions] = {}
         self.stats = StoreStats()
+        self._compile_base = compilestats.total()
         # growth hysteresis: delta/probe/committed caps ride the slack
         # ladder and never shrink; base caps are monotone pow2
         self.ratchet = Ratchet()
@@ -517,6 +530,9 @@ class RegionStore:
             {EDGE: np.asarray(initial, np.int32).reshape(-1, 2)}
         for rel, rows in rels.items():
             self.add_relation(rel, rows)
+
+    def _sync_compile_stats(self):
+        self.stats.compile_events = compilestats.total() - self._compile_base
 
     def _base_cap(self, rel: str, n: int) -> int:
         return self.base_ratchet.capacity(("base", rel), max(int(n), 1))
@@ -704,6 +720,18 @@ class RegionStore:
             _id: self.ensure(rel, key_pos, ext_pos).versioned(version)
             for _id, rel, key_pos, ext_pos, version in plan.index_ids()}
 
+    # -- admission prewarm ----------------------------------------------
+    def pin_delta_marks(self, update_batch: int) -> int:
+        """Pin every relation's probe and delta mark to the pow2 of the
+        update-batch bound, as the JAX store's prewarm does, so delta-sized
+        buffers keep one shape for the stream's life and the ratchet (which
+        snapshots carry) equals the JAX session's.  Returns the pin."""
+        P = _pow2(max(int(update_batch), 1))
+        for rel in self._rels:
+            self.ratchet.observe(("probe", rel), P)
+            self.ratchet.observe(("delta", rel), P)
+        return P
+
     # ------------------------------------------------------------------
     def prepare(self, updates, weights=None) -> PreparedBatch:
         """Stage A of an update epoch: validate, degenerate-mask, pack and
@@ -732,8 +760,10 @@ class RegionStore:
         Returns ``{rel: (ins, dels)}``."""
         faults.fire("store.normalize")
         self.stats.normalize_calls += 1
-        return {rel: self._normalize_device(rel, *prep.rels[rel])
-                for rel in prep.raw}
+        out = {rel: self._normalize_device(rel, *prep.rels[rel])
+               for rel in prep.raw}
+        self._sync_compile_stats()
+        return out
 
     def normalize(self, updates, weights=None):
         """Net out a batch against the live set: ``(ins, dels)`` for an
@@ -977,6 +1007,7 @@ class RegionStore:
         self.stats.commit_calls += 1
         self.stats.epochs += 1
         self._maybe_compact()
+        self._sync_compile_stats()
 
     def rollback(self) -> None:
         """Return the store to the epoch boundary: drop the staged batch
@@ -1130,6 +1161,7 @@ class RegionStore:
                               int(spec["ext_pos"]))] = reg
         for f, v in meta["stats"].items():
             setattr(self.stats, f, int(v))
+        self._sync_compile_stats()
 
 
 class DeltaBigJoin:
@@ -1140,6 +1172,10 @@ class DeltaBigJoin:
     edge array or a dict of relations)."""
 
     MAX_ESCALATIONS = 3  # per plan run, before the overflow surfaces
+    # the kernel libraries an epoch launches: normalize and the
+    # re-insertion probe (membership), the level steps (fused extend),
+    # the commit (fold) and compactions (merge ranks)
+    LIBRARIES = ("intersect", "extend", "fold", "merge_rank")
 
     def __init__(self, query: Query, initial_edges,
                  cfg: BigJoinConfig = BigJoinConfig(mode="collect"),
@@ -1155,6 +1191,24 @@ class DeltaBigJoin:
         self.store = store
         for plan in self.plans:
             self.store.ensure_plan(plan)
+
+    def prewarm(self, update_batch: int,
+                horizon: Optional[int] = None) -> int:
+        """The admission prewarm of this engine: pin the store's probe and
+        delta marks to ``update_batch`` (as the JAX engine's walk does) and,
+        on the card, load every kernel library its epochs launch, so the
+        first served epoch builds nothing.  Eager PyTorch compiles nothing
+        per shape, so the JAX walk over rung combinations has no
+        counterpart yet and ``horizon`` (the JAX signature's) is unused;
+        nor does an escalation re-prewarm, since the libraries stay loaded.
+        Returns the compile events spent."""
+        from repro_torch.kernels import _build
+        snap = compilestats.snapshot()
+        self.store.pin_delta_marks(update_batch)
+        if self.store.device.type == "cuda":
+            for name in self.LIBRARIES:
+                _build.lib(name)
+        return compilestats.since(snap)
 
     def _run_plan(self, plan: Plan, indices: Indices, seed: np.ndarray,
                   weights: np.ndarray) -> JoinResult:

@@ -13,12 +13,11 @@ and epoch-commit call sites:
     snapshot.write      before a snapshot checkpoint write
     dist.program        before launching a distributed join program
 
-In the port only the two ``store.*`` points have a call site
-(``core.delta.RegionStore``), placed where the JAX store fires them, so one
-schedule faults at the same hit in both packages.  ``pool.*``, ``wal.*``,
-``snapshot.write`` and ``dist.program`` keep their names for the serving
-pool, the write-ahead log and the mesh, which are not ported yet; until
-then nothing fires them.
+In the port every point but ``dist.program`` has a call site, placed
+where the JAX package fires it (``core.delta.RegionStore``,
+``serve.pool.SessionPool``, ``serve.wal``), so one schedule faults at the
+same hit in both packages.  ``dist.program`` keeps its name for the mesh,
+which is not ported yet; until then nothing fires it.
 
 Each call site calls :func:`fire(point)`; the registry counts the hit and
 raises :class:`~repro_torch.errors.FaultInjected` when the hit number is in

@@ -30,6 +30,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from repro_torch.core import compilestats
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("intersect", "extend", "merge_rank", "fold", "segment_sum",
            "flash_attention")
@@ -144,13 +146,15 @@ def build(names: Iterable[str] = SOURCES, force: bool = False
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if missing or stale).  A
     library once loaded is returned without taking the lock: entries of
-    ``_libs`` are only ever added, each whole."""
+    ``_libs`` are only ever added, each whole.  Building or loading it
+    records one compile event (``compilestats``, site ``build.<name>``)."""
     got = _libs.get(name)
     if got is not None:
         return got
     with _lock:
         got = _libs.get(name)
         if got is None:
+            compilestats.record(f"build.{name}")
             build([name])
             got = ctypes.CDLL(str(_lib_path(name)))
             for fn, argtypes in SIGNATURES[name].items():

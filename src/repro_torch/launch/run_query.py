@@ -1,0 +1,107 @@
+"""The paper's engine as a CLI, driven through the GraphSession facade:
+
+    python -m repro_torch.launch.run_query --query triangle --scale 12 \
+        --mode static|delta|serial [--verify] [--device cpu]
+
+``static`` counts on a session, ``delta`` streams update batches through
+a standing registration, ``serial`` runs the Generic-Join oracle baseline
+on the host.  ``--verify`` holds the delta mode's maintained change to
+the oracle's recount of the graph before and after the stream.  Sessions run on ``--device`` (default the card).  The JAX
+driver's ``distributed`` mode needs the mesh (ROADMAP Queue 1 item 7) and
+raises.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.api import Graph, GraphSession, QUERY_NAMES, oracle_count
+from repro_torch.data.synthetic import rmat_graph
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--query", default="triangle",
+                    help=f"named motif ({', '.join(QUERY_NAMES)}, path-N) "
+                    "or a DSL pattern 'name(a,b,..) := e(a,b), ...'")
+    ap.add_argument("--mode", default="static",
+                    choices=["static", "delta", "distributed", "serial"])
+    ap.add_argument("--scale", type=int, default=11,
+                    help="RMAT scale (2^scale vertices)")
+    ap.add_argument("--edge-factor", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="B' dataflow batch (default: AGM auto-sizing)")
+    ap.add_argument("--update-batches", type=int, default=5)
+    ap.add_argument("--update-size", type=int, default=1000)
+    ap.add_argument("--symmetric", action="store_true",
+                    help="degree-relabel + symmetry-breaking filters")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verify", action="store_true",
+                    help="delta mode: check the maintained change against "
+                    "the serial oracle's recount (raises on a mismatch)")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the session (cpu: the plain versions)")
+    args = ap.parse_args(argv)
+    if args.mode == "distributed":
+        raise NotImplementedError(
+            "--mode distributed needs the mesh, a later slice of the port "
+            "(ROADMAP Queue 1 item 7)")
+
+    g = Graph.from_edges(rmat_graph(args.scale, args.edge_factor,
+                                    seed=args.seed))
+    if args.symmetric:
+        g = g.degree_relabel()
+    print(f"graph: {g.num_vertices:,} vertices {g.num_edges:,} edges "
+          f"(max outdeg {np.bincount(g.edges[:, 0]).max():,})")
+
+    if args.mode == "serial":
+        t0 = time.time()
+        cnt = oracle_count(args.query, g.edges)
+        print(f"serial GJ: {cnt:,} results in {time.time()-t0:.2f}s")
+        return cnt
+
+    if args.mode == "delta":
+        n0 = g.num_edges - args.update_batches * args.update_size
+        session = GraphSession(g.edges[:n0], device=args.device,
+                               batch=args.batch,
+                               update_batch=args.update_size)
+        handle = session.register(args.query, symmetric=args.symmetric)
+        print(f"loaded {n0:,} edges; streaming "
+              f"{args.update_batches} x {args.update_size} updates")
+        for i in range(args.update_batches):
+            lo = n0 + i * args.update_size
+            batch = g.edges[lo:lo + args.update_size]
+            t0 = time.time()
+            res = session.update(batch)
+            dt = time.time() - t0
+            d = res.deltas[handle.name]
+            print(f"  batch {i}: +{d.count_delta:,} results "
+                  f"({batch.shape[0]/dt:,.0f} updates/s, "
+                  f"{abs(d.count_delta)/dt:,.0f} changes/s)")
+        if args.verify:
+            lo = n0 + args.update_batches * args.update_size
+            want = oracle_count(handle.query, g.edges[:lo]) - \
+                oracle_count(handle.query, g.edges[:n0])
+            if handle.net_change != want:
+                raise AssertionError(
+                    f"maintained change {handle.net_change:+,} != "
+                    f"recompute diff {want:+,}")
+            print(f"verified: maintained change {handle.net_change:+,} == "
+                  f"recompute diff ✓")
+        return handle.net_change
+
+    session = GraphSession(g.edges, device=args.device, batch=args.batch)
+    t0 = time.time()
+    handle = session.register(args.query, symmetric=args.symmetric)
+    t_reg = time.time() - t0
+    t0 = time.time()
+    count = handle.count()
+    print(f"BiGJoin: {count:,} results in {time.time()-t0:.2f}s "
+          f"(one {session.device.type} device, register {t_reg:.2f}s)")
+    return count
+
+
+if __name__ == "__main__":
+    main()

@@ -25,6 +25,10 @@ _FORBIDDEN = re.compile(
 
 def test_every_module_imports_without_jax_or_repro():
     assert len(TWINS) == 4, TWINS
+    assert {"repro_torch.serve.pool", "repro_torch.serve.wal",
+            "repro_torch.serve._serve_check", "repro_torch.launch.serve",
+            "repro_torch.launch.run_query",
+            "repro_torch.core.compilestats"} <= set(MODULES)
     code = (
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}:\n"
