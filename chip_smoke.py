@@ -41,7 +41,11 @@ Phases, in order, each printed with its result and seconds:
               scaled_dot_product_attention's time beside them;
 4. verify   — a GraphSession over dirty update epochs, one cell per
               (scale, queries), each cell in a process of its own
-              (``--verify-only``), all started together: each epoch's
+              (``--verify-only``), all started together, and beside them
+              the kernel-coverage gate (``launch.kernel_coverage``: no
+              compile after the admission prewarm, one commit-fold launch
+              per relation, composite ``tri`` included, and a probe
+              launch), a process too: each epoch's
               signed delta equal to the numpy oracle (full
               recomputation), compaction included.  A cell
               naming an n-ary query (``4-clique-tri``, ``5-clique-quad``)
@@ -89,10 +93,22 @@ Phases, in order, each printed with its result and seconds:
               ``launch.run_query --mode delta``;
 8. examples — every ``examples/torch_*.py`` twin in a process of its own
               on the card: exit 0 and its "✓" lines;
-9. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
+9. mesh     — the paper's distributed dataflow with w = 4 workers as a
+              leading tensor axis on the card (``core.distributed``,
+              BiGJoin-S aggregation, deferral and Balance): triangle,
+              triangle balanced and 4-clique-tri over ``tri`` at R-MAT
+              scale 10, and 5-clique-quad over ``quad`` of scale 6
+              (composite keys, the ``_lex`` membership kernel), each bit
+              for bit the host's (every counter, each worker's tuples and
+              weights in order) and the single-device count; then the
+              triangle count at scale 16, B' 65,536 a worker, plain and
+              balanced, equal to the single-device engine's, every shard
+              entry owned once: seconds, steps, loads, member launches,
+              peak memory, the idle share of a profiled step;
+10. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
               defaults to step 10, relaunched to step 20: it resumes from
               its checkpoint and ends with a finite loss;
-10. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
+11. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
               shape) on a 232,965-node graph: triangle features from the
               port's BiGJoin on the card, sampled union graphs, the
               segment_sum kernel against its plain version at that shape
@@ -101,13 +117,20 @@ Phases, in order, each printed with its result and seconds:
               equal), the first step against the host's, then
               6 steps: step ms, peak memory, idle share of a profiled step,
               2 segment_sum launches per layer and step;
-11. train archs — one step of each GNN arch at smoke width and of a
+12. train archs — one step of each GNN arch at smoke width and of a
               graph_reg batch, the card's loss against the host's;
-12. lm verify — the LM transformer on the card against the host, f32 on
+13. train recsys — the two-tower model: one smoke step against the host
+              (loss, gradient norm), then full width (10M, 1M and 100k-row
+              tables, 1M items, embed 256, towers 1024-512-256, f32, the
+              EmbeddingBag through segment_sum): 5 steps of 65,536 events,
+              step ms, peak memory, idle share of a profiled step, then
+              serve_p99 (512 events) and one query against 1,000,000
+              candidates (top 100);
+14. lm verify — the LM transformer on the card against the host, f32 on
               both: the yi-34b, gemma-7b and gemma2-2b smoke configs
               (forward, loss, prefill, 4 decode steps) and gemma2-2b at
               full width and depth 2 on a 4,160-token request;
-13. lm serve gemma2-2b — full width and depth, bf16, random parameters
+15. lm serve gemma2-2b — full width and depth, bf16, random parameters
               from the seed: 4 prompts of 8,192 tokens, prefill and 32
               greedy decode steps, 3 rounds (1 cold) and one profiled
               prefill and decode step; decode held against prefill; 26
@@ -1771,6 +1794,44 @@ def verify_cells(checks, update_batch: int, seed: int) -> dict:
     return total
 
 
+def start_coverage():
+    """``python -m repro_torch.launch.kernel_coverage`` on the card, a
+    process of its own."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    return time.time(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.kernel_coverage"],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def finish_coverage(started) -> dict:
+    """The coverage gate's record: it must exit 0 with ``ok``, zero warm
+    compiles, the composite ``tri`` relation, one commit-fold launch per
+    relation and at least one probe launch."""
+    t0, p = started
+    try:
+        out, err = p.communicate(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    lines = out.strip().splitlines()
+    rec = json.loads(lines[-1]) if lines else {}
+    cov = rec.get("coverage", {})
+    log(f"  kernel coverage: rc {p.returncode}, collected after "
+        f"{time.time() - t0:.2f} s (with the verify cells), "
+        f"warm compiles {rec.get('warm_compiles')}, launches (fold, probe) "
+        f"{ {r: (c['fold_pallas_calls'], c['probe_pallas_calls']) for r, c in cov.items()} }, "
+        f"{err.strip().splitlines()[-1] if err.strip() else ''}")
+    if p.returncode != 0 or not rec.get("ok") or rec["warm_compiles"] \
+            or "tri" not in rec["composite_relations"] \
+            or any(c["fold_pallas_calls"] != 1 or c["probe_pallas_calls"] < 1
+                   for c in cov.values()):
+        raise AssertionError(f"kernel coverage failed: {rec or err[-2000:]}")
+    return rec
+
+
 def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
                      built):
     """The n-ary path at a realistic state size: warm latency of the edge
@@ -2617,7 +2678,7 @@ def examples_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 9-11: GNN training (motif features -> sampler -> GNN with
+# phases 10-12: GNN training (motif features -> sampler -> GNN with
 # segment_sum -> loss -> autograd -> AdamW -> checkpoint)
 # ---------------------------------------------------------------------------
 
@@ -2966,7 +3027,469 @@ def train_archs_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 12-13 and the flash rows of phase 3: the LM serving path (gemma2-2b;
+# phase 13: the two-tower recsys model (EmbeddingBag through segment_sum)
+# ---------------------------------------------------------------------------
+
+RECSYS_STEPS = 5  # full-width training steps, then one profiled
+RECSYS_SERVE_CALLS = 50  # serve_p99 calls timed one by one
+RECSYS_RETRIEVAL_CALLS = 5
+RECSYS_STEP_RTOL = 1e-3  # the smoke step, card against host
+
+
+def recsys_segment_sum_check(params, cfg, batch: dict, B: int) -> dict:
+    """segment_sum against its plain version at the shape the full-width
+    forward gives it: each user table's gathered rows of one train batch
+    ([B·multi_hot, embed] f32, B sorted bags of multi_hot rows), the
+    kernel on the card, the plain version on a host copy of the same
+    inputs, at the f32 segment_sum row's tolerance.  Its launches are
+    compare launches: the caller resets the counts before it reads them
+    again.  Returns the max |err| by table."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.segment_ops import ops as sops, ref as sref
+    rtol, atol = SEGSUM_TOL["f32"]
+    errs = {}
+    with torch.no_grad():
+        for name, _rows in cfg.user_tables:
+            ids = batch["feats"][name]
+            M = ids.shape[1]
+            flat = F.embedding(ids.reshape(-1).long(),
+                               params["tables"][name])
+            bag = torch.arange(B, dtype=torch.int32,
+                               device=ids.device).repeat_interleave(M)
+            got = sops.segment_sum(flat, bag, B, is_sorted=True).cpu()
+            want = sref.segment_sum_ref(flat.cpu(), bag.cpu(), B)
+            errs[name] = float((got.double() - want.double()).abs().max())
+            if got.dtype != torch.float32 or got.shape != want.shape or \
+                    not torch.allclose(got, want, rtol=rtol, atol=atol):
+                raise AssertionError(
+                    f"train recsys: segment_sum of {name} ({tuple(flat.shape)}"
+                    f", {B} bags) disagrees with its plain version (max |err|"
+                    f" = {errs[name]}, rtol {rtol}, atol {atol})")
+            del flat, bag, got, want
+    log(f"  train recsys: segment_sum at the forward's shape (E = "
+        f"{B * cfg.multi_hot}, D = {cfg.embed_dim}, {B} bags) against its "
+        f"plain version on a host copy, rtol {rtol} atol {atol}: max |err| "
+        f"{errs}")
+    return errs
+
+
+def train_recsys_phase(seed: int) -> dict:
+    """One step of the smoke config on the card against the host (loss
+    and gradient norm), then the full-width two-tower model: tables of
+    10M, 1M and 100k rows and 1M items, embed 256, towers 1024-512-256,
+    f32; RECSYS_STEPS steps at train_batch (65,536 events, 1,024
+    negatives): step ms, peak memory, the idle share of a profiled step,
+    three segment_sum calls per forward; then serve_p99 (512 events) and
+    retrieval_cand (one query against 1,000,000 candidates, top 100)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.recsys_family import (SHAPES, event_batch,
+                                                   make_train_step)
+    from repro_torch.kernels.segment_ops import ops as sops
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import adamw_init
+    spec = get_arch("two-tower-retrieval")
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # the smoke step on the card and on the host, from the same parameters
+    cfg = spec.smoke_config
+    card = R.init(cfg, seed=seed, device=DEVICE)
+    host = R.init(cfg, seed=seed, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    got, seg = {}, {}
+    for dev, params in ((DEVICE, card), ("cpu", host)):
+        kernels.reset_launches()
+        m = make_train_step(cfg)(params, adamw_init(params),
+                                 event_batch(cfg, 64, 0, dev, seed))
+        got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+        counts = kernels.launches()
+        seg[dev] = counts["segment_sum"]
+        add(counts)
+    log(f"  train recsys smoke: loss / grad norm card {got[DEVICE]}, host "
+        f"{got['cpu']}, segment_sum launches {seg}")
+    if seg[DEVICE] != len(cfg.user_tables) or seg["cpu"] != 0:
+        raise AssertionError(f"train recsys: segment_sum launches {seg}")
+    if not all(_close(a, b, RECSYS_STEP_RTOL)
+               for a, b in zip(got[DEVICE], got["cpu"])):
+        raise AssertionError(f"train recsys: the card's smoke step "
+                             f"{got[DEVICE]} differs from the host's "
+                             f"{got['cpu']}")
+    del card, host
+
+    # full width
+    cfg = spec.full_config
+    B = SHAPES["train_batch"]["batch"]
+    E = B * cfg.multi_hot
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t = time.time()
+    params = R.init(cfg, seed=seed, device=DEVICE)
+    opt = adamw_init(params)
+    sync()
+    init_s = time.time() - t
+    batches = [event_batch(cfg, B, s, DEVICE, seed)
+               for s in range(RECSYS_STEPS + 1)]
+    step = make_train_step(cfg)
+    secs, losses, per_fwd = [], [], []
+    for b in batches[:RECSYS_STEPS]:
+        kernels.reset_launches()
+        sync()
+        t = time.time()
+        m = step(params, opt, b)
+        loss = float(m["loss"])
+        sync()
+        secs.append(time.time() - t)
+        counts = kernels.launches()
+        add(counts)
+        per_fwd.append(counts["segment_sum"])
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  train recsys: {cfg.param_count()} parameters drawn on the card "
+        f"in {init_s:.2f} s; step ms {[round(x * 1e3, 3) for x in secs]}, "
+        f"losses {losses}, segment_sum calls per forward {per_fwd}, peak "
+        f"{peak:.3f} GiB")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train recsys: losses {losses}")
+    if any(n != len(cfg.user_tables) for n in per_fwd):
+        raise AssertionError(f"train recsys: segment_sum calls per forward "
+                             f"{per_fwd}")
+    seg_err = recsys_segment_sum_check(params, cfg, batches[0], B)
+    by_name = {}
+    wall, busy, idle, rec, exp = idle_share(
+        lambda: step(params, opt, batches[-1]), by_name,
+        per_call={"segment_sum": sops.kernel_launches(E)})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    log(f"  train recsys: profiled step {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms, idle share {idle} ({rec} of {exp} kernel "
+        f"launches recorded); device time by kernel (launches, ms):")
+    for name, (n, ms) in top:
+        log(f"    {ms:10.3f} ms {n:5d}x {name}")
+    del batches
+    params.zero_grad(set_to_none=True)
+
+    # serving: the user and item towers of 512 events, one call at a time
+    sb = event_batch(cfg, SHAPES["serve_p99"]["batch"], 1000, DEVICE, seed)
+    cands = torch.arange(SHAPES["retrieval_cand"]["n_candidates"],
+                         dtype=torch.int32, device=DEVICE)
+    query = {k: v[:1] for k, v in sb["feats"].items()}
+    serve_ms, retr_ms = [], []
+    kernels.reset_launches()
+    with torch.no_grad():
+        for calls, out, fn in (
+                (RECSYS_SERVE_CALLS, serve_ms,
+                 lambda: R.serve_scores(params, sb["feats"], sb["item_ids"],
+                                        cfg)),
+                (RECSYS_RETRIEVAL_CALLS, retr_ms,
+                 lambda: R.retrieval_topk(params, query, cands, cfg,
+                                          k=100))):
+            fn()
+            for _ in range(calls):
+                sync()
+                t = time.time()
+                r = fn()
+                sync()
+                out.append((time.time() - t) * 1e3)
+        vals, ids = r
+    add(kernels.launches())
+    if not (bool(torch.isfinite(vals).all()) and vals.shape == (100,)
+            and bool((vals[:-1] >= vals[1:]).all())):
+        raise AssertionError("train recsys: retrieval top-100 not finite "
+                             "and sorted")
+    warm = np.asarray(secs[1:]) * 1e3
+    out = dict(
+        params=cfg.param_count(), train_batch=B, negatives=cfg.num_negatives,
+        init_s=init_s, step_ms=[x * 1e3 for x in secs],
+        step_p50_ms=float(np.percentile(np.asarray(secs) * 1e3, 50)),
+        warm_p50_ms=float(np.percentile(warm, 50)), losses=losses,
+        peak_mem_gib=peak, segment_sum_calls_per_forward=per_fwd,
+        segment_sum_max_abs_err=seg_err,
+        segment_sum_launches_per_forward=len(cfg.user_tables)
+        * sops.kernel_launches(E),
+        profiled_step_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+        idle_share=idle, profiled_launches_recorded=[rec, exp],
+        top_kernels_ms={n: ms for n, (_c, ms) in top},
+        serve_p99_ms=[float(np.percentile(serve_ms, 50)),
+                      float(np.percentile(serve_ms, 99))],
+        retrieval_cand_ms=[float(np.percentile(retr_ms, 50)),
+                           float(max(retr_ms))],
+        launches=totals)
+    log("  train recsys: " + json.dumps(out))
+    del params, opt
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the mesh (core.distributed, core.balance): w workers as a leading
+# tensor axis on the card
+# ---------------------------------------------------------------------------
+
+MESH_W = 4
+MESH_PARITY_SCALE = 10  # distributed_join on the card against the host
+MESH_PARITY_BATCH = 4096  # B' a worker (16,384 for 4-clique-tri)
+MESH_QUAD_SCALE = 6  # the composite case, 5-clique-quad over quad
+MESH_SCALE = 16  # the serve 16 cell's graph
+MESH_BATCH = 65_536  # B' a worker at MESH_SCALE
+MESH_PROFILED_STEP = 10
+
+
+def _mesh_cfg(batch: int, mode: str, balance: bool = False):
+    """w = MESH_W workers at B' ``batch`` a worker, route capacity 4·B'/w
+    (the JAX package's ``default_delta_config`` rule)."""
+    from repro_torch.core.bigjoin import BigJoinConfig
+    from repro_torch.core.distributed import DistConfig
+    return DistConfig(BigJoinConfig(batch=batch, mode=mode,
+                                    out_capacity=1 << 20), MESH_W,
+                      route_capacity=max(4 * batch // MESH_W, 64),
+                      balance=balance)
+
+
+def _mesh_fields(r) -> tuple:
+    return (r.count, r.proposals, r.intersections, r.steps, r.max_load,
+            r.mean_load)
+
+
+def _mesh_plan(name: str):
+    from repro_torch.core.plan import make_plan
+    return make_plan(query_of(name))
+
+
+def mesh_host_run(name: str, rels, cfg, threads: int):
+    """``distributed_join`` of query ``name`` on the host (the plain
+    versions), in a process of its own that never touches the card:
+    (result, seconds)."""
+    import torch
+    from repro_torch.core.distributed import distributed_join
+    torch.set_num_threads(threads)
+    t = time.time()
+    r = distributed_join(_mesh_plan(name), rels, cfg=cfg, device="cpu")
+    return r, time.time() - t
+
+
+def mesh_card(label: str, name: str, rels, cfg, lex: bool) -> tuple:
+    """``distributed_join`` of query ``name`` on the card, with the count
+    the single-device engine's there; the run must launch the membership
+    kernel (its ``_lex`` variant when ``lex``).  Returns (result,
+    seconds, launches)."""
+    from repro_torch import kernels
+    from repro_torch.core.bigjoin import (BigJoinConfig, build_indices,
+                                          run_bigjoin, seed_tuples_for)
+    from repro_torch.core.distributed import distributed_join
+    plan = _mesh_plan(name)
+    kernels.reset_launches()
+    sync()
+    t = time.time()
+    card = distributed_join(plan, rels, cfg=cfg, device=DEVICE)
+    sync()
+    card_s = time.time() - t
+    counts = kernels.launches()
+    single = run_bigjoin(plan, build_indices(plan, rels, device=DEVICE),
+                         seed_tuples_for(plan, rels),
+                         cfg=BigJoinConfig(batch=cfg.base.batch,
+                                           seed_chunk=cfg.base.batch,
+                                           mode="count"))
+    member = counts["signed_member_lex" if lex else "signed_member"]
+    log(f"  mesh {label} on the card: {_mesh_fields(card)} in "
+        f"{card_s:.2f} s; single-device count {single.count}; member "
+        f"launches {member}")
+    if card.count != single.count:
+        raise AssertionError(f"mesh {label}: count {card.count} != the "
+                             f"single-device engine's {single.count}")
+    if member <= 0:
+        raise AssertionError(f"mesh {label}: no membership-kernel launch "
+                             f"({counts})")
+    return card, card_s, counts
+
+
+def mesh_compare(label: str, card, host, host_s: float) -> None:
+    """The card's and the host's runs bit for bit: every field, and each
+    worker's tuples and weights in order."""
+    same = (_mesh_fields(card) == _mesh_fields(host)
+            and np.array_equal(card.worker_rows, host.worker_rows)
+            and card.tuples.dtype == host.tuples.dtype
+            and np.array_equal(card.tuples, host.tuples)
+            and np.array_equal(card.weights, host.weights))
+    log(f"  mesh {label}: (count, proposals, intersections, steps, "
+        f"max_load, mean_load) host {_mesh_fields(host)} in {host_s:.2f} "
+        f"s; rows by worker {card.worker_rows.tolist()}; card bit for bit "
+        f"the host: {same}")
+    if not same:
+        raise AssertionError(f"mesh {label}: the card's distributed join "
+                             f"differs from the host's")
+
+
+def mesh_scale_run(label: str, plan, rels, indices, cfg) -> tuple:
+    """One timed ``distributed_join`` on the card over prebuilt shards,
+    step MESH_PROFILED_STEP under the profiler.  Returns (result, record,
+    launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.distributed import distributed_join
+    prof = {}
+
+    def hook(i, run):
+        if i != MESH_PROFILED_STEP:
+            return run()
+        box = []
+        prof["wall"], prof["busy"], prof["idle"], rec, exp = idle_share(
+            lambda: box.append(run()))
+        prof["recorded"] = [rec, exp]
+        return box[0]
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' live tensors
+    sync()
+    t = time.time()
+    r = distributed_join(plan, rels, cfg=cfg, device=DEVICE,
+                         indices=indices, step_hook=hook)
+    sync()
+    secs = time.time() - t
+    counts = kernels.launches()
+    rec = dict(
+        seconds=secs, steps=r.steps, count=r.count, proposals=r.proposals,
+        intersections=r.intersections, max_load=r.max_load,
+        mean_load=r.mean_load,
+        load_imbalance=r.max_load / max(r.mean_load, 1e-9),
+        member_launches=counts["signed_member"],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        run_peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+        profiled_step_ms=prof.get("wall", float("nan")) * 1e3,
+        device_busy_ms=prof.get("busy", float("nan")) * 1e3,
+        idle_share=prof.get("idle"),
+        profiled_launches_recorded=prof.get("recorded"))
+    log(f"  mesh {label}: " + json.dumps(rec))
+    return r, rec, counts
+
+
+def mesh_phase(graph, seed: int) -> dict:
+    """(a) ``distributed_join`` at w = MESH_W on the card against the host
+    at R-MAT scale MESH_PARITY_SCALE: triangle plain and with Balance,
+    4-clique-tri over the scale's ``tri`` relation, and (composite keys,
+    the ``_lex`` membership kernel) 5-clique-quad over the ``quad``
+    relation of scale MESH_QUAD_SCALE; (b) the triangle count over
+    ``graph`` (R-MAT scale MESH_SCALE) at B' = MESH_BATCH a worker, plain
+    and balanced, each equal to the single-device engine's count on the
+    card, with every shard entry owned exactly once."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.data.synthetic import rmat_graph
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    tri_plan = _mesh_plan("triangle")
+    g10 = rmat_graph(MESH_PARITY_SCALE, 16, seed=seed)
+    tri10, tri_s = relation_rows(g10, "tri", None)
+    g6 = rmat_graph(MESH_QUAD_SCALE, 16, seed=seed)
+    quad6, quad_s = relation_rows(g6, "quad", None)
+    log(f"  mesh: scale {MESH_PARITY_SCALE} |E|={g10.shape[0]}, tri "
+        f"{tri10.shape[0]} rows ({tri_s:.2f} s); scale {MESH_QUAD_SCALE} "
+        f"|E|={g6.shape[0]}, quad {quad6.shape[0]} rows ({quad_s:.2f} s)")
+    B = MESH_PARITY_BATCH
+    cases = (
+        ("triangle", "triangle", {"edge": g10}, _mesh_cfg(B, "collect"),
+         False),
+        ("triangle balance", "triangle", {"edge": g10},
+         _mesh_cfg(B, "collect", balance=True), False),
+        ("4-clique-tri", "4-clique-tri", {"tri": tri10},
+         _mesh_cfg(4 * B, "collect"), False),
+        ("5-clique-quad", "5-clique-quad", {"edge": g6, "quad": quad6},
+         _mesh_cfg(B, "collect"), True))
+    # the host's plain runs take most of the phase: they run in a process
+    # of their own (spawned: it never touches the card) on half the
+    # host's cores, beside the card's runs, and are compared at the end
+    threads = max(1, (os.cpu_count() or 2) // 2)
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        host = [pool.submit(mesh_host_run, name, rels, cfg, threads)
+                for _l, name, rels, cfg, _x in cases]
+        cards = []
+        for label, name, rels, cfg, lex in cases:
+            card, _s, counts = mesh_card(label, name, rels, cfg, lex)
+            add(counts)
+            cards.append(card)
+        mesh_scale(graph, tri_plan, add)
+        t = time.time()
+        for (label, *_), card, fut in zip(cases, cards, host):
+            mesh_compare(label, card, *fut.result(timeout=600))
+        log(f"  mesh: waited {time.time() - t:.2f} s for the host's runs")
+    return totals
+
+
+def mesh_scale(graph, tri_plan, add) -> None:
+    """The triangle count of ``graph`` at w = MESH_W, plain and balanced,
+    against the single-device engine's; every shard entry owned once."""
+    import torch
+    from repro_torch.core import csr
+    from repro_torch.core.bigjoin import (BigJoinConfig, build_indices,
+                                          run_bigjoin, seed_tuples_for)
+    from repro_torch.core.distributed import partition_indices
+    rels = {"edge": graph}
+    t = time.time()
+    indices = partition_indices(tri_plan, rels, MESH_W, device=DEVICE)
+    shard_s = time.time() - t
+    per_worker = torch.zeros(MESH_W, dtype=torch.int64, device=DEVICE)
+    for index_id, rel, key_pos, ext_pos, _v in tri_plan.index_ids():
+        vi = indices[index_id]
+        whole = csr.build_index(rels[rel], key_pos, ext_pos, device=DEVICE)
+        if vi.live_entries() != int(whole.n):
+            raise AssertionError(f"mesh: {index_id} holds "
+                                 f"{vi.live_entries()} entries over its "
+                                 f"shards, the relation {int(whole.n)}")
+        for d in vi.pos + vi.neg:
+            per_worker += d.n.to(torch.int64)
+    per_worker = per_worker.cpu().numpy()
+    log(f"  mesh: scale {MESH_SCALE} |E|={graph.shape[0]} sharded over "
+        f"{MESH_W} workers in {shard_s:.2f} s; every entry owned once; "
+        f"live entries by worker {per_worker.tolist()} (max "
+        f"{int(per_worker.max())}, mean {float(per_worker.mean())})")
+    sync()
+    t = time.time()
+    single = run_bigjoin(tri_plan, build_indices(tri_plan, rels,
+                                                 device=DEVICE),
+                         seed_tuples_for(tri_plan, rels),
+                         cfg=BigJoinConfig(batch=MESH_BATCH,
+                                           seed_chunk=MESH_BATCH,
+                                           mode="count"))
+    sync()
+    log(f"  mesh: single-device triangle count {single.count} "
+        f"({single.steps} steps, {time.time() - t:.2f} s)")
+    runs = {}
+    for label, bal in (("plain", False), ("balanced", True)):
+        r, rec, counts = mesh_scale_run(
+            f"scale {MESH_SCALE} {label}", tri_plan, rels, indices,
+            _mesh_cfg(MESH_BATCH, "count", balance=bal))
+        add(counts)
+        if r.count != single.count:
+            raise AssertionError(f"mesh scale {MESH_SCALE} {label}: count "
+                                 f"{r.count} != the single-device "
+                                 f"engine's {single.count}")
+        if rec["member_launches"] <= 0:
+            raise AssertionError(f"mesh scale {MESH_SCALE} {label}: no "
+                                 f"membership-kernel launch")
+        runs[label] = rec
+    out = dict(workers=MESH_W, scale=MESH_SCALE, batch=MESH_BATCH,
+               route_capacity=max(4 * MESH_BATCH // MESH_W, 64),
+               edges=int(graph.shape[0]), count=single.count,
+               single_device_steps=single.steps,
+               live_entries_max=int(per_worker.max()),
+               live_entries_mean=float(per_worker.mean()), runs=runs)
+    log("  mesh: " + json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15 and the flash rows of phase 3: the LM serving path (gemma2-2b;
 # prefill and KV-cache decode through the flash-attention kernel)
 # ---------------------------------------------------------------------------
 
@@ -3802,7 +4325,10 @@ def main() -> int:
     # and reads them after; the table's launches sum them over these runs
     launches = {name: 0 for name in VARIANTS}
     with phase("verify"):
+        # the kernel-coverage gate runs beside the cells, a process too
+        coverage = start_coverage()
         counts = verify_cells(checks, args.update_batch, args.seed)
+        finish_coverage(coverage)
         for name in VARIANTS:
             launches[name] += counts[name]
 
@@ -3836,6 +4362,13 @@ def main() -> int:
             launches[name] += counts.get(name, 0)
     with phase("examples"):
         examples_phase()
+    with phase("mesh"):
+        top = graphs.get(MESH_SCALE)
+        if top is None:
+            top = rmat_graph(MESH_SCALE, 16, seed=args.seed)
+        counts = mesh_phase(top, args.seed)
+        for name in VARIANTS:
+            launches[name] += counts.get(name, 0)
 
     # the GNN training path, segment_sum's kernel rows from the full-width
     # phase at the trainer's shape; then the LM serving path
@@ -3844,6 +4377,7 @@ def main() -> int:
             ("train full", lambda: train_full_phase(table, args.reps,
                                                     args.seed)),
             ("train archs", lambda: train_archs_phase(args.seed)),
+            ("train recsys", lambda: train_recsys_phase(args.seed)),
             ("lm verify", lambda: lm_verify_phase(args.seed)),
             ("lm serve gemma2-2b", lambda: lm_serve_phase(args.seed))):
         with phase(label):

@@ -246,6 +246,14 @@ class GraphSession:
         self.store._sync_compile_stats()
         return compilestats.since(snap)
 
+    def kernel_coverage(self) -> dict:
+        """Per-relation kernel-launch evidence (``RegionStore.
+        kernel_coverage``): for each relation, the CUDA launches of the
+        commit fold and the versioned probe a warm epoch makes.  The
+        coverage gate (``launch.kernel_coverage``) asserts zero warm
+        compiles and one fold launch a relation from this one dict."""
+        return self.store.kernel_coverage(self.update_batch)
+
     def query_by_name(self, name: str) -> QueryHandle:
         """Fetch a registered handle; registers the named motif on miss."""
         return self.handles.get(name) or self.register(name)

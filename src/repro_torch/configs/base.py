@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, Optional
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # gnn | lm (the families the port has)
+    family: str  # gnn | recsys | lm (the families the port has)
     describe: str
     full_config: Any
     smoke_config: Any

@@ -1,10 +1,10 @@
 """Carry state across packages: host arrays (``key``, ``val``, ``n`` as
 numpy, e.g. ``np.asarray`` of another package's index fields) become the
 port's :class:`IndexData` / :class:`VersionedIndex`, a GNN parameter
-tree of host arrays the port's ``GNN`` (:func:`gnn_params`) and a
-transformer's the port's ``Transformer`` (:func:`transformer_params`), on
-the device the caller names (``device`` is required: a conversion never
-picks one).
+tree of host arrays the port's ``GNN`` (:func:`gnn_params`), a
+transformer's the port's ``Transformer`` (:func:`transformer_params`) and
+a two-tower model's the port's (:func:`recsys_params`), on the device the
+caller names (``device`` is required: a conversion never picks one).
 
 Duck-typed: anything with ``key``/``val``/``n`` attributes (and an optional
 composite ``lo`` word) converts, so the parity tests can feed both packages
@@ -87,6 +87,24 @@ def transformer_params(params, cfg, *, device):
     through float32, exact both ways."""
     from repro_torch.models.transformer import Transformer
     return _load(Transformer(cfg, device=device), params)
+
+
+def recsys_params(params, cfg, *, device):
+    """The port's two-tower parameters (``models.recsys``) of ``cfg`` on
+    ``device`` holding a nested tree of host arrays (the JAX package's
+    two-tower parameters as numpy: ``tables``, ``item_table`` and the
+    ``user_mlp``/``item_mlp`` lists of ``{w, b}``), one to one."""
+    from repro_torch.models import recsys
+    return _load(recsys.init(cfg, device=device), _lists_as_dicts(params))
+
+
+def _lists_as_dicts(tree):
+    """Lists of subtrees keyed by their index (``user_mlp.0.w``)."""
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _lists_as_dicts(v) for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        return {k: _lists_as_dicts(v) for k, v in tree.items()}
+    return tree
 
 
 def _load(model, params):

@@ -212,6 +212,113 @@ def _unique_rows3(hi: np.ndarray, lo: np.ndarray, val: np.ndarray):
     return hi[keep], lo[keep], val[keep]
 
 
+# ---------------------------------------------------------------------------
+# Hash partitioning over the workers of a mesh (§3.2): host-built shards and
+# the device routing (``distributed.owner_of``) MUST agree, so both go
+# through the one hash below.
+# ---------------------------------------------------------------------------
+
+# Fibonacci-style multiplicative mix of the routing hash
+SHARD_MIX = 0x9E3779B97F4A7C15
+# second mix, folding a composite key's two words into one routing word
+SHARD_MIX2 = 0xC2B2AE3D27D4EB4F
+
+
+def _as_int64(c: int) -> int:
+    """A 64-bit constant as the int64 of the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def combine_key(hi, lo):
+    """Fold a composite (hi, lo) key into ONE 64-bit routing word,
+    ``(hi * SHARD_MIX2) ^ lo`` modulo 2^64, as int64 (numpy or torch).
+    Collisions only affect placement, never answers."""
+    if isinstance(hi, torch.Tensor):
+        # int64 products wrap modulo 2^64: the uint64 product's bits
+        return (hi.to(torch.int64) * _as_int64(SHARD_MIX2)) ^ \
+            lo.to(torch.int64)
+    h = (np.asarray(hi).astype(np.uint64) * np.uint64(SHARD_MIX2)) ^ \
+        np.asarray(lo).astype(np.uint64)
+    return h.astype(np.int64)
+
+
+def shard_of(key: PackedKey, num_shards: int):
+    """Hash-partition owner of each packed key (a (hi, lo) pair folds
+    through :func:`combine_key` first), int32 in [0, num_shards):
+    ``((key * SHARD_MIX) mod 2^64 >> 33) % num_shards``.  numpy in, numpy
+    out; a torch tensor in gives a tensor on its device."""
+    if isinstance(key, tuple):
+        key = combine_key(*key)
+    w = max(int(num_shards), 1)
+    if isinstance(key, torch.Tensor):
+        h = ((key.to(torch.int64) * _as_int64(SHARD_MIX)) >> 33) & \
+            0x7FFFFFFF  # the logical shift of the uint64 product
+        return (h % w).to(torch.int32)
+    h = (np.asarray(key).astype(np.uint64) * np.uint64(SHARD_MIX)) >> \
+        np.uint64(33)
+    return (h % np.uint64(w)).astype(np.int32)
+
+
+def build_sharded_index(tuples: np.ndarray, key_pos: Tuple[int, ...],
+                        ext_pos: int, num_shards: int,
+                        capacity: int | None = None,
+                        narrow: bool | None = None,
+                        device=None) -> IndexData:
+    """Hash-partition one extension index over ``num_shards`` workers.
+
+    Returns an IndexData whose tensors carry a leading [w] worker axis
+    (key/val/lo: [w, cap]; n: [w]); ``VersionedIndex.worker_shard(i)``
+    selects one worker's shard.  Every (key, val) pair lands on exactly
+    one worker, ``shard_of(key, w)``: the sum of live entries over the
+    workers equals the unsharded index's (the paper's memory linearity,
+    §3.2).  The per-shard capacity is uniform, the SEG-aligned power of two
+    of the largest shard (``capacity`` is a per-shard floor); the key
+    width is decided once for every shard.  Built on the host, uploaded
+    once to ``device`` (see :func:`resolve_device`)."""
+    device = resolve_device(device)
+    tuples = np.asarray(tuples)
+    if tuples.ndim != 2:
+        raise ValueError("tuples must be [T, arity]")
+    w = max(int(num_shards), 1)
+    key = pack_key(tuple(tuples[:, p].astype(np.int32) for p in key_pos)) \
+        if key_pos else np.zeros(tuples.shape[0], np.int64)
+    val = tuples[:, ext_pos].astype(np.int32)
+    if isinstance(key, tuple):  # composite: ownership by the combined word
+        key, klo, val = _unique_rows3(key[0], key[1], val)
+        own = shard_of((key, klo), w)
+    else:
+        key, val = _unique_pairs(key, val)
+        klo = None
+        own = shard_of(key, w)
+    counts = np.bincount(own, minlength=w).astype(np.int64)
+    cmax = int(counts.max()) if counts.size else 0
+    cap = max(pow2_capacity(cmax), round_capacity(int(capacity or 1)))
+    if narrow is None:
+        narrow = single_word_hi(len(key_pos)) and (key.size == 0
+                                                   or key.max() < SENTINEL32)
+    narrow = narrow and single_word_hi(len(key_pos))
+    kdt, sent = (np.int32, SENTINEL32) if narrow else (np.int64, SENTINEL)
+    out_k = np.full((w, cap), sent, kdt)
+    out_v = np.zeros((w, cap), np.int32)
+    out_lo = None if klo is None else np.full((w, cap), SENTINEL, np.int64)
+    # rows are lex-sorted by (key[, lo], val); a stable sort by owner
+    # keeps each shard's rows sorted, the IndexData invariant
+    order = np.argsort(own, kind="stable")
+    sk, sv = key[order].astype(kdt), val[order]
+    sl = klo[order] if klo is not None else None
+    offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    for i in range(w):
+        lo, hi = offs[i], offs[i + 1]
+        out_k[i, :hi - lo] = sk[lo:hi]
+        out_v[i, :hi - lo] = sv[lo:hi]
+        if out_lo is not None:
+            out_lo[i, :hi - lo] = sl[lo:hi]
+    return IndexData(
+        torch.from_numpy(out_k).to(device), torch.from_numpy(out_v).to(device),
+        torch.from_numpy(counts.astype(np.int32)).to(device),
+        None if out_lo is None else torch.from_numpy(out_lo).to(device))
+
+
 def empty_index(capacity: int = 1, narrow: bool = True,
                 composite: bool = False, device=None) -> IndexData:
     """Empty IndexData; ``narrow`` applies to the hi word only (a composite

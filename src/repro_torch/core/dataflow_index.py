@@ -34,6 +34,20 @@ class VersionedIndex:
     def static(cls, data: IndexData) -> "VersionedIndex":
         return cls((data,), ())
 
+    def worker_shard(self, i: int = 0) -> "VersionedIndex":
+        """Worker ``i``'s slice of a sharded index whose regions carry a
+        leading [w] worker axis (``csr.build_sharded_index``): views, no
+        copy.  The mesh's owners answer their requests from it."""
+        def strip(d: IndexData) -> IndexData:
+            return IndexData(d.key[i], d.val[i], d.n[i],
+                             None if d.lo is None else d.lo[i])
+        return VersionedIndex(tuple(strip(p) for p in self.pos),
+                              tuple(strip(n) for n in self.neg))
+
+    def live_entries(self) -> int:
+        """Total live rows over every region (and every worker shard)."""
+        return int(sum(int(d.n.sum()) for d in self.pos + self.neg))
+
     # ---- queries (vectorized over probe batch [B]) ------------------------
 
     def ranges(self, qkey: PackedKey

@@ -732,6 +732,52 @@ class RegionStore:
             self.ratchet.observe(("delta", rel), P)
         return P
 
+    def kernel_coverage(self, update_batch: int = 64) -> dict:
+        """Per-relation kernel-launch evidence for the coverage gate.
+
+        Runs, per relation, the exact calls a warm epoch makes and counts
+        their CUDA launches (``kernels.LAUNCHES`` deltas): the commit fold
+        over the relation's committed regions at the pinned delta capacity
+        (the value :meth:`pin_delta_marks` pins, computed without pinning)
+        and one OLD-version ``signed_member`` probe of its first
+        non-derived projection.  The ``*_pallas_calls`` keys keep the JAX
+        package's names and count the launches of the CUDA kernels that
+        replace those Pallas calls (0 on the CPU, where the plain versions
+        run).  Pure introspection: outputs are discarded, and no region,
+        mark or ratchet changes."""
+        from repro_torch import kernels
+        P = _pow2(max(int(update_batch), 1))
+        out = {}
+        for rel, st in self._rels.items():
+            cc = int(st.lc_ins.key.shape[-1])  # current committed rung
+            empty = _packed_index(np.zeros((0, st.arity), np.int32),
+                                  self.device, st.arity, capacity=P)
+            before = sum(kernels.LAUNCHES.values())
+            _commit_fold(st.lb, st.lc_ins, st.lc_del, empty, empty,
+                         cins_cap=cc, cdel_cap=cc)
+            fold_calls = sum(kernels.LAUNCHES.values()) - before
+            probe_calls = 0
+            for reg in self.projections.values():
+                if reg.rel != rel or reg.derived:
+                    continue
+                vi = reg.versioned("old")
+                composite = vi.pos[0].lo is not None
+                z64 = torch.zeros(P, dtype=torch.int64, device=self.device)
+                qk = (z64, z64) if composite else z64
+                before = sum(kernels.LAUNCHES.values())
+                vi.signed_member(qk, torch.zeros(P, dtype=torch.int32,
+                                                 device=self.device))
+                probe_calls = sum(kernels.LAUNCHES.values()) - before
+                break
+            out[rel] = {
+                "composite": st.lb.lo is not None,
+                "key_dtype": str(st.lb.key.dtype).replace("torch.", ""),
+                "fold_pallas_calls": int(fold_calls),
+                "fused_fold": bool(fold_calls == 1),
+                "probe_pallas_calls": int(probe_calls),
+            }
+        return out
+
     # ------------------------------------------------------------------
     def prepare(self, updates, weights=None) -> PreparedBatch:
         """Stage A of an update epoch: validate, degenerate-mask, pack and

@@ -1,0 +1,825 @@
+"""Distributed BiGJoin over a mesh of w workers (§3.2 / §3.4), on one card.
+
+Every extension index is hash-partitioned by its packed key
+(``owner_of``), so the cluster-wide memory is O(IN): each index entry is
+held by exactly one worker, the paper's linear-memory property.
+
+Lookups are *request/response*: a worker keeps its popped prefixes and
+sends (key) / (key, k) / (key, val) requests to the owners, the three
+distributed index services of BiGJoin-S (§3.4.1):
+
+    count     C(p)          key        -> |Ext(p)|
+    resolve   Ext-Res(p,k)  (key,k)    -> k-th extension
+    member    Ext(p·e)      (key,val)  -> membership / deletion bits
+
+Requests travel through a fixed-capacity bucketed all-to-all
+(``route_capacity`` slots per peer pair).  An overflowing request is not
+dropped: its prefix does not advance its rem-ext cursor past it this round
+and retries (backpressure, not failure).  With BiGJoin-S aggregation
+(``aggregate=True``, one request per distinct key) the balls-into-bins
+bound of Thm 3.4 makes overflow improbable at capacity O(B'/w · polylog).
+
+**The workers are a leading [w] axis on one device.**  NCCL does not put
+two ranks on one GPU, so every tensor of the dataflow carries the workers
+as its dim 0 inside one process, as the JAX package's mesh of host
+devices computes.  The three exchanges of the dataflow are in one place,
+:func:`all_to_all`, :func:`psum` and :func:`pmax`: a transpose of the
+``[w_src, w_dst, cap, ...]`` send buffer and a sum or max over dim 0 (a
+multi-card backend is a change to those three).  Per-worker arithmetic
+(queue compaction, cumsums, argsorts, searches) is batched over the
+worker axis; the owners answer their requests one owner at a time from
+their shard (``VersionedIndex.worker_shard``), so a member service is w
+calls of the membership kernel on the card.  The host reads one stack of
+global queue sizes a step to pick the level, as ``bigjoin.run_bigjoin``
+does.  Outputs stay on the producing worker; counts and counters are
+summed over the workers at the end.
+
+The JAX package's compiled-program cache, its streaming half
+(``DistDeltaBigJoin``, ``deal_seed``/``run_program``) and its dry-run
+lowering are not part of this module yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import csr
+from repro_torch.core.bigjoin import (BigJoinConfig, Indices, LevelQueue,
+                                      seed_tuples_for)
+from repro_torch.core.dataflow_index import VersionedIndex
+from repro_torch.core.plan import Plan
+from repro_torch.errors import (CapacityOverflow, OVF_OUT, OVF_QUEUE,
+                                OVF_ROUTE, OVF_SEED, _KIND_BITS)
+from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+
+INF = int(np.iinfo(np.int32).max)
+
+
+# ---------------------------------------------------------------------------
+# the exchanges between workers (the only code that moves data across the
+# worker axis)
+# ---------------------------------------------------------------------------
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """[w_src, w·cap, ...] send buffers -> [w_dst, w·cap, ...] received
+    ones: block j of worker i's buffer arrives as block i of worker j's
+    (``jax.lax.all_to_all`` with split and concat axis 0)."""
+    w = x.shape[0]
+    return x.reshape((w, w, -1) + x.shape[2:]).transpose(0, 1) \
+        .reshape(x.shape)
+
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the workers (dim 0)."""
+    return x.sum(0)
+
+
+def pmax(x: torch.Tensor) -> torch.Tensor:
+    """Max over the workers (dim 0)."""
+    return x.amax(0)
+
+
+# ---------------------------------------------------------------------------
+# hashing / partitioning
+# ---------------------------------------------------------------------------
+
+def owner_of(key, w: int):
+    """Worker owning each packed key (a composite (hi, lo) pair folds into
+    one routing word first): the hash of ``csr.shard_of``, which places
+    the shards, so routing and placement agree."""
+    return csr.shard_of(key, w)
+
+
+owner_of_np = owner_of  # the JAX package's name for its numpy form
+
+
+# region-name subsets backing each logical version (delta.py / §4.3):
+# pos regions contribute extensions, neg regions subtract membership.
+VERSION_REGIONS = {
+    "static": (("base",), ()),
+    "old": (("base", "cins"), ("cdel",)),
+    "new": (("base", "cins", "uins"), ("cdel", "udel")),
+}
+
+
+def partition_indices(plan: Plan, relations: Dict[str, np.ndarray],
+                      w: int, region_tuples: Optional[Dict] = None,
+                      device=None) -> Dict[str, VersionedIndex]:
+    """Hash-partition every index the plan needs over ``w`` workers, on
+    ``device`` (see ``csr.resolve_device``).
+
+    Static versions partition ``relations[rel]`` directly.  Delta versions
+    ("old"/"new") partition each region of the projection:
+    ``region_tuples[(rel, key_pos, ext_pos)]`` maps the region names
+    (base/cins/cdel/uins/udel) to host tuple arrays.  Every region entry
+    is owned by exactly one worker per projection: sharding never
+    replicates, it only splits.  The indices' tensors carry a leading [w]
+    axis."""
+    device = csr.resolve_device(device)
+    out: Dict[str, VersionedIndex] = {}
+    for index_id, rel, key_pos, ext_pos, version in plan.index_ids():
+        if version == "static":
+            base = csr.build_sharded_index(np.asarray(relations[rel]),
+                                           key_pos, ext_pos, w,
+                                           device=device)
+            out[index_id] = VersionedIndex((base,), ())
+            continue
+        if region_tuples is None:
+            raise ValueError(
+                f"plan index {index_id} reads version {version!r}: pass "
+                "region_tuples with base/cins/cdel/uins/udel host arrays")
+        regions = region_tuples[(rel, key_pos, ext_pos)]
+        pos_names, neg_names = VERSION_REGIONS[version]
+        arity = max(max(key_pos, default=0), ext_pos) + 1
+
+        def shard(name):
+            rows = np.asarray(regions[name])
+            if rows.ndim != 2:  # flat arrays: minimal covering arity
+                rows = rows.reshape(-1, arity)
+            return csr.build_sharded_index(rows, key_pos, ext_pos, w,
+                                           device=device)
+
+        out[index_id] = VersionedIndex(
+            tuple(shard(nm) for nm in pos_names),
+            tuple(shard(nm) for nm in neg_names))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# per-worker helpers over the leading [w] axis
+# ---------------------------------------------------------------------------
+
+def _ar(idx: torch.Tensor) -> torch.Tensor:
+    """Worker ids shaped to broadcast against ``idx`` [w, ...]."""
+    return torch.arange(idx.shape[0], device=idx.device).view(
+        (-1,) + (1,) * (idx.dim() - 1))
+
+
+def _rows(x, idx: torch.Tensor):
+    """``x[i, idx[i]]`` for every worker i (a key pair maps over its two
+    words): x [w, N, ...], idx [w, ...]."""
+    if isinstance(x, tuple):
+        return tuple(_rows(c, idx) for c in x)
+    return x[_ar(idx), idx.long()]
+
+
+def _put(dst: torch.Tensor, pos: torch.Tensor, src: torch.Tensor
+         ) -> torch.Tensor:
+    """Per worker ``dst.at[pos].set(src, mode="drop")``, into a new tensor:
+    dst [w, cap, ...], pos [w, N], src [w, N, ...]; positions outside
+    [0, cap) drop (in-range positions are unique)."""
+    cap = dst.shape[1]
+    out = torch.cat([dst, dst[:, :1]], 1)  # one slot that takes the drops
+    pos = torch.where((pos >= 0) & (pos < cap), pos, cap).long()
+    out[_ar(pos), pos] = src
+    return out[:, :cap]
+
+
+def _compact(arrays, keep: torch.Tensor):
+    """Stable-partition each worker's rows with keep=True to the front;
+    returns the new [w] sizes."""
+    perm = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    return [_rows(a, perm) for a in arrays], keep.sum(1, dtype=torch.int32)
+
+
+def _append(dsts, size: torch.Tensor, srcs, alive: torch.Tensor):
+    """Append each worker's alive rows of every src to its dst at
+    [size, ...), in place (rows past the capacity drop); returns (dsts,
+    n_new [w], overflow [w])."""
+    cap = dsts[0].shape[1]
+    a = alive.to(torch.int32)
+    cum = torch.cumsum(a, 1, dtype=torch.int32) - a
+    dest = size[:, None] + cum
+    n_new = a.sum(1, dtype=torch.int32)
+    ovf = (size + n_new) > cap
+    wi, j = (alive & (dest < cap)).nonzero(as_tuple=True)
+    at = dest[wi, j].long()
+    for d, s in zip(dsts, srcs):
+        d[wi, at] = s[wi, j]
+    return list(dsts), n_new, ovf
+
+
+def _window(arrays, size: torch.Tensor, B: int):
+    """The popped window of a queue: (W, each array's first W rows, valid
+    [w, W]) with W = min(B', capacity)."""
+    W = min(B, arrays[0].shape[1])
+    valid = torch.arange(W, dtype=torch.int32, device=size.device) < \
+        size[:, None]
+    return W, [a[:, :W] for a in arrays], valid
+
+
+def _retire(arrays, size: torch.Tensor, W: int, consumed: torch.Tensor,
+            ci: int, cursor: torch.Tensor):
+    """Write each worker's advanced window cursors into ``arrays[ci]``,
+    drop the consumed window rows and compact the live rest to the front:
+    (arrays, new sizes [w])."""
+    arrays = list(arrays)
+    arrays[ci] = arrays[ci].clone()
+    arrays[ci][:, :W] = cursor
+    w, cap = arrays[0].shape[:2]
+    live = torch.arange(cap, dtype=torch.int32, device=size.device) < \
+        size[:, None]
+    done = torch.zeros((w, cap), dtype=torch.bool, device=size.device)
+    done[:, :W] = consumed
+    return _compact(arrays, live & ~done)
+
+
+def _segment_min(x: torch.Tensor, seg: torch.Tensor, num: int):
+    """Per worker ``jax.ops.segment_min(x, seg, num)`` (int32 max where a
+    segment is empty)."""
+    out = torch.full((x.shape[0], num), INF, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce(1, seg.long(), x, reduce="amin",
+                              include_self=True)
+
+
+def _key_w(prefix: torch.Tensor, positions, dtype):
+    """Pack prefix columns [w, N, width] into a probe key [w, N] (or the
+    composite (hi, lo) pair) cast to the index key dtype."""
+    packed = csr.pack_key(tuple(prefix[..., p] for p in positions))
+    if isinstance(packed, tuple):
+        return packed
+    return packed.to(dtype)
+
+
+def _binding_key(prefix, bound_attrs, key_attrs, idx: VersionedIndex):
+    pos = [list(bound_attrs).index(a) for a in key_attrs]
+    return _key_w(prefix, pos, idx.pos[0].key.dtype)
+
+
+def _words(key) -> Tuple[torch.Tensor, ...]:
+    return key if isinstance(key, tuple) else (key,)
+
+
+def _unwords(words, composite: bool):
+    return tuple(words) if composite else words[0]
+
+
+def _clip(x: torch.Tensor, lo, hi: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: min(max(x, lo), hi)."""
+    return torch.minimum(torch.clamp(x, min=lo), hi)
+
+
+# ---------------------------------------------------------------------------
+# bounded-capacity request/response exchange
+# ---------------------------------------------------------------------------
+
+def remote_service(queries, dest: torch.Tensor, valid: torch.Tensor,
+                   reply_fn, w: int, cap: int):
+    """Route each worker's ``queries`` (a tuple of [w, B] tensors) to the
+    ``dest`` workers, apply ``reply_fn(owner, queries [w·cap]) -> tuple
+    of [w·cap]`` at every owner (to every slot of its receive buffer, the
+    empty ones included, as the JAX package does), and return (replies
+    [w, B] each, ok [w, B], recv_load [w] int64: the requests each worker
+    served).  ok=False rows overflowed their per-peer capacity and got no
+    reply."""
+    dev = dest.device
+    B = dest.shape[1]
+    dest_eff = torch.where(valid, dest, w)
+    order = torch.argsort(dest_eff, dim=1, stable=True)
+    sdest = dest_eff.gather(1, order)
+    first = torch.searchsorted(sdest, sdest, side="left").to(torch.int32)
+    slot = torch.arange(B, dtype=torch.int32, device=dev) - first
+    ok_sorted = (sdest < w) & (slot < cap)
+    flat = torch.where(ok_sorted, sdest * cap + slot, w * cap)
+
+    def scatter(x):
+        buf = torch.zeros((w, w * cap), dtype=x.dtype, device=dev)
+        return _put(buf, flat, x.gather(1, order))
+
+    send = [scatter(q) for q in queries]
+    sent_mask = scatter(torch.ones((w, B), dtype=torch.int32, device=dev))
+    recv = [all_to_all(x) for x in send]
+    recv_mask = all_to_all(sent_mask) > 0
+    at_owner = [reply_fn(o, tuple(x[o] for x in recv)) for o in range(w)]
+    back = [all_to_all(torch.stack(col)) for col in zip(*at_owner)]
+
+    # row i's reply sits at (dest[i], slot of row i)
+    slot_of_row = torch.zeros((w, B), dtype=torch.int32, device=dev) \
+        .scatter(1, order, slot)
+    ok = torch.zeros((w, B), dtype=torch.bool, device=dev) \
+        .scatter(1, order, ok_sorted) & valid
+    gidx = torch.clamp(dest * cap + slot_of_row, 0, w * cap - 1).long()
+    replies = tuple(x.gather(1, gidx) for x in back)
+    recv_load = recv_mask.sum(1)  # int64
+    return replies, ok, recv_load
+
+
+def dedup_requests(key, valid: torch.Tensor):
+    """BiGJoin-S aggregation (§3.4.2): collapse duplicate request keys of
+    each worker.
+
+    ``key`` is one [w, B] tensor or a tuple of them (composite keys dedup
+    on the exact word tuple, never on a lossy hash).  Returns (rep_idx
+    [w, B] -> representative row, is_rep [w, B]).  Only representative
+    rows are routed; replies are read through rep_idx."""
+    keys = _words(key)
+    w, B = keys[0].shape
+    dev = keys[0].device
+    skeys = tuple(torch.where(valid, k, torch.iinfo(k.dtype).max)
+                  for k in keys)
+    if len(skeys) == 1:
+        order = torch.argsort(skeys[0], dim=1, stable=True)
+        sk = skeys[0].gather(1, order)
+        first = torch.searchsorted(sk, sk, side="left")
+    else:
+        # lexsort with skeys[0] primary: stable sorts from the last word up
+        order = torch.arange(B, device=dev).expand(w, B)
+        for k in reversed(skeys):
+            order = order.gather(
+                1, torch.argsort(k.gather(1, order), dim=1, stable=True))
+        sk = tuple(k.gather(1, order) for k in skeys)
+        starts = torch.zeros((w, B), dtype=torch.bool, device=dev)
+        starts[:, :1] = True
+        for c in sk:
+            starts[:, 1:] |= c[:, 1:] != c[:, :-1]
+        # index of each sorted row's group head: running max of the starts
+        first = torch.cummax(torch.where(
+            starts, torch.arange(B, device=dev), 0), dim=1).values
+    rep_sorted = order.gather(1, first)
+    rep_idx = torch.zeros((w, B), dtype=torch.int64, device=dev) \
+        .scatter(1, order, rep_sorted)
+    is_rep = torch.zeros((w, B), dtype=torch.bool, device=dev) \
+        .scatter(1, rep_idx, True) & valid
+    return rep_idx.to(torch.int32), is_rep
+
+
+# ---------------------------------------------------------------------------
+# the three index services
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    base: BigJoinConfig
+    num_workers: int
+    route_capacity: int  # per peer-pair slots; <= batch
+    aggregate: bool = True  # BiGJoin-S request dedup (§3.4.2)
+    balance: bool = False  # BiGJoin-S Balance operator (§3.4.2)
+    max_steps: int = 1 << 30
+
+
+def _request(queries, dest, valid, reply, w, cap, dedup_key=None):
+    """One service call: ``remote_service`` of the valid rows, or with
+    BiGJoin-S aggregation when ``dedup_key`` is given (one request per
+    distinct key, each row reading its representative's reply).  Returns
+    (reply [w, B], ok [w, B], recv_load [w]); invalid rows count as ok."""
+    if dedup_key is None:
+        (out,), ok, load = remote_service(queries, dest, valid, reply, w,
+                                          cap)
+        return out, ok | ~valid, load
+    rep_idx, is_rep = dedup_requests(dedup_key, valid)
+    (out,), ok, load = remote_service(queries, dest, is_rep, reply, w, cap)
+    return _rows(out, rep_idx), _rows(ok, rep_idx) | ~valid, load
+
+
+def _remote_count(idx: VersionedIndex, qkey, dest, valid, w, cap,
+                  aggregate):
+    composite = isinstance(qkey, tuple)
+
+    def reply(o, q):
+        return (idx.worker_shard(o).count(_unwords(q, composite)),)
+
+    return _request(_words(qkey), dest, valid, reply, w, cap,
+                    qkey if aggregate else None)
+
+
+def _remote_resolve(idx: VersionedIndex, qkey, k, dest, valid, w, cap):
+    composite = isinstance(qkey, tuple)
+
+    def reply(o, q):
+        shard = idx.worker_shard(o)
+        starts, counts = shard.ranges(_unwords(q[:-1], composite))
+        return (shard.gather(starts, counts, q[-1]),)
+
+    return _request(_words(qkey) + (k,), dest, valid, reply, w, cap)
+
+
+def _remote_member(idx: VersionedIndex, qkey, qval, dest, valid, w, cap,
+                   aggregate):
+    composite = isinstance(qkey, tuple)
+
+    def reply(o, q):
+        # membership and deletion bits of every region in one call: on
+        # the card one launch of the membership kernel at each owner
+        mem, dele = idx.worker_shard(o).signed_member(
+            _unwords(q[:-1], composite), q[-1])
+        return (mem.to(torch.int32) | (dele.to(torch.int32) << 1),)
+
+    # dedup on the exact (key, val) tuple: packed into one word for narrow
+    # int32 keys, an explicit word tuple for composite keys; wide int64
+    # single-word keys cannot widen losslessly, so they skip aggregation
+    if composite:
+        pair = qkey + (qval.to(torch.int64),)
+    elif qkey.dtype == torch.int32:
+        pair = (qkey.to(torch.int64) << 32) | qval.to(torch.int64)
+    else:
+        pair = None
+    bits, ok, load = _request(_words(qkey) + (qval,), dest, valid, reply, w,
+                              cap, pair if aggregate else None)
+    return (bits & 1) > 0, (bits & 2) > 0, ok, load
+
+
+# ---------------------------------------------------------------------------
+# the dataflow state, every field with a leading [w] worker axis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DistState:
+    queues: Tuple[LevelQueue, ...]  # prefix [w, cap, width], size [w]
+    out_buf: torch.Tensor  # [w, Ocap, m] int32 (Ocap 1 in count mode)
+    out_weight: torch.Tensor  # [w, Ocap] int32
+    out_n: torch.Tensor  # [w] int32
+    out_count: torch.Tensor  # [w] int64 weighted output count
+    overflow: torch.Tensor  # [w] int32 OVF_* bitmask
+    proposals: torch.Tensor  # [w] int64
+    intersections: torch.Tensor  # [w] int64
+    recv_load: torch.Tensor  # [w] int64 requests served
+
+
+def make_state(plan: Plan, cfg: BigJoinConfig, w: int, device,
+               seed_capacity: int) -> DistState:
+    m = plan.query.num_attrs
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros((w,) + shape, dtype=dtype, device=device)
+
+    queues = []
+    for width in range(plan.seed_width, m):
+        cap = seed_capacity if width == plan.seed_width \
+            else cfg.queue_capacity()
+        queues.append(LevelQueue(zeros(cap, width), zeros(cap), zeros(cap),
+                                 zeros()))
+    ocap = cfg.out_capacity if cfg.mode == "collect" else 1
+    return DistState(tuple(queues), zeros(ocap, m), zeros(ocap), zeros(),
+                     zeros(dtype=torch.int64), zeros(),
+                     zeros(dtype=torch.int64), zeros(dtype=torch.int64),
+                     zeros(dtype=torch.int64))
+
+
+def _emit(plan: Plan, cfg: BigJoinConfig, li: int, state: DistState,
+          queues, new_prefix, weight, alive):
+    """Push the survivors of level ``li`` to the next queue, or to the
+    output (count and, in collect mode, rows) at the last level.
+    Returns (queues, out_buf, out_weight, out_n, out_count, overflow)."""
+    out_buf, out_weight = state.out_buf, state.out_weight
+    out_n, out_count = state.out_n, state.out_count
+    overflow = state.overflow
+    queues = list(queues)
+    if li == len(plan.levels) - 1:
+        out_count = out_count + (weight * alive).sum(1, dtype=torch.int64)
+        if cfg.mode == "collect":
+            perm = list(np.argsort(np.asarray(plan.attr_order)))
+            (out_buf, out_weight), n_new, ovf = _append(
+                [out_buf, out_weight], out_n,
+                [new_prefix[..., perm], weight], alive)
+            out_n = torch.clamp(out_n + n_new, max=out_buf.shape[1])
+            overflow = overflow | torch.where(ovf, OVF_OUT, 0)
+    else:
+        nxt = queues[li + 1]
+        (npfx, nk, nw), n_new, ovf = _append(
+            [nxt.prefix, nxt.k, nxt.weight], nxt.size,
+            [new_prefix, torch.zeros_like(weight), weight], alive)
+        queues[li + 1] = LevelQueue(
+            npfx, nk, nw, torch.clamp(nxt.size + n_new,
+                                      max=nxt.prefix.shape[1]))
+        overflow = overflow | torch.where(ovf, OVF_QUEUE, 0)
+    return (tuple(queues), out_buf, out_weight, out_n, out_count,
+            overflow.to(torch.int32))
+
+
+def _propose_intersect(lv, dcfg: DistConfig, indices, wprefix, wmini, r,
+                       k_off, pvalid, recv_load, qks=None):
+    """Extension-Resolve and Intersect (Fig 3) of the proposals ``t`` of
+    each worker: prefix row ``r``, extension offset ``k_off``, proposing
+    binding ``wmini[r]``.  Returns (new_prefix, alive, incomplete,
+    n_isect, recv_load)."""
+    w, cap, B = dcfg.num_workers, dcfg.route_capacity, dcfg.base.batch
+    new_bound = lv.bound_attrs + (lv.ext_attr,)
+    dev = r.device
+    if qks is None:
+        qks = [_binding_key(wprefix, lv.bound_attrs, b.key_attrs,
+                            indices[b.index_id]) for b in lv.bindings]
+    mini_r = _rows(wmini, r)
+    cand = torch.zeros((w, B), dtype=torch.int32, device=dev)
+    incomplete = torch.zeros((w, B), dtype=torch.bool, device=dev)
+    for bi, b in enumerate(lv.bindings):
+        idx = indices[b.index_id]
+        qk_r = _rows(qks[bi], r)
+        mask = pvalid & (mini_r == bi)
+        val, ok, load = _remote_resolve(idx, qk_r, k_off, owner_of(qk_r, w),
+                                        mask, w, cap)
+        cand = torch.where(mask, val, cand)
+        incomplete = incomplete | (mask & ~ok)
+        recv_load = recv_load + load
+    new_prefix = torch.cat([_rows(wprefix, r), cand[..., None]], -1)
+    alive = pvalid
+    n_isect = torch.zeros(w, dtype=torch.int64, device=dev)
+    for bi, b in enumerate(lv.bindings):
+        idx = indices[b.index_id]
+        pos = [list(new_bound).index(a) for a in b.key_attrs]
+        qk = _key_w(new_prefix, pos, idx.pos[0].key.dtype)
+        mem, dele, ok, load = _remote_member(
+            idx, qk, cand, owner_of(qk, w), pvalid, w, cap, dcfg.aggregate)
+        recv_load = recv_load + load
+        is_min = mini_r == bi
+        keep = torch.where(is_min, ~dele, mem)
+        n_isect = n_isect + (alive & ~is_min).sum(1)
+        alive = alive & (keep | ~ok)  # unanswered rows defer, not die
+        incomplete = incomplete | (pvalid & ~ok)
+    for f in lv.filters:
+        lo = new_prefix[..., list(new_bound).index(f.lo)]
+        hi = new_prefix[..., list(new_bound).index(f.hi)]
+        alive = alive & (lo < hi)
+    return new_prefix, alive, incomplete, n_isect, recv_load
+
+
+def _budget(remaining: torch.Tensor, B: int):
+    """Each row's share of the B' proposal budget, in row order: (allowed,
+    aacum) [w, W]."""
+    acum = torch.cumsum(remaining, 1, dtype=torch.int32)
+    allowed = _clip(B - (acum - remaining), 0, remaining).to(torch.int32)
+    return allowed, torch.cumsum(allowed, 1, dtype=torch.int32)
+
+
+def _expand(aacum, allowed, cursor, B: int):
+    """Proposal t of each worker -> (row r, offset k_off, pvalid)."""
+    w, W = aacum.shape
+    t = torch.arange(B, dtype=torch.int32, device=aacum.device)
+    pvalid = t < aacum[:, -1:]
+    r = torch.clamp(torch.searchsorted(aacum, t.expand(w, B).contiguous(),
+                                       side="right"), 0, W - 1)
+    r = r.to(torch.int32)
+    k_off = t - (_rows(aacum, r) - _rows(allowed, r)) + _rows(cursor, r)
+    return r, k_off, pvalid
+
+
+def _remote_counts(lv, dcfg: DistConfig, indices, wprefix, valid,
+                   recv_load):
+    """Remote count minimization: (qks, min_i, min_c, count_ok,
+    recv_load)."""
+    w, cap = dcfg.num_workers, dcfg.route_capacity
+    qks, cnts, count_ok = [], [], valid
+    for b in lv.bindings:
+        idx = indices[b.index_id]
+        qk = _binding_key(wprefix, lv.bound_attrs, b.key_attrs, idx)
+        cnt, ok, load = _remote_count(idx, qk, owner_of(qk, w), valid, w,
+                                      cap, dcfg.aggregate)
+        qks.append(qk)
+        cnts.append(cnt)
+        count_ok = count_ok & ok
+        recv_load = recv_load + load
+    tot = torch.stack(cnts, -1)
+    min_i = torch.argmin(tot, -1).to(torch.int32)
+    min_c = tot.amin(-1)
+    return qks, min_i, min_c, count_ok, recv_load
+
+
+# ---------------------------------------------------------------------------
+# the distributed level branch (bigjoin's level step with remote lookups
+# and rem-ext deferral backpressure)
+# ---------------------------------------------------------------------------
+
+def _build_dist_level(plan: Plan, dcfg: DistConfig, li: int):
+    lv = plan.levels[li]
+    B = dcfg.base.batch
+
+    def branch(state: DistState, indices: Indices) -> DistState:
+        qu = state.queues[li]
+        W, (wprefix, wk, wweight), valid = _window(
+            [qu.prefix, qu.k, qu.weight], qu.size, B)
+
+        qks, min_i, min_c, count_ok, recv_load = _remote_counts(
+            lv, dcfg, indices, wprefix, valid, state.recv_load)
+        remaining = torch.where(valid & count_ok,
+                                torch.clamp(min_c - wk, min=0), 0)
+        allowed, aacum = _budget(remaining, B)
+        r, k_off, pvalid = _expand(aacum, allowed, wk, B)
+
+        new_prefix, alive, incomplete, n_isect, recv_load = \
+            _propose_intersect(lv, dcfg, indices, wprefix, min_i, r, k_off,
+                               pvalid, recv_load, qks)
+        weight = _rows(wweight, r)
+
+        # rem-ext deferral: advance each prefix past its last complete
+        # contiguous proposal only; later survivors retry next round
+        inc_off = torch.where(incomplete, k_off, INF)
+        first_inc = _segment_min(inc_off, r, W)
+        advance = _clip(torch.minimum(first_inc, wk + allowed) - wk, 0,
+                        allowed)
+        consumed = valid & count_ok & (wk + advance >= min_c)
+        before = k_off < _rows(first_inc, r)
+        alive = alive & before
+        n_proposed = (pvalid & before).sum(1)
+
+        # retire consumed prefixes (identical to the single-host branch)
+        (pfx, kk, ww), nsz = _retire([qu.prefix, qu.k, qu.weight], qu.size,
+                                     W, consumed, 1, wk + advance)
+        queues = list(state.queues)
+        queues[li] = LevelQueue(pfx, kk, ww, nsz)
+        queues, out_buf, out_weight, out_n, out_count, overflow = _emit(
+            plan, dcfg.base, li, state, queues, new_prefix, weight, alive)
+        return DistState(queues, out_buf, out_weight, out_n, out_count,
+                         overflow, state.proposals + n_proposed,
+                         state.intersections + n_isect, recv_load)
+
+    return branch
+
+
+def build_dist_step(plan: Plan, dcfg: DistConfig):
+    """``step((state, pieces), indices, qsizes, psizes)``: one lock-step
+    dataflow step.  Workers must agree on the branch (they all take part
+    in its exchanges), so it is chosen from the queue sizes summed over
+    the workers (``qsizes``; ``psizes`` the piece queues' under balance):
+    the globally deepest non-empty level."""
+    if dcfg.balance:
+        from repro_torch.core.balance import build_balanced_step
+        return build_balanced_step(plan, dcfg)
+    branches = [_build_dist_level(plan, dcfg, li)
+                for li in range(len(plan.levels))]
+
+    def step(carry, indices, qsizes, psizes):
+        state, pieces = carry
+        nz = [i for i, s in enumerate(qsizes) if s > 0]
+        deepest = nz[-1] if nz else len(branches) - 1
+        return branches[deepest](state, indices), pieces
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the whole join: seed -> drain -> sum over the workers
+# ---------------------------------------------------------------------------
+
+def build_per_worker(plan: Plan, dcfg: DistConfig, step_hook=None):
+    """The dataflow of every worker: ``fn(indices, seed [w,S,width],
+    seed_n [w], seed_w [w,S])`` -> (count, proposals, intersections,
+    steps, overflow, max_load, sum_load[, out_buf, out_weight, out_n]) as
+    host numbers (the per-worker output rows as tensors).  ``seed_w``
+    carries signed seed weights (+1/-1).  ``step_hook(i, run)``, when
+    given, makes step ``i`` by calling ``run()`` and returning its result
+    (a profiler's window around one step)."""
+    step = build_dist_step(plan, dcfg)
+    w, cap = dcfg.num_workers, dcfg.route_capacity
+    collect = dcfg.base.mode == "collect"
+    perm = list(np.argsort(np.asarray(plan.attr_order)))
+
+    def per_worker(indices: Indices, seed: torch.Tensor,
+                   seed_n: torch.Tensor, seed_w: torch.Tensor):
+        dev = seed.device
+        S = seed.shape[1]
+        state = make_state(plan, dcfg.base, w, dev, seed_capacity=S)
+
+        # seed enqueue behind the remote seed filters
+        alive = torch.arange(S, dtype=torch.int32, device=dev) < \
+            seed_n[:, None]
+        bound = tuple(plan.attr_order[:plan.seed_width])
+        route_ovf = torch.zeros(w, dtype=torch.int32, device=dev)
+        for b in plan.seed_filters:
+            idx = indices[b.index_id]
+            qk = _binding_key(seed, bound, b.key_attrs, idx)
+            qv = seed[..., bound.index(b.ext_attr)]
+            mem, _, ok, _ld = _remote_member(
+                idx, qk, qv, owner_of(qk, w), alive, w,
+                max(cap, S // max(w // 2, 1) + 1), dcfg.aggregate)
+            # a seed whose route slot overflowed got NO reply; dropping it
+            # would silently undercount, so flag OVF_ROUTE and escalate
+            route_ovf = route_ovf | torch.where(
+                (alive & ~ok).any(1), OVF_ROUTE, 0).to(torch.int32)
+            alive = alive & mem & ok
+        for f in plan.seed_ineq:
+            alive = alive & (seed[..., bound.index(f.lo)]
+                             < seed[..., bound.index(f.hi)])
+        state.overflow = state.overflow | route_ovf
+        wts = seed_w.to(torch.int32)
+        steps = 0
+        pieces = ()
+        if not plan.levels:
+            # the seed covers every attribute: filtered seeds ARE the
+            # outputs; nothing to drain
+            state.out_count = state.out_count + \
+                (wts * alive).sum(1, dtype=torch.int64)
+            if collect:
+                (state.out_buf, state.out_weight), n_new, ovf = _append(
+                    [state.out_buf, state.out_weight], state.out_n,
+                    [seed[..., perm], wts], alive)
+                state.out_n = torch.clamp(state.out_n + n_new,
+                                          max=state.out_buf.shape[1])
+                state.overflow = (state.overflow | torch.where(
+                    ovf, OVF_OUT, 0)).to(torch.int32)
+        else:
+            q0 = state.queues[0]
+            (npfx, nk, nw), n_new, ovf = _append(
+                [q0.prefix, q0.k, q0.weight], q0.size,
+                [seed, torch.zeros_like(wts), wts], alive)
+            state.queues = (LevelQueue(npfx, nk, nw, q0.size + n_new),) + \
+                state.queues[1:]
+            state.overflow = (state.overflow | torch.where(
+                ovf, OVF_SEED, 0)).to(torch.int32)
+            if dcfg.balance:
+                from repro_torch.core.balance import make_piece_queues
+                pieces = make_piece_queues(plan, dcfg, dev)
+            carry = (state, pieces)
+            L = len(plan.levels)
+            while steps < dcfg.max_steps:
+                st, pcs = carry
+                # ONE host read a step: every queue's size summed over
+                # the workers (the piece queues' after them)
+                sizes = torch.stack([q.size for q in st.queues]
+                                    + [p.size for p in pcs])
+                g = psum(sizes.T).tolist()
+                if not any(s > 0 for s in g):
+                    break
+                if step_hook is None:
+                    carry = step(carry, indices, g[:L], g[L:])
+                else:
+                    carry = step_hook(steps, lambda c=carry: step(
+                        c, indices, g[:L], g[L:]))
+                steps += 1
+            state, pieces = carry
+
+        count = psum(state.out_count)
+        props = psum(state.proposals)
+        isect = psum(state.intersections)
+        # per-bit sums, so distinct workers' overflow kinds OR (not add)
+        shifts = torch.arange(len(_KIND_BITS), dtype=torch.int32,
+                              device=dev)
+        bits = psum((state.overflow[:, None] >> shifts) & 1)
+        ovf = int(torch.where(bits > 0, 1 << shifts, 0).sum())
+        outs = (int(count), int(props), int(isect), steps, ovf,
+                int(pmax(state.recv_load)), int(psum(state.recv_load)))
+        if collect:
+            outs = outs + (state.out_buf, state.out_weight, state.out_n)
+        return outs
+
+    return per_worker
+
+
+@dataclasses.dataclass
+class DistJoinResult:
+    count: int
+    proposals: int
+    intersections: int
+    steps: int
+    max_load: int = 0  # max over workers of requests served (Thm 3.4)
+    mean_load: float = 0.0
+    tuples: Optional[np.ndarray] = None  # every worker's rows, in order
+    weights: Optional[np.ndarray] = None
+    worker_rows: Optional[np.ndarray] = None  # [w] rows of each worker
+
+
+def distributed_join(plan: Plan, relations: Dict[str, np.ndarray],
+                     mesh: Optional[WorkerMesh] = None,
+                     cfg: Optional[DistConfig] = None,
+                     device=None, *, indices: Optional[Indices] = None,
+                     step_hook=None) -> DistJoinResult:
+    """End-to-end distributed static join of ``relations`` on the
+    workers of ``mesh`` (default: ``cfg.num_workers`` workers, one
+    without a config, on ``device``; ``None``: the card, see
+    ``csr.resolve_device``).  The seeds are dealt to the workers in
+    contiguous blocks.  ``indices`` reuses a :func:`partition_indices`
+    of the same relations; ``step_hook`` is ``build_per_worker``'s.
+    Raises ``CapacityOverflow`` when a buffer overflowed anywhere."""
+    if mesh is None:
+        mesh = make_host_mesh(cfg.num_workers if cfg is not None else 1,
+                              device)
+    elif device is not None and torch.device(device) != \
+            torch.device(mesh.device):
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device}")
+    w = mesh.num_workers
+    dev = torch.device(mesh.device)
+    if cfg is None:
+        base = BigJoinConfig(batch=1024, mode="count")
+        cfg = DistConfig(base, w, route_capacity=max(1024 // w, 16) * 4)
+    if cfg.num_workers != w:
+        raise ValueError(f"config for {cfg.num_workers} workers on a mesh "
+                         f"of {w}")
+    if indices is None:
+        indices = partition_indices(plan, relations, w, device=dev)
+    seed = seed_tuples_for(plan, relations)
+    sw = plan.seed_width
+    n = seed.shape[0]
+    per = -(-n // w)
+    pad = np.zeros((per * w - n, sw), np.int32)
+    chunks = np.concatenate([seed, pad]).reshape(w, per, sw)
+    # the real seeds of each block: the JAX package gives the last block
+    # ``per - pad``, which with fewer than w² seeds counts padding rows of
+    # the block before it as seeds (ROADMAP Queue 3); equal otherwise
+    seed_n = np.clip(n - per * np.arange(w), 0, per).astype(np.int32)
+    out = build_per_worker(plan, cfg, step_hook)(
+        indices, torch.from_numpy(chunks).to(dev),
+        torch.from_numpy(seed_n).to(dev),
+        torch.ones((w, per), dtype=torch.int32, device=dev))
+    if out[4]:
+        raise CapacityOverflow(out[4], where="distributed static join")
+    res = DistJoinResult(out[0], out[1], out[2], out[3], out[5],
+                         float(out[6]) / w)
+    if cfg.base.mode == "collect":
+        bufs, wts, ns = (out[7].cpu().numpy(), out[8].cpu().numpy(),
+                         out[9].cpu().numpy())
+        res.tuples = np.concatenate([bufs[i, :ns[i]] for i in range(w)])
+        res.weights = np.concatenate([wts[i, :ns[i]] for i in range(w)])
+        res.worker_rows = ns.astype(np.int64)
+    return res

@@ -4,7 +4,8 @@ The streaming session's inputs: ``rmat_graph`` (skewed power-law degrees,
 Graph500 parameters), the dirty :class:`EdgeUpdateStream` and the clean,
 net-balanced :func:`clean_update_batches` of the serving pool; the GNN
 trainer's graph, ``uniform_graph``; the LM's token batches,
-:class:`TokenStream`.  All are pure functions of their seed, so any run
+:class:`TokenStream`; the two-tower model's events,
+:func:`recsys_events`.  All are pure functions of their seed, so any run
 can re-derive any epoch's batch.
 """
 from __future__ import annotations
@@ -162,3 +163,23 @@ def clean_update_batches(edges: np.ndarray, num_vertices: int,
                             np.ones(len(ins), np.int32)])
         out.append((rows, w))
     return out
+
+
+def recsys_events(num_users: int, num_items: int, batch: int, step: int,
+                  table_sizes: Tuple[int, ...], multi_hot: int = 8,
+                  seed: int = 0):
+    """One batch of retrieval events: (user_feats, item_ids, labels).
+
+    user_feats: dict of categorical id arrays per embedding table,
+    ``multi_hot`` ids per example for the bag features (the EmbeddingBag
+    path); the JAX package's stream of draws.
+    """
+    rng = np.random.default_rng(seed * 7_777_777 + step)
+    feats = {}
+    for t, size in enumerate(table_sizes):
+        # zipf over table rows: hot items/users (the skew the paper fights)
+        ids = rng.zipf(1.2, size=(batch, multi_hot)) % size
+        feats[f"table_{t}"] = ids.astype(np.int32)
+    item_ids = (rng.zipf(1.2, size=(batch,)) % num_items).astype(np.int32)
+    labels = rng.integers(0, 2, size=(batch,)).astype(np.float32)
+    return feats, item_ids, labels

@@ -6,9 +6,11 @@
 ``static`` counts on a session, ``delta`` streams update batches through
 a standing registration, ``serial`` runs the Generic-Join oracle baseline
 on the host.  ``--verify`` holds the delta mode's maintained change to
-the oracle's recount of the graph before and after the stream.  Sessions run on ``--device`` (default the card).  The JAX
-driver's ``distributed`` mode needs the mesh (ROADMAP Queue 1 item 7) and
-raises.
+the oracle's recount of the graph before and after the stream.  Sessions
+run on ``--device`` (default the card).  The JAX package's ``distributed``
+mode counts on a mesh session, the streaming half of the mesh (ROADMAP
+Queue 1 item 6b), and raises; the static mesh is
+``core.distributed.distributed_join`` (``core._dist_check``).
 """
 from __future__ import annotations
 
@@ -46,8 +48,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mode == "distributed":
         raise NotImplementedError(
-            "--mode distributed needs the mesh, a later slice of the port "
-            "(ROADMAP Queue 1 item 7)")
+            "--mode distributed needs the mesh session, a later slice of "
+            "the port (ROADMAP Queue 1 item 6b)")
 
     g = Graph.from_edges(rmat_graph(args.scale, args.edge_factor,
                                     seed=args.seed))

@@ -1,7 +1,10 @@
-"""Fault-tolerant GNN training driver:
+"""Fault-tolerant training:
 ``python -m repro_torch.launch.train --arch gatedgcn``.
 
-The JAX package's driver for the GNN family, on the card:
+The JAX package's ``launch/train.py`` for the GNN and recsys families, on
+the card.  A recsys arch (``two-tower-retrieval``) runs its smoke
+config's ``smoke_run`` (three steps and a retrieval), as the JAX package
+does.  The GNN family:
   * motif features — per-vertex triangle counts from the port's BiGJoin
     (on the card), appended to the node features;
   * minibatches — GraphSAGE blocks from the neighbor sampler, flattened
@@ -144,7 +147,11 @@ def main(argv=None, device=None):
 
     from repro_torch.configs import get_arch
     spec = get_arch(args.arch)  # KeyError for an arch the port lacks
-    loss = train_gnn(spec, args, device)
+    if spec.family == "gnn":
+        loss = train_gnn(spec, args, device)
+    else:
+        m = spec.smoke_run(spec.smoke_config, device=device)
+        loss = m.get("loss_last", 0.0)
     print(f"final loss {loss:.4f}")
     return loss
 

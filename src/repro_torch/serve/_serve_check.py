@@ -484,8 +484,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.workers != 1:
         raise NotImplementedError(
-            "--workers above 1 needs the mesh, a later slice of the port "
-            "(ROADMAP Queue 1 item 7)")
+            "--workers above 1 needs the mesh pool, a later slice of the "
+            "port (ROADMAP Queue 1 item 6b)")
     if args.supervise:
         return supervise(args)
     if args.chaos:

@@ -306,6 +306,52 @@ def test_adamw_update_matches_jax(max_norm):
                                        rtol=1e-6, atol=1e-7, err_msg=k)
 
 
+@pytest.mark.parametrize("max_norm", [1.0, 0.0])
+def test_adamw_update_sliced_matches_whole_and_jax(max_norm, monkeypatch):
+    """The update taken CHUNK elements of a leaf at a time (CHUNK = 7
+    splits every leaf of more than 7 elements unevenly; the transposed
+    leaf is not contiguous and is updated whole) is bit for bit the
+    update taken whole, and matches the JAX package's."""
+    from repro.optim import adamw_update as j_adamw_update
+    from repro_torch.optim import adamw as tadamw
+    rng = np.random.default_rng(3)
+    shapes = {"w": (5, 3), "b": (3,), "s": (2, 2, 5), "t": (4, 6)}
+    params = {k: rng.normal(size=s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: (3 * rng.normal(size=s)).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(2)]
+
+    def run(chunk):
+        monkeypatch.setattr(tadamw, "CHUNK", chunk)
+        tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+        tp["t"] = torch.from_numpy(params["t"].T.copy()).T
+        assert not tp["t"].is_contiguous()
+        opt = tadamw.adamw_init(tp)
+        norms = [float(tadamw.adamw_update(
+            tp, {k: torch.from_numpy(v) for k, v in g.items()}, opt,
+            lr=1e-2, weight_decay=0.1, max_grad_norm=max_norm))
+            for g in grads]
+        return tp, opt, norms
+
+    sp, sopt, sn = run(7)
+    wp, wopt, wn = run(1 << 24)
+    assert sn == wn
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    jopt = j_adamw_init(jparams)
+    for g in grads:
+        jparams, jopt, jgn = j_adamw_update(
+            jparams, {k: jnp.asarray(v) for k, v in g.items()}, jopt,
+            lr=1e-2, weight_decay=0.1, max_grad_norm=max_norm)
+    np.testing.assert_allclose(sn[-1], float(jgn), rtol=1e-6)
+    for k in shapes:
+        for got, whole, want in ((sp[k], wp[k], jparams[k]),
+                                 (sopt.mu[k], wopt.mu[k], jopt.mu[k]),
+                                 (sopt.nu[k], wopt.nu[k], jopt.nu[k])):
+            assert torch.equal(got, whole), k
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # checkpoint
 # ---------------------------------------------------------------------------

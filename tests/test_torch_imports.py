@@ -28,7 +28,12 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.serve.pool", "repro_torch.serve.wal",
             "repro_torch.serve._serve_check", "repro_torch.launch.serve",
             "repro_torch.launch.run_query",
-            "repro_torch.core.compilestats"} <= set(MODULES)
+            "repro_torch.core.compilestats",
+            "repro_torch.core.distributed", "repro_torch.core.balance",
+            "repro_torch.core._dist_check", "repro_torch.launch.mesh",
+            "repro_torch.launch.kernel_coverage",
+            "repro_torch.models.recsys",
+            "repro_torch.configs.recsys_family"} <= set(MODULES)
     code = (
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}:\n"
