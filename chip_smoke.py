@@ -4,7 +4,8 @@
 Phases, in order, each printed with its result and seconds:
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
-2. build    — compile the CUDA kernels from ``src/repro_torch/csrc``;
+2. build    — compile the CUDA kernels from ``src/repro_torch/csrc`` (the
+              R-MAT graphs made on the host meanwhile, ``graph``);
 3. kernels  — every kernel of the streaming engine, 1-word and composite
               (hi, lo) variant, against its plain PyTorch version on the
               card at the main path's shapes (int32 and int64 hi words),
@@ -38,14 +39,23 @@ Phases, in order, each printed with its result and seconds:
               the cache, local and global layers) with planted faults
               (an edge off by a key or a key tile, a decode chunk dropped)
               the check must reject, with compiled flex_attention's or
-              scaled_dot_product_attention's time beside them;
+              scaled_dot_product_attention's time beside them; the
+              composite rows, their edge checks, the graph check and the
+              flash rows run after phase 4 (``kernels composite``), the
+              ``tri`` relation they read enumerated on the card while the
+              verify cells run;
 4. verify   — a GraphSession over dirty update epochs, one cell per
               (scale, queries), each cell in a process of its own
               (``--verify-only``), all started together, and beside them
               the kernel-coverage gate (``launch.kernel_coverage``: no
               compile after the admission prewarm, one commit-fold launch
               per relation, composite ``tri`` included, and a probe
-              launch), a process too: each epoch's
+              launch), a process too, and the mesh's harnesses and
+              drivers at w = 4 (``_delta_dist_check``,
+              ``_nary_dist_check``, ``run_query --mode distributed
+              --verify``, ``_serve_check --workers 4 --chaos`` with
+              ``dist.program`` faults), each a process that must exit 0
+              with its exact line: each epoch's
               signed delta equal to the numpy oracle (full
               recomputation), compaction included.  A cell
               naming an n-ary query (``4-clique-tri``, ``5-clique-quad``)
@@ -71,15 +81,15 @@ Phases, in order, each printed with its result and seconds:
               session (scale 12, triangle,4-clique-tri, ``lo`` leaves and
               a derived projection, B on the ``_lex`` kernels); §5.4 on the
               card (tri rows and 4-cliques through tri at scale 12 against
-              the host oracle, at scale 14 against a static symmetric
+              the host oracle, at scale 13 against a static symmetric
               4-clique count on the card); and the public folds of ``csr``
               on the card against the same calls on CPU copies, bit for
-              bit, over the scale-20 edge set and the scale-14 ``tri``
+              bit, over the scale-18 edge set and the scale-14 ``tri``
               rows, at a capacity below the union too;
 7. pool     — serving: four tenants (R-MAT scale 18 each) on one
               ``SessionPool(device="cuda")`` with a fsynced WAL and a
               snapshot every 4 epochs under ``build/pool``; three take
-              12 dirty batches of 2,048 at coalesce 1, one bursts of 8
+              8 dirty batches of 2,048 at coalesce 1, one bursts of 8
               clean batches of 256 at coalesce 8; every epoch's delta
               equal to an isolated session's fed the batches the
               tenant's WAL logged, every session kernel launched by the
@@ -101,14 +111,36 @@ Phases, in order, each printed with its result and seconds:
               (composite keys, the ``_lex`` membership kernel), each bit
               for bit the host's (every counter, each worker's tuples and
               weights in order) and the single-device count; then the
-              triangle count at scale 16, B' 65,536 a worker, plain and
+              triangle count at scale 14, B' 65,536 a worker, plain and
               balanced, equal to the single-device engine's, every shard
               entry owned once: seconds, steps, loads, member launches,
               peak memory, the idle share of a profiled step;
-10. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
+10. mesh stream — Delta-BiGJoin on the worker-sharded store (the paper's
+              §4, memory split w = 4 ways), mesh ``GraphSession``s on the
+              card: (a) triangle and diamond at R-MAT scale 10, 6 epochs
+              of 256 dirty updates, plain and balanced, and the §5.4 pair
+              at scale 9 (triangle feeding ``tri``, 4-clique-tri over it),
+              each bit for bit the same session's on the host (a spawned
+              process each, beside the card's): every epoch's tuples and
+              weights in order, count_delta and the final snapshot; one
+              launch of the commit fold's worker axis a relation or
+              projection fold and epoch (``commit_fold_lex_w`` for
+              ``tri``); (b) triangle on the scale-18 graph at w = 4 (B'
+              and route from ``auto_sizing``), 8 epochs of 2,048 plain,
+              then the snapshot restored into a balanced session for 4
+              more, every epoch's canonical delta equal to the one-device
+              session's on the card, every shard entry owned once: epoch
+              p50/p99, steps, launches an epoch, live entries a worker,
+              peak memory, the idle share of a profiled epoch; and the
+              kernel rows of the fold's worker axis (``commit_fold_w``
+              over that store's projection, ``commit_fold_lex_w`` over the
+              ``tri`` store of (a)) at those shapes, one worker's delta
+              empty, bit for bit the plain version on host copies, timed
+              against w launches of the one-region kernel on the shards;
+11. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
               defaults to step 10, relaunched to step 20: it resumes from
               its checkpoint and ends with a finite loss;
-11. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
+12. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
               shape) on a 232,965-node graph: triangle features from the
               port's BiGJoin on the card, sampled union graphs, the
               segment_sum kernel against its plain version at that shape
@@ -117,20 +149,20 @@ Phases, in order, each printed with its result and seconds:
               equal), the first step against the host's, then
               6 steps: step ms, peak memory, idle share of a profiled step,
               2 segment_sum launches per layer and step;
-12. train archs — one step of each GNN arch at smoke width and of a
+13. train archs — one step of each GNN arch at smoke width and of a
               graph_reg batch, the card's loss against the host's;
-13. train recsys — the two-tower model: one smoke step against the host
+14. train recsys — the two-tower model: one smoke step against the host
               (loss, gradient norm), then full width (10M, 1M and 100k-row
               tables, 1M items, embed 256, towers 1024-512-256, f32, the
               EmbeddingBag through segment_sum): 5 steps of 65,536 events,
               step ms, peak memory, idle share of a profiled step, then
               serve_p99 (512 events) and one query against 1,000,000
               candidates (top 100);
-14. lm verify — the LM transformer on the card against the host, f32 on
+15. lm verify — the LM transformer on the card against the host, f32 on
               both: the yi-34b, gemma-7b and gemma2-2b smoke configs
               (forward, loss, prefill, 4 decode steps) and gemma2-2b at
               full width and depth 2 on a 4,160-token request;
-15. lm serve gemma2-2b — full width and depth, bf16, random parameters
+16. lm serve gemma2-2b — full width and depth, bf16, random parameters
               from the seed: 4 prompts of 8,192 tokens, prefill and 32
               greedy decode steps, 3 rounds (1 cold) and one profiled
               prefill and decode step; decode held against prefill; 26
@@ -263,6 +295,12 @@ KERNEL_FUNCS = {
 }
 
 
+def kernel_of(variant: str) -> str:
+    """The kernel of a launch name: ``commit_fold_lex_w`` ->
+    ``commit_fold`` (``kernels.VARIANTS_OF``)."""
+    return variant.removesuffix("_w").removesuffix("_lex")
+
+
 def _device_events(prof):
     """(name, microseconds, start, end) of every activity the profiler
     recorded on the card, read from the raw Kineto records: building the
@@ -294,7 +332,7 @@ def device_ms(fn, reps: int, kernel: str, names=None, seen=None,
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    names = names or KERNEL_FUNCS[kernel.removesuffix("_lex")]
+    names = names or KERNEL_FUNCS[kernel_of(kernel)]
     per_call = {n: (per_call or {}).get(n, 1) for n in names}
     want = reps * sum(per_call.values())
     best, best_got = None, 0
@@ -408,7 +446,7 @@ def idle_share(fn, by_name=None, per_call=None):
         torch.cuda.synchronize()
         wall = time.time() - t
     after = kernels.launches()
-    expected = sum((after[k] - before[k]) * per_call[k.removesuffix("_lex")]
+    expected = sum((after[k] - before[k]) * per_call[kernel_of(k)]
                    for k in after)
     evs = _device_events(prof)
     if by_name is not None:
@@ -1753,11 +1791,13 @@ def verify_only(checks, update_batch: int, seed: int) -> int:
     return 0
 
 
-def verify_cells(checks, update_batch: int, seed: int) -> dict:
+def verify_cells(checks, update_batch: int, seed: int,
+                 meanwhile=None) -> dict:
     """Every verify cell in a process of its own (``--verify-only``), all
     started together: the cells are independent and bound by the host's
-    numpy oracle, so they overlap on the host's cores.  Each must exit 0
-    and print its launch counts; returns them summed."""
+    numpy oracle, so they overlap on the host's cores, and ``meanwhile()``
+    runs in this process while they do.  Each must exit 0 and print its
+    launch counts; returns them summed."""
     from concurrent.futures import ThreadPoolExecutor
     procs = [(cell_spec(*c), subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--verify-only",
@@ -1766,6 +1806,8 @@ def verify_cells(checks, update_batch: int, seed: int) -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         for c in checks]
     try:
+        if meanwhile is not None:
+            meanwhile()
         with ThreadPoolExecutor(len(procs)) as ex:
             outs = list(ex.map(lambda sp: sp[1].communicate(timeout=900),
                                procs))
@@ -1931,7 +1973,7 @@ TXN_LOCKSTEP = 6  # then epochs 4-9 on A and the restored B in lockstep
 TXN_B_EDGES = 1024  # B is built over these first edges only
 TXN_NARY_SCALE = 12  # the composite session's R-MAT scale
 TXN_NARY_EPOCHS = (2, 2)  # its epochs before / after the restore
-OPT_SCALES = (12, 14)  # §5.4: against the host oracle / a card count
+OPT_SCALES = (12, 13)  # §5.4: against the host oracle / a card count
 TXN_FAULTS = ("store.commit.fold@2", "store.normalize@1")
 OPT_CFG = dict(batch=8192, seed_chunk=8192)  # §5.4 on the card
 FOLD_SAMPLE = 65_536  # rows of the public folds' second region
@@ -2224,8 +2266,9 @@ def opt_phase(seed, total):
 def public_folds_phase(edges, tri, seed):
     """Step 6: ``merge_index``, ``diff_index`` and ``intersect_index`` on
     the card (the rank kernels) against the same calls on CPU copies (the
-    plain searches), bit for bit with the padding, over the scale-20
-    edge set and the scale-14 ``tri`` rows (composite) with a region of
+    plain searches), bit for bit with the padding, over the scale-18
+    edge set (the scale-20 one until the mesh stream) and the scale-14
+    ``tri`` rows (composite) with a region of
     65,536 rows, half of them in the relation: the whole relation merged
     with the small region (as a compaction merges), the small region
     less and within the relation (as a commit probes), each at a
@@ -2284,7 +2327,7 @@ def public_folds_phase(edges, tri, seed):
     return out
 
 
-def txn_phase(edges, nv, update_batch, seed, built):
+def txn_phase(edges, nv, update_batch, seed, built, fold_edges=None):
     """Transactions on the card: restore and lockstep, faults, the
     composite form, §5.4 and the public folds.  Returns the kernel counts
     of the sessions and BiGJoin runs (the folds' checks excluded)."""
@@ -2295,7 +2338,8 @@ def txn_phase(edges, nv, update_batch, seed, built):
              ("nary", lambda: txn_nary(seed, update_batch, total)),
              ("§5.4", lambda: opt_phase(seed, total)),
              ("folds", lambda: public_folds_phase(
-                 edges, built["tri"][1], seed)))
+                 edges if fold_edges is None else fold_edges,
+                 built["tri"][1], seed)))
     for label, fn in steps:
         _, secs = timed(fn)
         log(f"  txn step {label}: {secs:.2f} s")
@@ -2309,11 +2353,11 @@ def txn_phase(edges, nv, update_batch, seed, built):
 
 POOL_SCALE = 18  # four tenants hold the serve 20:triangle cell's edges
 POOL_TENANTS = 4
-POOL_EPOCHS = 12  # timed pipelined steps
+POOL_EPOCHS = 8  # timed pipelined steps
 POOL_IDLE_STEPS = 3  # then a profiled window of about 2 s
 POOL_SNAPSHOT_EVERY = 4
 POOL_BURST = (8, 256)  # the coalescing tenant: 8 clean batches of 256
-POOL_RECOVER = "t0"  # 15 epochs: snapshot at 12, epochs 13-15 replayed
+POOL_RECOVER = "t0"  # 11 epochs: snapshot at 8, epochs 9-11 replayed
 # the subprocesses, each in a process of its own, all started together:
 # (label, module, arguments, what its output must show)
 POOL_CHILDREN = (
@@ -2373,19 +2417,20 @@ def require_apply_thread(by_thread: dict) -> None:
                              f"{threads}, not the apply thread alone")
 
 
-def start_children(root: str) -> dict:
+def start_children(root: str, children=POOL_CHILDREN) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     return {label: (time.time(), subprocess.Popen(
         [sys.executable, "-m", module] + args, env=env, cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for label, module, args, _ in POOL_CHILDREN}
+        for label, module, args, _ in children}
 
 
-def finish_children(procs: dict) -> dict:
+def finish_children(procs: dict, children=POOL_CHILDREN,
+                    what: str = "pool") -> dict:
     """Wait for every child; each must exit 0 and print what its entry of
-    POOL_CHILDREN names.  Returns each child's seconds."""
+    ``children`` names.  Returns each child's seconds."""
     from concurrent.futures import ThreadPoolExecutor
-    want = {label: mark for label, _m, _a, mark in POOL_CHILDREN}
+    want = {label: mark for label, _m, _a, mark in children}
 
     def wait(t0, p):  # each child's output and its own seconds
         out, err = p.communicate(timeout=600)
@@ -2400,7 +2445,7 @@ def finish_children(procs: dict) -> dict:
             out, err, secs[label] = futs[label].result()
             lines = out.strip().splitlines()
             shown = [ln for ln in lines if want[label] in ln]
-            log(f"  pool child {label}: rc {p.returncode}, "
+            log(f"  {what} child {label}: rc {p.returncode}, "
                 f"{secs[label]:.2f} s")
             for ln in (shown or lines)[-2:]:
                 log(f"    {ln[:600]}")
@@ -2413,7 +2458,7 @@ def finish_children(procs: dict) -> dict:
                 p.kill()
                 p.wait()
     if bad:
-        raise AssertionError(f"pool children failed: {bad}")
+        raise AssertionError(f"{what} children failed: {bad}")
     return secs
 
 
@@ -3235,7 +3280,7 @@ MESH_W = 4
 MESH_PARITY_SCALE = 10  # distributed_join on the card against the host
 MESH_PARITY_BATCH = 4096  # B' a worker (16,384 for 4-clique-tri)
 MESH_QUAD_SCALE = 6  # the composite case, 5-clique-quad over quad
-MESH_SCALE = 16  # the serve 16 cell's graph
+MESH_SCALE = 14  # the serve 14 cell's graph (16 until the mesh stream)
 MESH_BATCH = 65_536  # B' a worker at MESH_SCALE
 MESH_PROFILED_STEP = 10
 
@@ -3486,6 +3531,477 @@ def mesh_scale(graph, tri_plan, add) -> None:
                live_entries_max=int(per_worker.max()),
                live_entries_mean=float(per_worker.mean()), runs=runs)
     log("  mesh: " + json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# the mesh stream: Delta-BiGJoin over the worker-sharded store (§4), the
+# mesh GraphSession on the card
+# ---------------------------------------------------------------------------
+
+STREAM_W = 4
+STREAM_SCALE = 10  # (a) card against host: triangle, diamond
+STREAM_NARY_SCALE = 9  # (a) the §5.4 pair: tri from triangle, 4-clique-tri
+STREAM_EPOCHS = 6
+STREAM_BATCH = 256
+REAL_SCALE = 18  # (b) the pool's graph (20, the serve 20 cell's, ran
+# past the script's budget on a slow host: PERF.md §4)
+REAL_BATCH = 2048
+REAL_EPOCHS = 8  # plain, then REAL_BALANCED epochs balanced
+REAL_BALANCED = 4
+# the fold kernel's worker axis: the workers' delta rows are dropped on
+# this one, so one worker folds an empty delta
+EMPTY_WORKER = 2
+# processes of their own on the card, started beside the verify cells:
+# (label, module, arguments, what a passing run prints)
+MESH_CHILDREN = (
+    ("delta_dist_check", "repro_torch.core._delta_dist_check",
+     ["--workers", "4", "--batches", "8"], '"all_exact": true'),
+    ("nary_dist_check", "repro_torch.core._nary_dist_check",
+     ["--workers", "4", "--batches", "6"], '"all_exact": true'),
+    ("run_query distributed", "repro_torch.launch.run_query",
+     ["--mode", "distributed", "--workers", "4", "--scale", "10",
+      "--verify"], "oracle ✓"),
+    ("serve_check mesh chaos", "repro_torch.serve._serve_check",
+     ["--chaos", "--tenants", "2", "--workers", "4", "--epochs", "12",
+      "--faults", "dist.program@3,dist.program@11,store.commit.fold@6"],
+     '"oracle_exact": true'),
+)
+
+
+def folds_of(store, res) -> int:
+    """Commit-fold calls one epoch made: a relation's live-set fold and
+    each of its non-derived projections' folds, for every relation the
+    epoch's batch changed (each is ONE launch of the worker axis)."""
+    n = 0
+    for rel, (ins, dels) in res.by_rel.items():
+        if ins.size or dels.size:
+            n += 1 + sum(1 for r in store.projections.values()
+                         if r.rel == rel and not r.derived)
+    return n
+
+
+def _delta_rec(d):
+    return (None if d.tuples is None else d.tuples,
+            None if d.weights is None else d.weights, int(d.count_delta))
+
+
+def mesh_stream_run(case: str, edges, device: str, threads: int = 0):
+    """One card-against-host case of the mesh stream on ``device``:
+    ``plain``/``balanced`` triangle and diamond over ``edges``, or
+    ``nary``, triangle feeding ``tri`` and 4-clique-tri over it.  Returns
+    (per-epoch deltas of every query, final snapshot, seconds, fold calls,
+    launches); on the host it runs in a process of its own."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import GraphSession
+    from repro_torch.data.synthetic import EdgeUpdateStream
+    from repro_torch.launch.mesh import make_host_mesh
+    if threads:
+        torch.set_num_threads(threads)
+    nv = int(edges.max()) + 1
+    s = GraphSession(edges, device=device,
+                     mesh=make_host_mesh(STREAM_W, device),
+                     update_batch=STREAM_BATCH,
+                     balance=case == "balanced")
+    if case == "nary":
+        tri0, _ = s.register("triangle").enumerate()
+        s.add_relation("tri", tri0)
+        s.register("4-clique-tri")
+    else:
+        s.register("triangle")
+        s.register("diamond")
+    s.prewarm()
+    stream = EdgeUpdateStream(nv, STREAM_BATCH, seed=7)
+    live = s.edges
+    kernels.reset_launches()
+    out, folds = [], 0
+    t = time.time()
+    for step in range(STREAM_EPOCHS):
+        upd, w = stream.batch_at(step, live=live)
+        r1 = s.update(upd, w)
+        folds += folds_of(s.store, r1)
+        live = r1.advance(live)
+        rec = {n: _delta_rec(d) for n, d in r1.deltas.items()
+               if n != "4-clique-tri"}
+        if case == "nary":
+            r2 = s.update({"tri": feed_of(r1.deltas["triangle"], 3)})
+            folds += folds_of(s.store, r2)
+            rec["4-clique-tri"] = _delta_rec(r2.deltas["4-clique-tri"])
+        out.append(rec)
+    if device != "cpu":
+        sync()
+    secs = time.time() - t
+    return out, s.snapshot(), secs, folds, kernels.launches(), s
+
+
+def _host_stream(case, edges, threads):
+    out, snap, secs, folds, _l, _s = mesh_stream_run(case, edges, "cpu",
+                                                     threads)
+    return out, snap, secs, folds
+
+
+def mesh_stream_compare(case, card, host) -> None:
+    """Card and host bit for bit: every epoch's tuples and weights in
+    order and count_delta of every query, and the final snapshot."""
+    (c_out, (cl, cm), c_s, c_folds), (h_out, (hl, hm), h_s, h_folds) = \
+        card, host
+
+    def same(a, b):
+        if a is None or b is None:
+            return a is None and b is None
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    ok = len(c_out) == len(h_out) and all(
+        ce.keys() == he.keys() and all(
+            same(ce[n][0], he[n][0]) and same(ce[n][1], he[n][1])
+            and ce[n][2] == he[n][2] for n in ce)
+        for ce, he in zip(c_out, h_out))
+    snap_ok = json.dumps(cm, sort_keys=True) == \
+        json.dumps(hm, sort_keys=True) and len(cl) == len(hl) and all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(cl, hl))
+    rows = [{n: (0 if d[0] is None else int(d[0].shape[0]), d[2])
+             for n, d in e.items()} for e in c_out]
+    log(f"  mesh stream {case}: card {c_s:.2f} s, host {h_s:.2f} s; "
+        f"(rows, count_delta) by epoch {rows}; epochs bit for bit {ok}, "
+        f"snapshot ({len(cl)} leaves) bit for bit {snap_ok}; fold calls "
+        f"card {c_folds} host {h_folds}")
+    if not (ok and snap_ok and c_folds == h_folds):
+        raise AssertionError(f"mesh stream {case}: the card differs from "
+                             f"the host")
+
+
+def fold_w_row(record, name, store, proj, rows, label, reps, seed):
+    """Kernel row of the fold's worker axis at a sharded store's own
+    shapes: ``proj``'s base and committed regions, a delta of the store's
+    pinned rung drawn from ``rows`` (the relation's live rows: deletes of
+    live rows, inserts of absent ones) with worker EMPTY_WORKER's rows
+    dropped, so one worker folds an empty delta.  The kernel is held to
+    the plain version on host copies bit for bit, then timed as the other
+    rows, against ``STREAM_W`` launches of the one-region kernel on the
+    same shards."""
+    from repro_torch.core import csr
+    from repro_torch.core.delta import _degenerate_rows, rows_isin
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.merge import fold as mfold
+    w = store.shard_w
+    reg = store.projections[proj]
+    rng = np.random.default_rng(seed)
+    P = store.ratchet.peek(("delta", reg.rel))
+    n = P * w // 4  # a quarter of every worker's rung, on average
+    dels = rows[rng.choice(rows.shape[0], n, replace=False)]
+    cand = rows[rng.choice(rows.shape[0], 2 * n)].copy()
+    cand[:, -1] = rng.integers(0, int(rows.max()) + 1, 2 * n)
+    cand = cand[~_degenerate_rows(cand) & ~rows_isin(cand, rows)][:n]
+
+    def delta(r):
+        key = csr.pack_key(tuple(r[:, p] for p in reg.key_pos))
+        r = r[csr.shard_of(key, w) != EMPTY_WORKER]
+        return csr.build_sharded_index(r, reg.key_pos, reg.ext_pos, w,
+                                       capacity=P, narrow=reg.narrow,
+                                       device=DEVICE)
+    ui, ud = delta(np.unique(cand, axis=0)), delta(np.unique(dels, axis=0))
+    ba, ci, cd = reg.d_base, reg.d_cins, reg.d_cdel
+    need = int(max((ci.n + ui.n).max(), (cd.n + ud.n).max()))
+    cc = max(csr.pow2_capacity(need), ci.key.shape[-1])
+
+    def fold_k():
+        return mfold.commit_fold(ci, cd, ui, ud, base=ba, cins_cap=cc,
+                                 cdel_cap=cc, sharded=True)
+
+    def fold_p():
+        return mfold._commit_fold_sharded_ref(ci, cd, ui, ud, ba, cc, cc)
+
+    def one_region():
+        return [mfold.commit_fold(csr.shard_view(ci, k), csr.shard_view(cd, k),
+                                  csr.shard_view(ui, k), csr.shard_view(ud, k),
+                                  base=csr.shard_view(ba, k), cins_cap=cc,
+                                  cdel_cap=cc) for k in range(w)]
+
+    def host(d):
+        return csr.IndexData(*(None if x is None else x.cpu()
+                               for x in (d.key, d.val, d.n, d.lo)))
+    got = fold_k()
+    want = mfold._commit_fold_sharded_ref(*map(host, (ci, cd, ui, ud, ba)),
+                                          cc, cc)
+    sync()
+    err = max_abs_err([host(g) for g in got], want)
+    if int(ui.n[EMPTY_WORKER]) or int(ud.n[EMPTY_WORKER]):
+        raise AssertionError(f"{name}: worker {EMPTY_WORKER}'s delta is "
+                             f"not empty")
+    sep = one_region()
+    for k, (a, b) in enumerate(sep):
+        max_abs_err((a, b), (csr.shard_view(got[0], k), csr.shard_view(got[1], k)))
+    ms = cuda_ms(fold_k, reps)
+    dms = device_ms(fold_k, reps, name, names=("fold_kernel",))
+    hus = host_us(fold_k, reps)
+    pms = cuda_ms(fold_p, max(reps // 10, 2))
+    one_ms = cuda_ms(one_region, reps)
+    one_dms = device_ms(one_region, reps, name, names=("fold_kernel",),
+                        per_call={"fold_kernel": w})
+    nbytes = ops = 0
+    for k in range(w):
+        b, o = fold_work([csr.shard_view(r, k) for r in (ci, cd, ui, ud)], cc,
+                         csr.shard_view(ba, k))
+        nbytes, ops = nbytes + b, ops + o
+    grid = _build.lib("fold").repro_commit_fold_grid_w(
+        _build.region_desc([csr.shard_view(r, 0)
+                            for r in (ci, cd, ui, ud, ba)]), 5,
+        int(ba.lo is not None), cc, cc, w)
+    caps = "/".join(str(r.key.shape[-1]) for r in (ci, cd, ui, ud))
+    shape = (f"{label} w={w} caps={caps} base={ba.key.shape[-1]} out={cc} "
+             f"delta n "
+             f"{ui.n.tolist()}/{ud.n.tolist()} grid={grid}")
+    record(name, err, ms, dms, pms, nbytes, ops, None, shape, main=True,
+           host=hus)
+    row = dict(kernel=name, ms=ms, device_ms=dms, host_us=hus,
+               one_region_x_w_ms=one_ms, one_region_x_w_device_ms=one_dms,
+               grid=grid, base_n=ba.n.tolist())
+    log("  " + json.dumps({"commit_fold_worker_axis": row}))
+    return row
+
+
+def mesh_real_run(graph, table, reps, seed, add) -> dict:
+    """(b) the triangle query streamed on a w = STREAM_W mesh session over
+    ``graph`` (R-MAT scale REAL_SCALE), B' and the route from
+    ``auto_sizing(num_workers=4)``: REAL_EPOCHS epochs plain, then the
+    session's snapshot restored into a balanced mesh session for
+    REAL_BALANCED more; every epoch's canonical delta equal to the
+    one-device session's on the card over the same batches, every shard
+    entry owned once.  Then the fold's worker-axis row over its store."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import GraphSession
+    from repro_torch.core import distributed as D
+    from repro_torch.core.delta import canon_arrays
+    from repro_torch.data.synthetic import EdgeUpdateStream
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(STREAM_W, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t = time.time()
+    s = GraphSession(graph, device=DEVICE, mesh=mesh,
+                     update_batch=REAL_BATCH)
+    h = s.register("triangle")
+    s.prewarm()
+    dcfg = h.engine.dcfg  # B' and the route: auto_sizing's, w = 4
+    build_s = time.time() - t
+    t = time.time()
+    one = GraphSession(graph, device=DEVICE, update_batch=REAL_BATCH)
+    one.register("triangle")
+    one.prewarm()
+    one_build_s = time.time() - t
+    stream = EdgeUpdateStream(1 << REAL_SCALE, REAL_BATCH, seed=seed + 9)
+    live = s.edges
+    secs, one_secs, per_epoch, steps, loads = [], [], [], [], []
+    profiled = None
+
+    def epoch(sess, upd, w):
+        sync()
+        t0 = time.time()
+        r = sess.update(upd, w)
+        sync()
+        return r, time.time() - t0
+
+    # each program run's served load (requests each worker answered, Thm
+    # 3.4), read off its outputs: (the max over the workers, the mean);
+    # a failure ends the script, so the class is restored on success only
+    runs = []
+    program_call = D.DistributedProgram.__call__
+
+    def recording(self, *args):
+        out = program_call(self, *args)
+        runs.append((out[5], out[6] / self.w))
+        return out
+
+    D.DistributedProgram.__call__ = recording
+    for step in range(REAL_EPOCHS + REAL_BALANCED):
+        if step == REAL_EPOCHS:  # the same store, now balanced
+            leaves, meta = s.snapshot()
+            t0 = time.time()
+            s = GraphSession(graph[:1], device=DEVICE, mesh=mesh,
+                             update_batch=REAL_BATCH, balance=True)
+            s.restore(leaves, meta)
+            s.prewarm()
+            log(f"  mesh real: snapshot ({len(leaves)} leaves) restored "
+                f"into a balanced session in {time.time() - t0:.2f} s")
+            del leaves
+        upd, w = stream.batch_at(step, live=live)
+        before = kernels.launches()
+        n_runs = len(runs)
+        if step == REAL_EPOCHS - 1:  # one profiled plain epoch
+            box = []
+            wall, busy, idle, rec, exp = idle_share(
+                lambda: box.append(s.update(upd, w)))
+            r, dt = box[0], wall
+            profiled = dict(ms=wall * 1e3, device_busy_ms=busy * 1e3,
+                            idle_share=idle, launches_recorded=[rec, exp])
+        else:
+            r, dt = epoch(s, upd, w)
+        after = kernels.launches()
+        # the epoch's load: its plans' max and mean served loads summed
+        loads.append([float(sum(x[i] for x in runs[n_runs:]))
+                      for i in (0, 1)])
+        per_epoch.append({k: after[k] - before[k] for k in after
+                          if after[k] != before[k]})
+        add({k: after[k] - before[k] for k in after})
+        r1, dt1 = epoch(one, upd, w)
+        d, d1 = r.deltas["triangle"], r1.deltas["triangle"]
+        a = canon_arrays(d.tuples, d.weights, 3)
+        b = canon_arrays(d1.tuples, d1.weights, 3)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"mesh real epoch {step}: the mesh's delta "
+                                 f"differs from the one-device session's")
+        secs.append(dt)
+        one_secs.append(dt1)
+        steps.append(sum(x.steps for x in d.per_dq))
+        live = r.advance(live)
+        tag = " (balanced)" if step >= REAL_EPOCHS else ""
+        log(f"  mesh real epoch {step}{tag}: "
+            f"{dt * 1e3:.1f} ms (one device {dt1 * 1e3:.1f} ms), "
+            f"{0 if d.tuples is None else d.tuples.shape[0]} delta rows, "
+            f"steps {steps[-1]}, max/mean load {loads[-1]}, launches "
+            f"{per_epoch[-1]}")
+    D.DistributedProgram.__call__ = program_call
+    # every shard entry owned once, and each worker's live entries
+    st = s.store
+    per_worker = np.zeros(STREAM_W, np.int64)
+    for rel in st.relations:
+        lv = st._rels[rel]
+        for idx in (lv.lb, lv.lc_ins, lv.lc_del):
+            per_worker += idx.n.cpu().numpy()
+        if int(lv.lb.n.sum() + lv.lc_ins.n.sum() - lv.lc_del.n.sum()) != \
+                st.num_tuples(rel) or st.num_tuples(rel) != one.num_edges:
+            raise AssertionError(f"mesh real: {rel}'s live set holds "
+                                 f"{st.num_tuples(rel)} rows over its "
+                                 f"shards, the one-device store "
+                                 f"{one.num_edges}")
+    for proj, reg in st.projections.items():
+        if reg.derived:
+            continue
+        n = int(reg.d_base.n.sum() + reg.d_cins.n.sum()
+                - reg.d_cdel.n.sum())
+        for idx in (reg.d_base, reg.d_cins, reg.d_cdel):
+            per_worker += idx.n.cpu().numpy()
+        if n != st.num_tuples(reg.rel):
+            raise AssertionError(f"mesh real: projection {proj} holds {n} "
+                                 f"entries over its shards, the relation "
+                                 f"{st.num_tuples(reg.rel)}")
+    warm = np.asarray(secs[1:REAL_EPOCHS]) * 1e3
+    bal = np.asarray(secs[REAL_EPOCHS + 1:]) * 1e3
+    one_warm = np.asarray(one_secs[1:]) * 1e3
+    folds = [e.get("commit_fold_w", 0) for e in per_epoch]
+    out = dict(
+        workers=STREAM_W, scale=REAL_SCALE, edges=int(graph.shape[0]),
+        update_batch=REAL_BATCH, batch=dcfg.base.batch,
+        route_capacity=dcfg.route_capacity,
+        out_capacity=dcfg.base.out_capacity, build_s=build_s,
+        one_device_build_s=one_build_s, first_epoch_ms=secs[0] * 1e3,
+        epoch_p50_ms=float(np.percentile(warm, 50)),
+        epoch_p99_ms=float(np.percentile(warm, 99)),
+        balanced_first_ms=secs[REAL_EPOCHS] * 1e3,
+        balanced_p50_ms=float(np.percentile(bal, 50)) if bal.size else None,
+        one_device_p50_ms=float(np.percentile(one_warm, 50)),
+        steps=steps, fold_launches_per_epoch=folds,
+        load_max_mean_per_epoch=loads,
+        load_imbalance={k: sum(x[0] for x in v) / max(sum(x[1] for x in v),
+                                                      1e-9)
+                        for k, v in (("plain", loads[:REAL_EPOCHS]),
+                                     ("balanced", loads[REAL_EPOCHS:]))},
+        member_launches_per_epoch=[e.get("signed_member", 0)
+                                   + e.get("member", 0) for e in per_epoch],
+        rank_launches_per_epoch=[e.get("rank_lt_le", 0) for e in per_epoch],
+        live_entries_max=int(per_worker.max()),
+        live_entries_mean=float(per_worker.mean()),
+        compactions=st.stats.compactions,
+        live_compactions=st.stats.live_compactions,
+        escalations=st.stats.escalations,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        run_peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+        profiled_epoch=profiled)
+    log("  mesh real: " + json.dumps(out))
+    if any(f <= 0 for f in folds):
+        raise AssertionError(f"mesh real: an epoch without a worker-axis "
+                             f"fold launch: {folds}")
+    # the worker axis's kernel row over this store (its launches are not
+    # the main path's: the epochs' counts were read above)
+    proj = next(p for p, r in st.projections.items() if not r.derived)
+    fold_w_row(recorder(table), "commit_fold_w", st, proj, live,
+               "mesh real", reps, seed)
+    return out
+
+
+def mesh_stream_phase(graph20, table, reps, seed) -> dict:
+    """(a) at w = STREAM_W on the card against the host: triangle and
+    diamond over R-MAT scale STREAM_SCALE, STREAM_EPOCHS epochs of
+    STREAM_BATCH dirty updates, plain and balanced, and the §5.4 pair over
+    R-MAT scale STREAM_NARY_SCALE; the host's runs each in a spawned
+    process beside the card's, compared at the end; one worker-axis fold
+    launch a relation or projection fold and epoch, the composite ``_lex``
+    one for ``tri``; then the composite worker-axis kernel row over the
+    §5.4 store. (b) ``mesh_real_run``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.data.synthetic import rmat_graph
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    graphs = {"plain": rmat_graph(STREAM_SCALE, 16, seed=seed),
+              "nary": rmat_graph(STREAM_NARY_SCALE, 16, seed=seed)}
+    graphs["balanced"] = graphs["plain"]
+    cases = ("balanced", "plain", "nary")
+    threads = max(1, (os.cpu_count() or 2) // 4)
+    with ProcessPoolExecutor(
+            len(cases), mp_context=multiprocessing.get_context("spawn")) \
+            as pool:
+        host = {c: pool.submit(_host_stream, c, graphs[c], threads)
+                for c in cases}
+        card, nary_session = {}, None
+        for c in cases:
+            out, snap, secs, folds, counts, sess = mesh_stream_run(
+                c, graphs[c], DEVICE)
+            add(counts)
+            fold = counts["commit_fold_w"] + counts["commit_fold_lex_w"]
+            log(f"  mesh stream {c} on the card: {secs:.2f} s, worker-axis "
+                f"fold launches {fold} (one-region {counts['commit_fold']}"
+                f"+{counts['commit_fold_lex']}) for {folds} folds, member "
+                f"{counts['signed_member'] + counts['member']}"
+                f"+{counts['signed_member_lex'] + counts['member_lex']}, "
+                f"rank {counts['rank_lt_le']}+{counts['rank_lt_le_lex']}")
+            if fold != folds or counts["commit_fold"] or \
+                    counts["commit_fold_lex"]:
+                raise AssertionError(f"mesh stream {c}: {fold} worker-axis "
+                                     f"fold launches for {folds} folds")
+            if c == "nary" and not counts["commit_fold_lex_w"]:
+                raise AssertionError("mesh stream nary: no composite "
+                                     "worker-axis fold launch")
+            card[c] = (out, snap, secs, folds)
+            if c == "nary":
+                nary_session = sess
+        st = nary_session.store
+        # the coverage gate on a sharded store: one worker-axis fold
+        # launch a relation, the probe on worker 0's shard
+        cov = nary_session.kernel_coverage()
+        log(f"  mesh stream coverage (sharded, w = {STREAM_W}): "
+            + json.dumps(cov))
+        if any(c["fold_pallas_calls"] != 1 or c["probe_pallas_calls"] < 1
+               for c in cov.values()) or not cov["tri"]["composite"]:
+            raise AssertionError(f"mesh stream: sharded coverage {cov}")
+        proj = next(p for p, r in st.projections.items()
+                    if r.rel == "tri" and not r.derived)
+        fold_w_row(recorder(table), "commit_fold_lex_w", st, proj,
+                   st.relation_rows("tri"), "mesh stream tri", reps, seed)
+        del nary_session, st
+        real = mesh_real_run(graph20, table, reps, seed, add)
+        t = time.time()
+        for c in cases:
+            mesh_stream_compare(c, card[c], host[c].result(timeout=900))
+        log(f"  mesh stream: waited {time.time() - t:.2f} s for the host's "
+            f"runs")
+    return totals, real
 
 
 # ---------------------------------------------------------------------------
@@ -4229,10 +4745,11 @@ def main() -> int:
                     "kernels phase runs this in a process of its own)")
     args = ap.parse_args()
     # diamond's epochs at scale 16 take 9-25 s each on the host-bound
-    # BiGJoin loop, so that cell runs 4 epochs to keep the whole script
-    # inside its time limit on a slow host (1,175 s of phases at 6)
-    cells = args.serve or [(16, ["triangle", "diamond"], 4, None),
-                           (20, ["triangle"], 20, None),
+    # BiGJoin loop, so that cell runs 2 epochs, and serve 20 runs 8: with
+    # the mesh stream the whole script must stay inside its time limit on
+    # a slow host (PERF.md §4 lists every cut)
+    cells = args.serve or [(16, ["triangle", "diamond"], 2, None),
+                           (20, ["triangle"], 8, None),
                            (14, ["triangle", "4-clique-tri"], 7, None)]
     checks = args.verify or [
         (9, ["triangle", "diamond"], 8, None), (14, ["triangle"], 6, None),
@@ -4252,8 +4769,16 @@ def main() -> int:
     # hold the card's steps to the host's
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import VARIANTS, _build
     from repro_torch.data.synthetic import rmat_graph
+
+    # the graphs are made on the host beside the build (numpy frees the
+    # GIL): the serve cells' and the mesh stream's
+    scales = sorted({c[0] for c in cells} | {REAL_SCALE})
+    makers = ThreadPoolExecutor(len(scales))
+    made = {sc: makers.submit(rmat_graph, sc, 16, seed=args.seed)
+            for sc in scales}
 
     with phase("device"):
         kind = torch.cuda.get_device_name(0)
@@ -4283,17 +4808,39 @@ def main() -> int:
     graphs = {}
     built = {}  # n-ary relation -> (graph, rows, seconds), see relation_rows
     with phase("graph"):
-        for scale in sorted({c[0] for c in cells}):
-            graphs[scale] = rmat_graph(scale, 16, seed=args.seed)
+        for scale in scales:
+            graphs[scale] = made[scale].result()
             log(f"  rmat scale {scale}: |E|={graphs[scale].shape[0]}")
+        makers.shutdown()
 
     with phase("kernels"):
-        top = max(graphs)
+        top = max(c[0] for c in cells)
         table = kernel_phase(graphs[top], 1 << top, args.update_batch,
                              16 * args.update_batch, args.reps, args.seed)
-        tri_edges = graphs.get(TRI_SCALE)
-        if tri_edges is None:
-            tri_edges = rmat_graph(TRI_SCALE, 16, seed=args.seed)
+    tri_edges = graphs.get(TRI_SCALE)
+    if tri_edges is None:
+        tri_edges = rmat_graph(TRI_SCALE, 16, seed=args.seed)
+
+    # every session and training run below starts its kernel counts at 0
+    # and reads them after; the table's launches sum them over these runs
+    launches = {name: 0 for name in VARIANTS}
+    with phase("verify"):
+        # the kernel-coverage gate and the mesh's harnesses and drivers
+        # run beside the cells, processes too, and this process enumerates
+        # the composite rows' ``tri`` relation on the card meanwhile (its
+        # seconds share the host with the cells)
+        coverage = start_coverage()
+        mesh_children = start_children(
+            os.path.dirname(os.path.abspath(__file__)), MESH_CHILDREN)
+        counts = verify_cells(
+            checks, args.update_batch, args.seed,
+            meanwhile=lambda: relation_rows(tri_edges, "tri", built))
+        finish_coverage(coverage)
+        finish_children(mesh_children, MESH_CHILDREN, "mesh")
+        for name in VARIANTS:
+            launches[name] += counts[name]
+
+    with phase("kernels composite"):
         tri, secs = relation_rows(tri_edges, "tri", built)
         quad = random_relation(QUAD_ROWS, 4, 1 << 12, args.seed)
         log(f"  composite: tri of scale {TRI_SCALE} = {tri.shape[0]} rows "
@@ -4321,17 +4868,6 @@ def main() -> int:
                                  f"{out.returncode}): {out.stderr[-2000:]}")
         flash_rows(table, args.reps, args.seed)
 
-    # every session and training run below starts its kernel counts at 0
-    # and reads them after; the table's launches sum them over these runs
-    launches = {name: 0 for name in VARIANTS}
-    with phase("verify"):
-        # the kernel-coverage gate runs beside the cells, a process too
-        coverage = start_coverage()
-        counts = verify_cells(checks, args.update_batch, args.seed)
-        finish_coverage(coverage)
-        for name in VARIANTS:
-            launches[name] += counts[name]
-
     for scale, queries, epochs, batch in cells:
         with phase(f"serve {scale}:{','.join(queries)}"):
             edges = graphs[scale]
@@ -4353,7 +4889,8 @@ def main() -> int:
         top = graphs.get(20)
         if top is None:
             top = rmat_graph(20, 16, seed=args.seed)
-        counts = txn_phase(top, 1 << 20, args.update_batch, args.seed, built)
+        counts = txn_phase(top, 1 << 20, args.update_batch, args.seed, built,
+                           graphs.get(REAL_SCALE))
         for name in VARIANTS:
             launches[name] += counts.get(name, 0)
     with phase("pool"):
@@ -4367,6 +4904,13 @@ def main() -> int:
         if top is None:
             top = rmat_graph(MESH_SCALE, 16, seed=args.seed)
         counts = mesh_phase(top, args.seed)
+        for name in VARIANTS:
+            launches[name] += counts.get(name, 0)
+    with phase("mesh stream"):
+        top = graphs.get(REAL_SCALE)
+        if top is None:
+            top = rmat_graph(REAL_SCALE, 16, seed=args.seed)
+        counts, _real = mesh_stream_phase(top, table, args.reps, args.seed)
         for name in VARIANTS:
             launches[name] += counts.get(name, 0)
 
@@ -4388,7 +4932,7 @@ def main() -> int:
     rows = []
     for name in VARIANTS:
         r = table[name]
-        src, replaces = SOURCES[name.removesuffix("_lex")]
+        src, replaces = SOURCES[kernel_of(name)]
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=int(launches[name]),

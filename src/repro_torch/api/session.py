@@ -9,8 +9,11 @@ query → ONE commit per epoch off the shared regions.
 
 Everything runs on the card (``device="cuda"``, the default) unless the
 caller asks for the CPU, where every kernel wrapper takes its plain
-version.  Only the local (single-device) session is ported.  An update is
-a transaction (a failure rolls the store back to the epoch boundary), and
+version.  A session is local (one device's engine) or a mesh session: w
+workers as a leading tensor axis on the session's device, every region
+hash-sharded over them and every query a
+:class:`~repro_torch.core.distributed.DistDeltaBigJoin`.  An update is a
+transaction (a failure rolls the store back to the epoch boundary), and
 :meth:`GraphSession.snapshot` / :meth:`GraphSession.restore` carry a
 session's state in the JAX package's snapshot format, either way.
 """
@@ -30,7 +33,7 @@ from repro_torch.core.plan import Plan, make_plan
 from repro_torch.core.query import (EDGE, Query, fractional_edge_cover,
                                     query_by_name)
 from repro_torch.errors import (CapacityOverflow, ESCALATES_BATCH,
-                                ESCALATES_OUT)
+                                ESCALATES_OUT, ESCALATES_ROUTE)
 
 
 def _pow2(n: int) -> int:
@@ -41,24 +44,33 @@ def _pow2(n: int) -> int:
 class Sizing:
     """Derived capacities for one query (see :func:`auto_sizing`)."""
 
-    batch: int  # B' — per-step proposal budget
+    batch: int  # B' — per-step proposal budget (a worker's on a mesh)
     out_capacity: int  # collect-mode output rows per dataflow run
+    route_capacity: int  # request slots a peer pair (the mesh only)
 
 
-def auto_sizing(query: Query, num_edges: int,
+def auto_sizing(query: Query, num_edges: int, num_workers: int = 1,
                 update_batch: int = 2048) -> Sizing:
     """Capacity defaults from the AGM bound (§1.1): with |E| = IN and
     fractional edge-cover number rho*, one seed edge extends to at most
-    IN^(rho*-1) results.  ``batch`` is that bound clamped to [1024, 8192];
-    ``out_capacity`` one epoch's worst-case signed output
-    n_atoms · |dR| · IN^(rho*-1), clamped to [2^14, 2^22]."""
+    IN^(rho*-1) results.  ``batch`` is that bound clamped to [1024, 8192]
+    and split over the workers, no lower than 256; ``out_capacity`` one
+    epoch's worst-case signed output n_atoms · |dR| · IN^(rho*-1),
+    clamped to [2^14, 2^22]; ``route_capacity`` the BiGJoin-S
+    balls-into-bins regime, 4·batch/w a peer pair, floor 64
+    (``distributed.default_delta_config``'s)."""
     E = max(int(num_edges), 2)
     rho = fractional_edge_cover(query)
     per_seed = float(E) ** max(rho - 1.0, 0.0)
     batch = int(np.clip(_pow2(per_seed), 1024, 8192))
+    batch = max(batch // max(num_workers, 1), 256)
     out_rows = query.num_atoms * update_batch * per_seed
     out_capacity = int(np.clip(_pow2(out_rows), 1 << 14, 1 << 22))
-    return Sizing(batch, out_capacity)
+    return Sizing(batch, out_capacity, _route_for(batch, num_workers))
+
+
+def _route_for(batch: int, num_workers: int) -> int:
+    return max(4 * batch // max(num_workers, 1), 64)
 
 
 @dataclasses.dataclass
@@ -165,26 +177,49 @@ class GraphSession:
     """The facade: owns one dynamic graph and serves many standing queries.
 
     ``device=None`` means ``"cuda"`` and raises when CUDA is absent; pass
-    ``device="cpu"`` to run the plain versions on the host.  Only the
-    local session is ported: ``local=False`` or a ``mesh`` raise.
+    ``device="cpu"`` to run the plain versions on the host.
+
+    Engine selection: ``local=True`` runs one device's engine; ``local=
+    False`` hash-shards every region over the workers of ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.WorkerMesh`; without one,
+    ``make_host_mesh(4, device)``) and runs the request/response dataflow
+    of §3.4, with BiGJoin-S Balance under ``balance=True``.  The default,
+    ``local=None``, is local unless a ``mesh`` is given: the card is one
+    device, as the JAX rule ``mesh is None and device_count() == 1``
+    reads there.  A mesh's device must be the session's.
     ``prewarm=True`` runs :meth:`prewarm` at every :meth:`register`."""
 
     def __init__(self, initial_edges, *, device=None, local: bool = None,
-                 mesh=None, batch: Optional[int] = None,
+                 mesh=None, balance: bool = False,
+                 batch: Optional[int] = None,
                  out_capacity: Optional[int] = None,
                  update_batch: int = 2048,
                  compact_ratio: float = 0.5,
                  prewarm: bool = False):
-        if local is False or mesh is not None:
-            raise NotImplementedError(
-                "only the local single-device session is ported")
+        if local is None:
+            local = mesh is None
+        self.local = bool(local)
+        self.balance = bool(balance)
+        if mesh is not None and not self.local and device is None:
+            device = mesh.device  # the mesh names the session's device
         self.device = resolve_device(device)
+        if self.local:
+            self.mesh, self.w = None, 1
+        else:
+            from repro_torch.launch.mesh import (DEFAULT_WORKERS,
+                                                 make_host_mesh)
+            if mesh is None:
+                mesh = make_host_mesh(DEFAULT_WORKERS, self.device)
+            elif resolve_device(mesh.device) != self.device:
+                raise ValueError(f"the mesh's device {mesh.device} is not "
+                                 f"the session's {self.device}")
+            self.mesh, self.w = mesh, int(mesh.num_workers)
         self._batch_override = batch
         self._out_override = out_capacity
         self.update_batch = update_batch
-        self.store = _delta.RegionStore(initial_edges,
-                                        compact_ratio=compact_ratio,
-                                        device=self.device)
+        self.store = _delta.RegionStore(
+            initial_edges, shard_w=0 if self.local else self.w,
+            compact_ratio=compact_ratio, device=self.device)
         self.handles: Dict[str, QueryHandle] = {}
         self.epoch = 0
         self._static_plans: Dict[Query, Plan] = {}
@@ -280,21 +315,31 @@ class GraphSession:
         # derived capacities
         live = self.store.base_ratchet.capacity(
             ("sizing",), self.store.max_live or self.update_batch)
-        s = auto_sizing(q, live, self.update_batch)
+        s = auto_sizing(q, live, self.w, self.update_batch)
         b = batch or self._batch_override or s.batch
         oc = out_capacity or self._out_override or s.out_capacity
         # escalation marks are floors for every rebuilt config
         r = self.store.ratchet
         b = max(b, r.peek(("cap", "batch", q.name)))
         oc = max(oc, r.peek(("cap", "out", q.name)))
-        return Sizing(b, oc)
+        rt = max(_route_for(b, self.w),  # the route follows the final B'
+                 r.peek(("cap", "route", q.name)))
+        return Sizing(b, oc, rt)
 
     def _make_engine(self, q: Query, batch, out_capacity
                      ) -> _delta.DeltaBigJoin:
         s = self._sizing(q, batch, out_capacity)
-        cfg = BigJoinConfig(batch=s.batch, seed_chunk=s.batch,
-                            mode="collect", out_capacity=s.out_capacity)
-        return _delta.DeltaBigJoin(q, None, cfg=cfg, store=self.store)
+        if self.local:
+            cfg = BigJoinConfig(batch=s.batch, seed_chunk=s.batch,
+                                mode="collect", out_capacity=s.out_capacity)
+            return _delta.DeltaBigJoin(q, None, cfg=cfg, store=self.store)
+        from repro_torch.core.distributed import (DistDeltaBigJoin,
+                                                  default_delta_config)
+        dcfg = default_delta_config(self.w, batch=s.batch,
+                                    out_capacity=s.out_capacity,
+                                    balance=self.balance)
+        return DistDeltaBigJoin(q, None, mesh=self.mesh, dcfg=dcfg,
+                                store=self.store)
 
     # -- the epoch loop -----------------------------------------------------
     def prepare(self, updates, weights=None) -> _delta.PreparedBatch:
@@ -349,15 +394,15 @@ class GraphSession:
     def snapshot(self) -> Tuple[List[np.ndarray], dict]:
         """The session's state as ``(leaves, meta)``: the store's
         (``RegionStore.snapshot``) plus, under ``meta["session"]``, the
-        epoch counter and every handle (its DSL pattern and
-        ``net_change``) — the JAX session's format, ``w`` 1 and ``local``
-        true.  Save it with ``repro_torch.checkpoint.save_pytree(leaves,
-        ..., extra=meta)``."""
+        epoch counter, the mesh width ``w`` and ``local``, and every handle
+        (its DSL pattern and ``net_change``) — the JAX session's format.
+        Save it with ``repro_torch.checkpoint.save_pytree(leaves, ...,
+        extra=meta)``."""
         leaves, meta = self.store.snapshot()
         meta["session"] = {
             "epoch": int(self.epoch),
-            "w": 1,
-            "local": True,
+            "w": int(self.w),
+            "local": bool(self.local),
             "update_batch": int(self.update_batch),
             "handles": {name: {"pattern": pattern_of(h.query),
                                "net_change": int(h.net_change)}
@@ -366,18 +411,19 @@ class GraphSession:
         return leaves, meta
 
     def restore(self, leaves: List[np.ndarray], meta: dict) -> None:
-        """Restore a :meth:`snapshot` (of either package's local session)
-        in place: the store's regions and ratchet marks, then the epoch
-        and every handle, re-registered from its pattern with its
-        ``net_change``.  A handle already registered under the same name
-        keeps its object and subscribers."""
+        """Restore a :meth:`snapshot` (of either package's session of the
+        same mesh width and mode) in place: the store's regions and
+        ratchet marks, then the epoch and every handle, re-registered from
+        its pattern with its ``net_change``.  A handle already registered
+        under the same name keeps its object and subscribers."""
         sess = meta.get("session", {})
-        w = int(sess.get("w", 1))
-        if w != 1:
+        w = int(sess.get("w", self.w))
+        if w != self.w:
             raise ValueError(
                 f"snapshot was taken on a {w}-worker session; this one has "
-                "1 workers — failover restores onto the same mesh width")
-        if not bool(sess.get("local", True)):
+                f"{self.w} workers — failover restores onto the same mesh "
+                "width")
+        if bool(sess.get("local", self.local)) != self.local:
             raise ValueError("snapshot engine mode (local/mesh) mismatch")
         self.store.restore(leaves, meta)
         self.epoch = int(sess.get("epoch", 0))
@@ -397,7 +443,31 @@ class GraphSession:
             self._static_plans[q] = plan
         return plan
 
+    def _escalate_static(self, q: Query, exc: CapacityOverflow,
+                         s: Sizing) -> None:
+        """Static-count overflow recovery: bump the per-query marks the
+        delta engines use (``_sizing`` reads them as floors); re-raises
+        when no named buffer can grow."""
+        r = self.store.ratchet
+        changed = False
+        if exc.kinds & ESCALATES_OUT:
+            r.escalate(("cap", "out", q.name), floor=s.out_capacity)
+            changed = True
+        if exc.kinds & ESCALATES_BATCH:
+            r.escalate(("cap", "batch", q.name), floor=s.batch)
+            changed = True
+        if exc.kinds & ESCALATES_ROUTE:
+            r.escalate(("cap", "route", q.name), floor=s.route_capacity)
+            changed = True
+        if not changed:
+            raise exc
+        self.store.stats.escalations += 1
+        self.store.stats.replays += 1
+
     def _static_eval(self, q: Query, mode: str):
+        """Count or enumerate ``q`` over the live graph: one device's
+        dataflow, or on the mesh one program run (``run_program``) over
+        the sharded regions."""
         from repro_torch.core.bigjoin import seed_tuples_for
         plan = self._static_plan(q)
         seed_rel = q.atoms[plan.seed_atom].rel
@@ -408,23 +478,26 @@ class GraphSession:
         for attempt in range(_delta.DeltaBigJoin.MAX_ESCALATIONS + 1):
             s = self._sizing(q, None, None)  # re-read escalated floors
             out_cap = s.out_capacity if mode == "collect" else 1
+            cfg = BigJoinConfig(batch=s.batch, seed_chunk=s.batch,
+                                mode=mode, out_capacity=out_cap)
             try:
-                cfg = BigJoinConfig(batch=s.batch, seed_chunk=s.batch,
-                                    mode=mode, out_capacity=out_cap)
-                return run_bigjoin(plan, indices, seed, cfg=cfg,
-                                   device=self.device)
+                if self.local:
+                    return run_bigjoin(plan, indices, seed, cfg=cfg,
+                                       device=self.device)
+                from repro_torch.core.distributed import (
+                    DistConfig, get_distributed_program, run_program)
+                dcfg = DistConfig(cfg, self.w,
+                                  route_capacity=s.route_capacity,
+                                  balance=self.balance)
+                program = get_distributed_program(plan, dcfg, self.mesh)
+                return run_program(program, self.w, mode == "collect",
+                                   indices, seed,
+                                   np.ones(seed.shape[0], np.int32),
+                                   width=plan.seed_width)
             except CapacityOverflow as exc:
                 if attempt >= _delta.DeltaBigJoin.MAX_ESCALATIONS:
                     raise
-                r = self.store.ratchet
-                if not exc.kinds & (ESCALATES_OUT | ESCALATES_BATCH):
-                    raise
-                if exc.kinds & ESCALATES_OUT:
-                    r.escalate(("cap", "out", q.name), floor=s.out_capacity)
-                if exc.kinds & ESCALATES_BATCH:
-                    r.escalate(("cap", "batch", q.name), floor=s.batch)
-                self.store.stats.escalations += 1
-                self.store.stats.replays += 1
+                self._escalate_static(q, exc, s)
         raise AssertionError("unreachable")
 
     # -- introspection ------------------------------------------------------

@@ -10,9 +10,9 @@ worker.
 The split is the paper's (§3.4.2): each worker divides its local proposal
 work T_l into w contiguous chunks of C_l = ceil(T_l/w) and sends chunk j to
 worker j, so every receiver gets Σ_l C_l ≈ T/w work (±1 per sender).  A
-chunk intersects at most C_l + 1 prefix rows, so the per-peer piece
-capacity is the static bound B'//w + 2 and the exchange can never
-overflow: the balance guarantee holds deterministically.
+chunk intersects at most C_l + 1 prefix rows that carry work, so the
+per-peer piece capacity is the static bound B'//w + 2 and the exchange can
+never overflow: the balance guarantee holds deterministically.
 
 Received quadruples land in a per-level *piece queue*, drained before any
 new balance round fires (deeper level first; within a level, pieces
@@ -110,18 +110,32 @@ def _build_balance_prefix_branch(plan: Plan, dcfg: DistConfig, li: int):
         C = (T_l + w - 1) // w  # my chunk size (work per receiver)
 
         # ---- Balance (§3.4.2): chunk j of my work goes to worker j ------
+        # A chunk of C units covers at most C + 1 rows WITH work; rows
+        # without any (no extension, deferred counts) may lie between
+        # them, so the chunk's rows are found among the rows with work,
+        # kept in order (``work_rows``).  The JAX package walks every row
+        # from the chunk's first, and a chunk spanning more than
+        # cap_pair rows loses the rest of its work (ROADMAP Queue 3); where
+        # no chunk does, both send the same pieces in the same order.
+        has = allowed > 0
+        n_work = has.sum(1, dtype=torch.int32)[:, None, None]  # [w, 1, 1]
+        work_rows = torch.argsort((~has).to(torch.int32), dim=1,
+                                  stable=True).to(torch.int32)
+        acc_w = torch.where(has, aacum, T_l)  # nondecreasing once sorted
+        acc_w = _rows(acc_w, work_rows)
         j = torch.arange(w, dtype=torch.int32, device=dev)[None, :, None]
         p = torch.arange(cap_pair, dtype=torch.int32,
                          device=dev)[None, None, :]
         chunk_lo = j * C[:, :, None]  # [w, w, 1]
         chunk_hi = torch.minimum(chunk_lo + C[:, :, None], T_l[:, :, None])
-        rfirst = torch.searchsorted(aacum, chunk_lo[..., 0].contiguous(),
+        rfirst = torch.searchsorted(acc_w, chunk_lo[..., 0].contiguous(),
                                     side="right").to(torch.int32)[..., None]
-        row = torch.clamp(rfirst + p, 0, W - 1)  # [w, w, cap_pair]
+        slot = rfirst + p  # [w, w, cap_pair]: the chunk's rows with work
+        row = _rows(work_rows, torch.clamp(slot, 0, W - 1))
         lrow, arow = _rows(loff, row), _rows(aacum, row)
         pstart = torch.maximum(lrow, chunk_lo)
         pend = torch.minimum(arow, chunk_hi)
-        pvalid = ((rfirst + p) < W) & (pstart < pend) & \
+        pvalid = (slot < n_work) & (pstart < pend) & \
             (chunk_lo < T_l[:, :, None])
         kstart = _rows(wk, row) + (pstart - lrow)
         kend = kstart + (pend - pstart)

@@ -319,6 +319,23 @@ def build_sharded_index(tuples: np.ndarray, key_pos: Tuple[int, ...],
         None if out_lo is None else torch.from_numpy(out_lo).to(device))
 
 
+def shard_view(d: IndexData, k: int) -> IndexData:
+    """Worker ``k``'s region of a sharded IndexData ([w, cap], counts
+    [w]): views, no copy."""
+    return IndexData(d.key[k], d.val[k], d.n[k],
+                     None if d.lo is None else d.lo[k])
+
+
+def stack_shards(parts) -> IndexData:
+    """The sharded IndexData of per-worker regions of one capacity."""
+    parts = list(parts)
+    return IndexData(torch.stack([p.key for p in parts]),
+                     torch.stack([p.val for p in parts]),
+                     torch.stack([p.n.reshape(()) for p in parts]),
+                     None if parts[0].lo is None
+                     else torch.stack([p.lo for p in parts]))
+
+
 def empty_index(capacity: int = 1, narrow: bool = True,
                 composite: bool = False, device=None) -> IndexData:
     """Empty IndexData; ``narrow`` applies to the hi word only (a composite

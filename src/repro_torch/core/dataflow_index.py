@@ -21,7 +21,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.csr import IndexData, PackedKey, index_range
+from repro_torch.core.csr import (IndexData, PackedKey, index_range,
+                                  shard_view)
 from repro_torch.kernels.intersect.ops import signed_member
 
 
@@ -38,11 +39,8 @@ class VersionedIndex:
         """Worker ``i``'s slice of a sharded index whose regions carry a
         leading [w] worker axis (``csr.build_sharded_index``): views, no
         copy.  The mesh's owners answer their requests from it."""
-        def strip(d: IndexData) -> IndexData:
-            return IndexData(d.key[i], d.val[i], d.n[i],
-                             None if d.lo is None else d.lo[i])
-        return VersionedIndex(tuple(strip(p) for p in self.pos),
-                              tuple(strip(n) for n in self.neg))
+        return VersionedIndex(tuple(shard_view(p, i) for p in self.pos),
+                              tuple(shard_view(n, i) for n in self.neg))
 
     def live_entries(self) -> int:
         """Total live rows over every region (and every worker shard)."""

@@ -39,8 +39,16 @@ the JAX store fires them, and :meth:`RegionStore.snapshot` /
 so a session's state moves between the packages.  The admission prewarm
 (:meth:`DeltaBigJoin.prewarm`) pins the delta and probe marks to the update
 batch and loads every kernel library an epoch launches, so a warm epoch
-records no compile event (:mod:`repro_torch.core.compilestats`).  One
-device only; the mesh comes later.
+records no compile event (:mod:`repro_torch.core.compilestats`).
+
+``RegionStore(shard_w=w)`` is the mesh's store: every device region (the
+live sets' and the projections') is hash-partitioned over w workers
+(``csr.build_sharded_index``, ownership by the row's packed key), each
+tensor with a leading [w] axis and the live counts [w] vectors, so no
+worker holds O(|R|) of a relation.  The folds stay shard-local: the
+commit is ONE launch of the fold kernel's worker axis a relation and
+projection; normalize, the re-insertion probe and compaction run the
+membership and rank kernels one worker's shard at a time.
 """
 from __future__ import annotations
 
@@ -149,8 +157,19 @@ def _pow2(n: int) -> int:
     return csr.pow2_capacity(n)
 
 
-def _count_of(d: IndexData) -> int:
-    """Exact live count of a device region (one scalar pull)."""
+def _total(n) -> int:
+    return int(np.sum(n))
+
+
+def _maxn(n) -> int:
+    return int(np.max(n)) if np.ndim(np.asarray(n)) else int(n)
+
+
+def _count_of(d: IndexData):
+    """Exact live count(s) of a device region: an int for one region, a
+    [w] int64 vector for a sharded one (one pull either way)."""
+    if d.n.dim():
+        return d.n.cpu().numpy().astype(np.int64)
     return int(d.n)
 
 
@@ -159,7 +178,8 @@ def _count_of(d: IndexData) -> int:
 # ---------------------------------------------------------------------------
 
 def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
-                    w: torch.Tensor, live: VersionedIndex):
+                    w: torch.Tensor, live: VersionedIndex,
+                    shard_w: int = 0):
     """Net one padded update batch against the live set:
     (ins_hi, ins_lo, n_ins, del_hi, del_lo, n_dels) as sentinel-padded
     sorted lex word pairs.
@@ -169,7 +189,9 @@ def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
     packed LSM as the "old" versioned index (base, cins | cdel), composite
     (hi, lo) for arity > 2.  Existence is its signed membership — one kernel
     call for all three regions; under the commit invariants it equals
-    (base ∧ ¬cdel) ∨ cins."""
+    (base ∧ ¬cdel) ∨ cins.  With ``shard_w`` the regions carry a leading
+    [w] axis and a row lives on exactly one shard, so existence is the OR
+    over the workers' shards, one membership call each."""
     SENT = csr.SENTINEL
     dev = p_hi.device
     N = p_hi.shape[0]
@@ -189,7 +211,13 @@ def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
     uniq_l[idl] = ls
     zeros = torch.zeros(N, dtype=torch.int32, device=dev)
     composite = live.pos[0].lo is not None
-    exists = live.member((uniq_h, uniq_l) if composite else uniq_h, zeros)
+    qkey = (uniq_h, uniq_l) if composite else uniq_h
+    if shard_w:
+        exists = live.worker_shard(0).member(qkey, zeros)
+        for k in range(1, shard_w):
+            exists = exists | live.worker_shard(k).member(qkey, zeros)
+    else:
+        exists = live.member(qkey, zeros)
     alive = uniq_h < SENT
     ins_m = alive & (net > 0) & ~exists
     del_m = alive & (net < 0) & exists
@@ -211,50 +239,84 @@ def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
 
 def _commit_fold(base: IndexData, cins: IndexData, cdel: IndexData,
                  uins: IndexData, udel: IndexData, *, cins_cap: int,
-                 cdel_cap: int):
+                 cdel_cap: int, sharded: bool = False):
     """The committed-region fold of one epoch, merged never rebuilt:
 
         cins' = (cins \\ udel) ∪ (uins \\ cdel)
         cdel' = cdel ∪ (udel ∩ base)
 
     One fold-kernel launch; ``base`` is only probed, for the delta-sized
-    ``udel ∩ base`` bits, inside it."""
+    ``udel ∩ base`` bits, inside it.  ``sharded``: every region carries a
+    leading [w] worker axis, and the one launch folds every shard (a
+    delta entry and the committed entry it cancels share their owner)."""
     return commit_fold(cins, cdel, uins, udel, base=base, cins_cap=cins_cap,
-                       cdel_cap=cdel_cap)
+                       cdel_cap=cdel_cap, sharded=sharded)
 
 
 def _compact_fold(base: IndexData, cins: IndexData, cdel: IndexData, *,
-                  out_cap: int) -> IndexData:
+                  out_cap: int, shard_w: int = 0) -> IndexData:
     """base' = (base \\ cdel) ∪ cins — the amortized O(|base|) merge
-    (merge ranks through the rank kernel)."""
+    (merge ranks through the rank kernel); with ``shard_w`` each worker's
+    shard apart, stacked (three rank launches a shard)."""
+    if shard_w:
+        sv = csr.shard_view
+        return csr.stack_shards(
+            _compact_fold(sv(base, k), sv(cins, k), sv(cdel, k),
+                          out_cap=out_cap)
+            for k in range(shard_w))
     kept = csr._select_core(base, cdel, base.capacity, False)
     return csr._merge_core(kept, cins, out_cap)
 
 
-def _any_member(idx: IndexData, qk, qv: torch.Tensor) -> bool:
+def _any_member(idx: IndexData, qk, qv: torch.Tensor,
+                shard_w: int = 0) -> bool:
     """any((qk, qv) ∈ idx) — the eager re-insertion probe (delta-sized),
-    through the single-region membership kernel."""
+    through the single-region membership kernel (a call a worker's shard
+    with ``shard_w``, one host read)."""
     qh, ql = qk if isinstance(qk, tuple) else (qk, None)
+    if shard_w:
+        hits = [member(d.key, d.val, d.n, qh, qv, los=d.lo, ql=ql).any()
+                for d in (csr.shard_view(idx, k) for k in range(shard_w))]
+        return bool(torch.stack(hits).any())
     return bool(member(idx.key, idx.val, idx.n, qh, qv, los=idx.lo,
                        ql=ql).any())
 
 
 def _packed_index(rows: np.ndarray, device, arity: int = 2,
-                  capacity: Optional[int] = None) -> IndexData:
+                  capacity: Optional[int] = None,
+                  shard_w: int = 0) -> IndexData:
     """Packed full-row IndexData (key = the row's lex word pair — u<<32|v
     for edges, the wide (hi, lo) pair for arity 3-4 — val ≡ 0) from host
-    rows, built at ``max(capacity, pow2(rows))``."""
+    rows, built at ``max(capacity, pow2(rows))``.  With ``shard_w`` it is
+    hash-partitioned by ``csr.build_sharded_index`` (``capacity`` a
+    per-shard floor): the projections' ownership code, so a live-set row
+    and its projections' entries share their owner."""
     rows = np.asarray(rows, np.int32).reshape(-1, arity)
     rows_ext = np.concatenate(
         [rows, np.zeros((rows.shape[0], 1), np.int32)], axis=1)
+    key_pos = tuple(range(arity))
+    if shard_w:
+        return csr.build_sharded_index(rows_ext, key_pos, arity, shard_w,
+                                       capacity=capacity, narrow=False,
+                                       device=device)
     return build_index(
-        rows_ext, tuple(range(arity)), arity,
+        rows_ext, key_pos, arity,
         capacity=max(int(capacity or 0), _pow2(rows_ext.shape[0])),
         narrow=False, device=device)
 
 
-def _empty_packed(device, arity: int = 2) -> IndexData:
-    return csr.empty_index(narrow=False, composite=arity > 2, device=device)
+def _empty_packed(device, arity: int = 2, shard_w: int = 0) -> IndexData:
+    composite = arity > 2
+    if not shard_w:
+        return csr.empty_index(narrow=False, composite=composite,
+                               device=device)
+    w, SENT = int(shard_w), csr.SENTINEL
+    return IndexData(
+        torch.full((w, csr.SEG), SENT, dtype=torch.int64, device=device),
+        torch.zeros((w, csr.SEG), dtype=torch.int32, device=device),
+        torch.zeros(w, dtype=torch.int32, device=device),
+        torch.full((w, csr.SEG), SENT, dtype=torch.int64, device=device)
+        if composite else None)
 
 
 def _pad_probe(keys, vals: np.ndarray, sent, device,
@@ -286,6 +348,10 @@ def _pad_probe(keys, vals: np.ndarray, sent, device,
 class _Regions:
     """Device truth of one projection's regions (+ lazy host mirrors).
 
+    With ``shard_w > 0`` every region tensor carries a leading [w] worker
+    axis and each (key, val) entry is held by exactly one worker
+    (``csr.build_sharded_index``); the counts are [w] vectors.
+
     ``derived=True`` marks a projection whose (key, ext) columns do NOT
     cover the relation's full row (only for arity > 2, e.g. the a1->a3
     index of ``tri`` that ignores a2).  It is a lossy many-to-one image, so
@@ -301,6 +367,7 @@ class _Regions:
     ext_pos: int
     rel: str = EDGE
     rel_arity: int = 0  # the backing relation's true arity
+    shard_w: int = 0
     narrow: bool = True
     derived: bool = False
     d_base: IndexData = None
@@ -308,10 +375,11 @@ class _Regions:
     d_cdel: IndexData = None
     d_uins: IndexData = None
     d_udel: IndexData = None
-    # exact live counts (host bookkeeping, pulled once per fold)
-    n_base: int = 0
-    n_cins: int = 0
-    n_cdel: int = 0
+    # exact live counts (host bookkeeping, pulled once per fold): ints for
+    # one region, [w] int64 vectors sharded
+    n_base: object = 0
+    n_cins: object = 0
+    n_cdel: object = 0
     _mirror: dict = dataclasses.field(default_factory=dict)
     _derived_cache: dict = dataclasses.field(default_factory=dict)
     _store: object = None
@@ -330,9 +398,18 @@ class _Regions:
         store = self._store
         ratchet = store.base_ratchet if kind == "base" else store.ratchet
         key = (kind, self.rel)
-        cap = ratchet.capacity(key, rows.shape[0])
-        idx = build_index(rows, self.key_pos, self.ext_pos, capacity=cap,
-                          narrow=self.narrow, device=store.device)
+        if self.shard_w:
+            per = -(-max(rows.shape[0], 1) // self.shard_w)
+            idx = csr.build_sharded_index(
+                rows, self.key_pos, self.ext_pos, self.shard_w,
+                capacity=ratchet.capacity(key, per), narrow=self.narrow,
+                device=store.device)
+        else:
+            cap = ratchet.capacity(key, rows.shape[0])
+            idx = build_index(rows, self.key_pos, self.ext_pos, capacity=cap,
+                              narrow=self.narrow, device=store.device)
+        # a sharded build can pass the per-shard floor under skew: the
+        # rung follows the capacity built
         ratchet.observe(key, idx.key.shape[-1])
         return idx
 
@@ -362,15 +439,14 @@ class _Regions:
         return self._rows("cdel")
 
     def _materialize(self, d: IndexData) -> np.ndarray:
-        """Host tuple rows from the device (key[, lo], val) arrays, in
-        canonical row-lex order."""
-        n = int(d.n)
-        key = d.key[:n].cpu().numpy().astype(np.int64)
-        val = d.val[:n].cpu().numpy()
+        """Host tuple rows from the device (key[, lo], val) arrays (the
+        shards' live rows in worker order), in canonical row-lex order."""
+        key, val, lo = _live_parts(d)
+        key = key.astype(np.int64)
         rows = np.zeros((key.shape[0], self.arity), np.int32)
         nk = len(self.key_pos)
-        if d.lo is not None:
-            key = (key, d.lo[:n].cpu().numpy())
+        if lo is not None:
+            key = (key, lo)
         kcols = csr.unpack_key(key, nk) if nk else None
         for c, p in enumerate(self.key_pos):
             rows[:, p] = kcols[:, c]
@@ -401,7 +477,7 @@ class _Regions:
                                            ins.shape[0])
         qk, qv = _pad_probe(key, ins[:, self.ext_pos].astype(np.int32),
                             sent, self.device, cap=cap)
-        return _any_member(self.d_cdel, qk, qv)
+        return _any_member(self.d_cdel, qk, qv, self.shard_w)
 
     def versioned(self, version: str) -> VersionedIndex:
         if self.derived:
@@ -434,6 +510,21 @@ class _Regions:
             idx = self._build(rows)
             self._derived_cache[tag] = idx
         return VersionedIndex((idx,), ())
+
+
+def _live_parts(d: IndexData):
+    """(key, val, lo or None) host arrays of a region's live entries; a
+    sharded region's are its shards' in worker order."""
+    if d.n.dim():
+        ns = d.n.cpu().numpy()
+
+        def cat(t):
+            a = t.cpu().numpy()
+            return np.concatenate([a[k][:ns[k]] for k in range(ns.shape[0])])
+        return cat(d.key), cat(d.val), None if d.lo is None else cat(d.lo)
+    n = int(d.n)
+    return (d.key[:n].cpu().numpy(), d.val[:n].cpu().numpy(),
+            None if d.lo is None else d.lo[:n].cpu().numpy())
 
 
 def _diff_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -511,10 +602,17 @@ class RegionStore:
     ``initial`` is an [E, 2] edge array (sugar for ``{"edge": edges}``) or
     a dict of relations of arity 2..4; updates arrive as per-relation
     batches (``{"edge": (rows, w), "tri": ...}``).  All state lives on
-    ``device`` (``None``: the card, see ``csr.resolve_device``)."""
+    ``device`` (``None``: the card, see ``csr.resolve_device``).
 
-    def __init__(self, initial, compact_ratio: float = 0.5, device=None):
+    ``shard_w > 0`` hash-partitions every device region over that many
+    mesh workers (the distributed engine's layout, n-ary regions
+    included): ownership is by the row's packed key, so the commit folds
+    stay owner-local and no worker holds O(|R|) of a relation."""
+
+    def __init__(self, initial, shard_w: int = 0,
+                 compact_ratio: float = 0.5, device=None):
         self.device = csr.resolve_device(device)
+        self.shard_w = int(shard_w)
         self.compact_ratio = compact_ratio
         self.projections: Dict[Projection, _Regions] = {}
         self.stats = StoreStats()
@@ -534,11 +632,16 @@ class RegionStore:
     def _sync_compile_stats(self):
         self.stats.compile_events = compilestats.total() - self._compile_base
 
+    # ratcheted capacities: per-shard units when sharded
+    def _per_shard(self, n: int) -> int:
+        return -(-max(int(n), 1) // self.shard_w) if self.shard_w \
+            else max(int(n), 1)
+
     def _base_cap(self, rel: str, n: int) -> int:
-        return self.base_ratchet.capacity(("base", rel), max(int(n), 1))
+        return self.base_ratchet.capacity(("base", rel), self._per_shard(n))
 
     def _delta_cap(self, rel: str, n: int) -> int:
-        return self.ratchet.capacity(("delta", rel), max(int(n), 1))
+        return self.ratchet.capacity(("delta", rel), self._per_shard(n))
 
     def _probe_cap(self, rel: str, n: int) -> int:
         return self.ratchet.capacity(("probe", rel), max(int(n), 1))
@@ -582,12 +685,17 @@ class RegionStore:
         rows, _ = _check_batch(rel, rows.reshape(-1, ar), None, ar)
         rows = _unique_rows(rows)
         st = _RelLive(arity=ar)
+        # the live set shards like the projections (ownership by packed
+        # key), so a worker's live memory stays O(|R|/w)
         st.lb = _packed_index(rows, self.device, ar,
-                              capacity=self._base_cap(rel, rows.shape[0]))
+                              capacity=self._base_cap(rel, rows.shape[0]),
+                              shard_w=self.shard_w)
         self.base_ratchet.observe(("base", rel), st.lb.key.shape[-1])
-        st.lc_ins = _empty_packed(self.device, ar)
-        st.lc_del = _empty_packed(self.device, ar)
-        st.n_live = [rows.shape[0], 0, 0]  # base, cins, cdel
+        st.lc_ins = _empty_packed(self.device, ar, self.shard_w)
+        st.lc_del = _empty_packed(self.device, ar, self.shard_w)
+        zero = np.zeros(self.shard_w, np.int64) if self.shard_w else 0
+        nb = _count_of(st.lb) if self.shard_w else rows.shape[0]
+        st.n_live = [nb, zero, zero]  # base, cins, cdel
         st.mirror = rows
         self._rels[rel] = st
         if old is not None:
@@ -619,12 +727,13 @@ class RegionStore:
         st = self._rel(rel)
         if st.mirror is None:
             nb, nci, _ = st.n_live
-            live = _compact_fold(st.lb, st.lc_ins, st.lc_del,
-                                 out_cap=_pow2(nb + nci))
-            n = int(live.n)
-            hi = live.key[:n].cpu().numpy()
-            lo = np.zeros(n, np.int64) if live.lo is None \
-                else live.lo[:n].cpu().numpy()
+            live = _compact_fold(
+                st.lb, st.lc_ins, st.lc_del,
+                out_cap=_pow2(_maxn(np.asarray(nb) + np.asarray(nci))),
+                shard_w=self.shard_w)
+            hi, _, lo = _live_parts(live)
+            if lo is None:
+                lo = np.zeros(hi.shape[0], np.int64)
             order = np.lexsort((lo, hi))
             st.mirror = _unpack_rows(hi[order], lo[order], st.arity)
             self.stats.mirror_pulls += 1
@@ -636,7 +745,7 @@ class RegionStore:
     def num_tuples(self, rel: str) -> int:
         """Live tuple count, O(1) from tracked sizes."""
         nb, nci, ncd = self._rel(rel).n_live
-        return nb + nci - ncd
+        return _total(nb) + _total(nci) - _total(ncd)
 
     @property
     def max_live(self) -> int:
@@ -681,7 +790,8 @@ class RegionStore:
         narrow = csr.single_word_hi(len(key_pos)) and \
             (rows.size == 0 or int(rows.max()) < csr.SENTINEL32)
         reg = _Regions(key_pos, ext_pos, rel=rel, rel_arity=st.arity,
-                       narrow=narrow, derived=not covers, _store=self)
+                       shard_w=self.shard_w, narrow=narrow,
+                       derived=not covers, _store=self)
         if reg.derived:
             self.projections[proj] = reg
             return reg
@@ -689,7 +799,10 @@ class RegionStore:
         reg.d_base = reg._build(rows)
         reg.d_cins = reg._build(empty, kind="committed")
         reg.d_cdel = reg._build(empty, kind="committed")
-        reg.n_base = rows.shape[0]
+        reg.n_base = _count_of(reg.d_base) if self.shard_w \
+            else rows.shape[0]
+        reg.n_cins = reg.n_cdel = np.zeros(self.shard_w, np.int64) \
+            if self.shard_w else 0
         reg._mirror.update(base=rows, cins=empty, cdel=empty)
         # a projection ensured mid-epoch must see the staged batch
         ins, dels = self._staged_for(rel)
@@ -744,23 +857,28 @@ class RegionStore:
         package's names and count the launches of the CUDA kernels that
         replace those Pallas calls (0 on the CPU, where the plain versions
         run).  Pure introspection: outputs are discarded, and no region,
-        mark or ratchet changes."""
+        mark or ratchet changes.  A sharded store's fold is its worker
+        axis's one launch, and its probe worker 0's shard's."""
         from repro_torch import kernels
         P = _pow2(max(int(update_batch), 1))
+        sharded = bool(self.shard_w)
         out = {}
         for rel, st in self._rels.items():
             cc = int(st.lc_ins.key.shape[-1])  # current committed rung
             empty = _packed_index(np.zeros((0, st.arity), np.int32),
-                                  self.device, st.arity, capacity=P)
+                                  self.device, st.arity, capacity=P,
+                                  shard_w=self.shard_w)
             before = sum(kernels.LAUNCHES.values())
             _commit_fold(st.lb, st.lc_ins, st.lc_del, empty, empty,
-                         cins_cap=cc, cdel_cap=cc)
+                         cins_cap=cc, cdel_cap=cc, sharded=sharded)
             fold_calls = sum(kernels.LAUNCHES.values()) - before
             probe_calls = 0
             for reg in self.projections.values():
                 if reg.rel != rel or reg.derived:
                     continue
                 vi = reg.versioned("old")
+                if sharded:
+                    vi = vi.worker_shard(0)
                 composite = vi.pos[0].lo is not None
                 z64 = torch.zeros(P, dtype=torch.int64, device=self.device)
                 qk = (z64, z64) if composite else z64
@@ -859,7 +977,8 @@ class RegionStore:
         ar = self._rel(rel).arity
         oih, oil, ni, odh, odl, nd = _normalize_core(
             torch.from_numpy(ph).to(dev), torch.from_numpy(pl).to(dev),
-            torch.from_numpy(pw).to(dev), self._live_index(rel))
+            torch.from_numpy(pw).to(dev), self._live_index(rel),
+            self.shard_w)
         ni, nd = int(ni), int(nd)
         ins = _unpack_rows(oih[:ni].cpu().numpy(), oil[:ni].cpu().numpy(),
                            ar)
@@ -869,17 +988,21 @@ class RegionStore:
 
     # ------------------------------------------------------------------
     def _maybe_compact(self, force: bool = False):
+        w = self.shard_w
+        zero = np.zeros(w, np.int64) if w else 0
         for rel, st in self._rels.items():
             nb, nci, ncd = st.n_live
-            if (force or nci + ncd > self.compact_ratio * max(nb, 1)) and \
-                    (nci or ncd):
-                new_nb = nb - ncd + nci
-                out_cap = self.base_ratchet.capacity(("base", rel), new_nb)
+            if (force or _total(nci) + _total(ncd) >
+                    self.compact_ratio * max(_total(nb), 1)) and \
+                    (_total(nci) or _total(ncd)):
+                new_nb = np.asarray(nb) - np.asarray(ncd) + np.asarray(nci)
+                out_cap = self.base_ratchet.capacity(("base", rel),
+                                                     _maxn(new_nb))
                 st.lb = _compact_fold(st.lb, st.lc_ins, st.lc_del,
-                                      out_cap=out_cap)
-                st.lc_ins = _empty_packed(self.device, st.arity)
-                st.lc_del = _empty_packed(self.device, st.arity)
-                st.n_live = [new_nb, 0, 0]
+                                      out_cap=out_cap, shard_w=w)
+                st.lc_ins = _empty_packed(self.device, st.arity, w)
+                st.lc_del = _empty_packed(self.device, st.arity, w)
+                st.n_live = [new_nb if w else int(new_nb), zero, zero]
                 self.stats.live_compactions += 1
                 self.stats.composite_compactions += st.lb.lo is not None
                 st.mirror = None
@@ -887,28 +1010,31 @@ class RegionStore:
                 self.ratchet.reset(("committed", rel))
                 # cdel ⊆ base and cins ∩ base = ∅ make the compacted size
                 # exact arithmetic — a mismatch means corruption
-                assert _count_of(st.lb) == new_nb
+                assert (np.asarray(_count_of(st.lb)) == new_nb).all()
         for reg in self.projections.values():
             if reg.derived:
                 continue  # rebuilt from the relation rows on demand
-            committed = reg.n_cins + reg.n_cdel
+            committed = _total(reg.n_cins) + _total(reg.n_cdel)
             if not (force or committed >
-                    self.compact_ratio * max(reg.n_base, 1)):
+                    self.compact_ratio * max(_total(reg.n_base), 1)):
                 continue
             if committed:
-                new_n = reg.n_base - reg.n_cdel + reg.n_cins
+                new_n = np.asarray(reg.n_base) - np.asarray(reg.n_cdel) \
+                    + np.asarray(reg.n_cins)
                 out_cap = self.base_ratchet.capacity(("base", reg.rel),
-                                                     new_n)
+                                                     _maxn(new_n))
                 reg.d_base = _compact_fold(reg.d_base, reg.d_cins,
-                                           reg.d_cdel, out_cap=out_cap)
-                assert _count_of(reg.d_base) == new_n
-                reg.n_base = new_n
+                                           reg.d_cdel, out_cap=out_cap,
+                                           shard_w=w)
+                got = _count_of(reg.d_base)
+                assert (np.asarray(got) == new_n).all()
+                reg.n_base = got
                 self.ratchet.reset(("committed", reg.rel))
                 empty = np.zeros((0, reg.arity), np.int32)
                 reg.d_cins = reg._build(empty, kind="committed")
                 reg.d_cdel = reg._build(empty, kind="committed")
-                reg.n_cins = 0
-                reg.n_cdel = 0
+                reg.n_cins = zero
+                reg.n_cdel = zero
                 self.stats.compactions += 1
                 self.stats.composite_compactions += reg.d_base.lo is not None
                 reg._mirror.clear()
@@ -947,19 +1073,19 @@ class RegionStore:
             if not r_ins.size:
                 continue
             st = self._rel(rel)
-            if st.n_live[2]:
+            if _total(st.n_live[2]):
                 pi = _pack_rows(r_ins, st.arity)
                 qk, qv = _pad_probe(pi if st.arity > 2 else pi[0],
                                     np.zeros(r_ins.shape[0], np.int32),
                                     np.int64(csr.SENTINEL), self.device,
                                     cap=self._probe_cap(rel,
                                                         r_ins.shape[0]))
-                need = need or _any_member(st.lc_del, qk, qv)
+                need = need or _any_member(st.lc_del, qk, qv, self.shard_w)
             if not need:
                 need = any(reg.probe_cdel(r_ins)
                            for reg in self.projections.values()
                            if reg.rel == rel and not reg.derived
-                           and reg.n_cdel)
+                           and _total(reg.n_cdel))
             if int(r_ins.max()) >= csr.SENTINEL32 and \
                     any(reg.narrow for reg in self.projections.values()
                         if reg.rel == rel):
@@ -994,7 +1120,10 @@ class RegionStore:
                 for rel, (ri, rd) in raw.items()}
             self.begin_epoch(netted)
         batches = self._staged
+        w, sharded = self.shard_w, bool(self.shard_w)
         # ---- stage: compute every fold output, store untouched ------------
+        # (the folds allocate their outputs, never write their inputs, so
+        # a fault mid-commit leaves the old committed regions whole)
         staged_rels = []  # (st, new_cins, new_cdel, n_live)
         for rel, (r_ins, r_dels) in batches.items():
             if not (r_ins.size or r_dels.size):
@@ -1002,17 +1131,21 @@ class RegionStore:
             st = self._rel(rel)
             faults.fire("store.commit.fold")
             li = _packed_index(r_ins, self.device, st.arity,
-                               capacity=self._delta_cap(rel, r_ins.shape[0]))
+                               capacity=self._delta_cap(rel, r_ins.shape[0]),
+                               shard_w=w)
             self.ratchet.observe(("delta", rel), li.key.shape[-1])
             ld = _packed_index(r_dels, self.device, st.arity,
                                capacity=self._delta_cap(rel,
-                                                        r_dels.shape[0]))
+                                                        r_dels.shape[0]),
+                               shard_w=w)
             self.ratchet.observe(("delta", rel), ld.key.shape[-1])
             nb, nci, ncd = st.n_live
-            need = max(nci + _count_of(li), ncd + _count_of(ld))
+            need = max(_maxn(np.asarray(nci) + np.asarray(_count_of(li))),
+                       _maxn(np.asarray(ncd) + np.asarray(_count_of(ld))))
             cc = self._committed_cap(rel, need)
             new_ci, new_cd = _commit_fold(st.lb, st.lc_ins, st.lc_del, li,
-                                          ld, cins_cap=cc, cdel_cap=cc)
+                                          ld, cins_cap=cc, cdel_cap=cc,
+                                          sharded=sharded)
             staged_rels.append((st, new_ci, new_cd,
                                 [nb, _count_of(new_ci), _count_of(new_cd)]))
         staged_projs = []  # (reg, d_cins, d_cdel, empty_ins, empty_dels)
@@ -1027,12 +1160,15 @@ class RegionStore:
             if not (r_ins.size or r_dels.size):
                 continue  # untouched relation: regions pass through
             faults.fire("store.commit.fold")
-            need = max(reg.n_cins + _count_of(reg.d_uins),
-                       reg.n_cdel + _count_of(reg.d_udel))
+            need = max(
+                _maxn(np.asarray(reg.n_cins)
+                      + np.asarray(_count_of(reg.d_uins))),
+                _maxn(np.asarray(reg.n_cdel)
+                      + np.asarray(_count_of(reg.d_udel))))
             cc = self._committed_cap(reg.rel, need)
             d_cins, d_cdel = _commit_fold(
                 reg.d_base, reg.d_cins, reg.d_cdel, reg.d_uins, reg.d_udel,
-                cins_cap=cc, cdel_cap=cc)
+                cins_cap=cc, cdel_cap=cc, sharded=sharded)
             staged_projs.append((reg, d_cins, d_cdel, r_ins[:0],
                                  r_dels[:0]))
         # ---- swap: pure host assignments, no fault points -----------------
@@ -1078,8 +1214,9 @@ class RegionStore:
     def snapshot(self) -> Tuple[List[np.ndarray], dict]:
         """The store's state as ``(leaves, meta)``: host numpy leaves in
         ``meta["names"]`` order and a JSON-safe ``meta``, leaf for leaf and
-        key for key the JAX store's ``snapshot()`` (``shard_w`` 0), so
-        either package restores the other's.
+        key for key the JAX store's ``snapshot()``, so either package
+        restores the other's.  A sharded store's leaves keep their leading
+        [w] worker axis and its counts are [w] lists.
 
         Per relation (sorted): the live set's three regions
         ``rel/<rel>/{lb,lc_ins,lc_del}.{key,val,n[,lo]}`` and its counts;
@@ -1108,7 +1245,8 @@ class RegionStore:
                                 ("lc_del", st.lc_del)):
                 emit(f"rel/{rel}/{region}", idx)
             meta_rels[rel] = {"arity": st.arity,
-                              "n_live": [int(n) for n in st.n_live]}
+                              "n_live": [np.asarray(n).tolist()
+                                         for n in st.n_live]}
         projs = []
         for i, (_, reg) in enumerate(
                 sorted(self.projections.items(), key=lambda kv: repr(kv[0]))):
@@ -1120,9 +1258,9 @@ class RegionStore:
             if not reg.derived:
                 for region in ("d_base", "d_cins", "d_cdel"):
                     emit(f"proj/{i}/{region}", getattr(reg, region))
-                spec["n_base"] = int(reg.n_base)
-                spec["n_cins"] = int(reg.n_cins)
-                spec["n_cdel"] = int(reg.n_cdel)
+                spec["n_base"] = np.asarray(reg.n_base).tolist()
+                spec["n_cins"] = np.asarray(reg.n_cins).tolist()
+                spec["n_cdel"] = np.asarray(reg.n_cdel).tolist()
             projs.append(spec)
 
         def marks(ratchet):
@@ -1132,7 +1270,7 @@ class RegionStore:
 
         meta = {
             "format": self.SNAPSHOT_FORMAT,
-            "shard_w": 0,
+            "shard_w": int(self.shard_w),
             "compact_ratio": float(self.compact_ratio),
             "rels": meta_rels,
             "projections": projs,
@@ -1153,11 +1291,11 @@ class RegionStore:
         if meta.get("format") != self.SNAPSHOT_FORMAT:
             raise ValueError(
                 f"unknown snapshot format {meta.get('format')!r}")
-        if int(meta["shard_w"]) != 0:
+        if int(meta["shard_w"]) != int(self.shard_w):
             raise ValueError(
                 f"snapshot was taken on a shard_w={meta['shard_w']} store; "
-                "this store has shard_w=0 — restore onto the same mesh "
-                "width")
+                f"this store has shard_w={self.shard_w} — restore onto the "
+                "same mesh width")
         by_name = dict(zip(meta["names"], leaves))
         if len(by_name) != len(meta["names"]) or \
                 len(leaves) != len(meta["names"]):
@@ -1171,6 +1309,10 @@ class RegionStore:
                                device=dev) for part in ("key", "val", "n")),
                 None if lo is None else torch.tensor(np.asarray(lo),
                                                      device=dev))
+
+        def nval(v):
+            arr = np.asarray(v, np.int64)
+            return arr if self.shard_w else int(arr)
 
         # ratchet marks first (JSON lists back to tuple keys): the empty
         # uncommitted regions built below land on the snapshot's rungs
@@ -1186,21 +1328,21 @@ class RegionStore:
             st.lb = pull(f"rel/{rel}/lb")
             st.lc_ins = pull(f"rel/{rel}/lc_ins")
             st.lc_del = pull(f"rel/{rel}/lc_del")
-            st.n_live = [int(n) for n in rec["n_live"]]
+            st.n_live = [nval(n) for n in rec["n_live"]]
             self._rels[rel] = st
         self.projections = {}
         for i, spec in enumerate(meta["projections"]):
             reg = _Regions(tuple(spec["key_pos"]), int(spec["ext_pos"]),
                            rel=spec["rel"], rel_arity=int(spec["rel_arity"]),
-                           narrow=bool(spec["narrow"]),
+                           shard_w=self.shard_w, narrow=bool(spec["narrow"]),
                            derived=bool(spec["derived"]), _store=self)
             if not reg.derived:
                 reg.d_base = pull(f"proj/{i}/d_base")
                 reg.d_cins = pull(f"proj/{i}/d_cins")
                 reg.d_cdel = pull(f"proj/{i}/d_cdel")
-                reg.n_base = int(spec["n_base"])
-                reg.n_cins = int(spec["n_cins"])
-                reg.n_cdel = int(spec["n_cdel"])
+                reg.n_base = nval(spec["n_base"])
+                reg.n_cins = nval(spec["n_cins"])
+                reg.n_cdel = nval(spec["n_cdel"])
                 empty = np.zeros((0, reg.arity), np.int32)
                 reg.set_uncommitted(empty, empty)
             self.projections[(spec["rel"], tuple(spec["key_pos"]),
@@ -1232,11 +1374,15 @@ class DeltaBigJoin:
         self.plans: List[Plan] = [make_delta_plan(dq)
                                   for dq in delta_queries(query)]
         if store is None:
-            store = RegionStore(initial_edges, compact_ratio=compact_ratio,
-                                device=device)
+            store = self._new_store(initial_edges, compact_ratio, device)
         self.store = store
         for plan in self.plans:
             self.store.ensure_plan(plan)
+
+    def _new_store(self, edges, compact_ratio: float, device) -> RegionStore:
+        """The engine's private store; the mesh engine overrides it to
+        build worker-sharded regions."""
+        return RegionStore(edges, compact_ratio=compact_ratio, device=device)
 
     def prewarm(self, update_batch: int,
                 horizon: Optional[int] = None) -> int:

@@ -34,9 +34,15 @@ global queue sizes a step to pick the level, as ``bigjoin.run_bigjoin``
 does.  Outputs stay on the producing worker; counts and counters are
 summed over the workers at the end.
 
-The JAX package's compiled-program cache, its streaming half
-(``DistDeltaBigJoin``, ``deal_seed``/``run_program``) and its dry-run
-lowering are not part of this module yet.
+The streaming half (§4) rides the same dataflow: :class:`DistDeltaBigJoin`
+keeps its regions in a worker-sharded ``RegionStore`` (``shard_w = w``),
+deals each delta query's signed seed batch round-robin over the workers
+(:func:`deal_seed`) and launches one :class:`DistributedProgram` a delta
+plan and epoch through :func:`run_program`, where the ``dist.program``
+fault point fires.  The program cache (:func:`get_distributed_program`)
+keeps one program a (plan, config, mesh), as the JAX package's does;
+eager PyTorch compiles nothing per shape, so the JAX program's ``warm``
+has no counterpart.  The dry-run lowering is not part of this module.
 """
 from __future__ import annotations
 
@@ -46,14 +52,18 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import csr
-from repro_torch.core.bigjoin import (BigJoinConfig, Indices, LevelQueue,
-                                      seed_tuples_for)
+from repro_torch import faults
+from repro_torch.core import compilestats, csr
+from repro_torch.core import delta as _delta
+from repro_torch.core.bigjoin import (BigJoinConfig, Indices, JoinResult,
+                                      LevelQueue, seed_tuples_for)
 from repro_torch.core.dataflow_index import VersionedIndex
 from repro_torch.core.plan import Plan
-from repro_torch.errors import (CapacityOverflow, OVF_OUT, OVF_QUEUE,
-                                OVF_ROUTE, OVF_SEED, _KIND_BITS)
-from repro_torch.launch.mesh import WorkerMesh, make_host_mesh
+from repro_torch.errors import (CapacityOverflow, ESCALATES_BATCH,
+                                ESCALATES_OUT, ESCALATES_ROUTE, OVF_OUT,
+                                OVF_QUEUE, OVF_ROUTE, OVF_SEED, _KIND_BITS)
+from repro_torch.launch.mesh import (DEFAULT_WORKERS, WorkerMesh,
+                                     make_host_mesh)
 
 INF = int(np.iinfo(np.int32).max)
 
@@ -823,3 +833,274 @@ def distributed_join(plan: Plan, relations: Dict[str, np.ndarray],
         res.weights = np.concatenate([wts[i, :ns[i]] for i in range(w)])
         res.worker_rows = ns.astype(np.int64)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the compiled-program cache: one program a (plan, config, mesh)
+# ---------------------------------------------------------------------------
+
+class DistributedProgram:
+    """One whole-join dataflow of every worker for one (plan, config,
+    mesh): ``program(indices, seed [w,S,width], seed_n [w], seed_w [w,S])``
+    -> (count, proposals, intersections, steps, overflow, max_load,
+    sum_load[, out_buf, out_weight, out_n]), ``build_per_worker``'s.  The
+    JAX package's program is a jitted ``shard_map`` with an AOT ``warm``;
+    here it is the eager dataflow, built once and reused, and nothing is
+    compiled per shape, so it has no ``warm``."""
+
+    def __init__(self, plan: Plan, dcfg: "DistConfig", mesh: WorkerMesh):
+        if dcfg.num_workers != mesh.num_workers:
+            raise ValueError(f"config for {dcfg.num_workers} workers on a "
+                             f"mesh of {mesh.num_workers}")
+        self._per_worker = build_per_worker(plan, dcfg)
+        self.mesh = mesh
+        self.w = dcfg.num_workers
+
+    def __call__(self, indices, seed, seed_n, seed_w):
+        return self._per_worker(indices, seed, seed_n, seed_w)
+
+
+def build_distributed_program(plan: Plan, dcfg: "DistConfig",
+                              mesh: WorkerMesh) -> DistributedProgram:
+    """Build one :class:`DistributedProgram` (the public constructor)."""
+    return DistributedProgram(plan, dcfg, mesh)
+
+
+_PROGRAM_CACHE: Dict[tuple, DistributedProgram] = {}
+_PROGRAM_BUILDS = 0  # monotonic build counter (cache-hit assertions)
+
+
+def get_distributed_program(plan: Plan, dcfg: "DistConfig",
+                            mesh: WorkerMesh) -> DistributedProgram:
+    """The process-wide program cache: plans, configs and meshes hash
+    structurally, so every engine and session asking for the same (plan,
+    config, mesh) shares one program."""
+    global _PROGRAM_BUILDS
+    key = (plan, dcfg, mesh)
+    prog = _PROGRAM_CACHE.get(key)
+    if prog is None:
+        _PROGRAM_BUILDS += 1
+        prog = build_distributed_program(plan, dcfg, mesh)
+        _PROGRAM_CACHE[key] = prog
+    return prog
+
+
+def deal_seed(seed: np.ndarray, weights: np.ndarray, w: int,
+              width: int = 2, floor: int = 0
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Round-robin deal of a seed batch over ``w`` workers (worker k gets
+    rows k, k + w, ...), padded to a pow2 chunk a worker of at least
+    ``floor`` rows, so every delta epoch of a stream shares one seed shape.
+    ``width`` is the seed prefix width (``plan.seed_width``).  Returns
+    (chunks [w, S, width], seed_n [w], weights [w, S]).  Not the contiguous
+    blocks of :func:`distributed_join`'s static seeds."""
+    seed = np.asarray(seed, np.int32).reshape(-1, width)
+    weights = np.asarray(weights, np.int32)
+    per = -(-seed.shape[0] // w)
+    S = max(_delta._pow2(per), int(floor))
+    chunks = np.zeros((w, S, width), np.int32)
+    wchunks = np.zeros((w, S), np.int32)
+    seed_n = np.zeros(w, np.int32)
+    for k in range(w):
+        rows = seed[k::w]
+        chunks[k, :rows.shape[0]] = rows
+        wchunks[k, :rows.shape[0]] = weights[k::w]
+        seed_n[k] = rows.shape[0]
+    return chunks, seed_n, wchunks
+
+
+def run_program(program: DistributedProgram, w: int, collect: bool, indices,
+                seed: np.ndarray, weights: np.ndarray, width: int = 2,
+                seed_floor: int = 0) -> JoinResult:
+    """Deal the seed, run one program, sum the workers' outputs: the
+    ``dist.program`` fault point fires first, a non-zero overflow mask
+    raises ``CapacityOverflow``, and the collected tuples are every
+    worker's rows in worker order."""
+    faults.fire("dist.program")
+    chunks, seed_n, wchunks = deal_seed(seed, weights, w, width,
+                                        floor=seed_floor)
+    dev = torch.device(program.mesh.device)
+    out = program(indices, torch.from_numpy(chunks).to(dev),
+                  torch.from_numpy(seed_n).to(dev),
+                  torch.from_numpy(wchunks).to(dev))
+    if out[4]:
+        raise CapacityOverflow(out[4], where="distributed join",
+                               detail=f"w={w} seed_floor={seed_floor}")
+    tuples = wts = None
+    if collect:
+        bufs, ws, ns = (out[7].cpu().numpy(), out[8].cpu().numpy(),
+                        out[9].cpu().numpy())
+        tuples = np.concatenate([bufs[i, :ns[i]] for i in range(w)])
+        wts = np.concatenate([ws[i, :ns[i]] for i in range(w)])
+    return JoinResult(out[0], tuples, wts, out[1], out[2], out[3])
+
+
+# ---------------------------------------------------------------------------
+# Distributed Delta-BiGJoin (§4): streaming maintenance on the mesh
+# ---------------------------------------------------------------------------
+
+def default_delta_config(w: int, batch: int = 1024, mode: str = "collect",
+                         out_capacity: int = 1 << 18,
+                         balance: bool = False) -> DistConfig:
+    """A DistConfig sized for delta workloads: route capacity
+    ``max(4·batch // w, 64)`` a peer pair (the deferral backpressure keeps
+    the result exact when it overflows)."""
+    base = BigJoinConfig(batch=batch, seed_chunk=batch, mode=mode,
+                         out_capacity=out_capacity)
+    return DistConfig(base, w, route_capacity=max(4 * batch // w, 64),
+                      balance=balance)
+
+
+def make_delta_monitor(query, initial_edges, local: bool = False,
+                       batch: int = 2048, out_capacity: int = 1 << 20,
+                       balance: bool = False,
+                       mesh: Optional[WorkerMesh] = None, device=None):
+    """Deprecated: use :class:`repro_torch.api.GraphSession`.  Selects the
+    one-device :class:`~repro_torch.core.delta.DeltaBigJoin` or the mesh's
+    :class:`DistDeltaBigJoin` with matching B' and output budgets."""
+    import warnings
+    warnings.warn(
+        "make_delta_monitor is deprecated; use repro_torch.api.GraphSession "
+        "(register() one or more queries, update() once per epoch)",
+        DeprecationWarning, stacklevel=2)
+    if local:
+        cfg = BigJoinConfig(batch=batch, seed_chunk=batch, mode="collect",
+                            out_capacity=out_capacity)
+        return _delta.DeltaBigJoin(query, initial_edges, cfg=cfg,
+                                   device=device)
+    w = DEFAULT_WORKERS if mesh is None else mesh.num_workers
+    return DistDeltaBigJoin(
+        query, initial_edges, mesh=mesh,
+        dcfg=default_delta_config(w, batch=batch, out_capacity=out_capacity,
+                                  balance=balance), device=device)
+
+
+class DistDeltaBigJoin(_delta.DeltaBigJoin):
+    """Delta-BiGJoin where every region shard lives on a mesh worker.
+
+    The epoch bookkeeping (normalize, commit, compaction) is the
+    one-device engine's; only the worker layout differs:
+
+    - every region is hash-partitioned by packed key over the workers
+      (``RegionStore(shard_w=w)``), so each entry has one owner and the
+      cluster's memory is O(IN + delta); the commit folds stay
+      shard-local (a delta entry and the committed entry it cancels share
+      an owner), one launch of the fold kernel's worker axis each;
+    - each delta query dAQ_i deals its signed dR batch round-robin over
+      the workers and runs the request/response dataflow of §3.4 (with
+      BiGJoin-S Balance under ``dcfg.balance``), counts and outputs
+      summed over the workers;
+    - the per-plan program is built once (the process-wide cache) and
+      the seed chunk rides the store's ``("seed", width)`` rung, so every
+      epoch of a stream runs one program at one seed shape.
+
+    ``mesh`` defaults to ``dcfg.num_workers`` workers (without a config,
+    ``launch.mesh.DEFAULT_WORKERS``) on ``device`` (``None``: the card).
+    """
+
+    def __init__(self, query, initial_edges,
+                 mesh: Optional[WorkerMesh] = None,
+                 dcfg: Optional[DistConfig] = None,
+                 compact_ratio: float = 0.5,
+                 store: Optional[_delta.RegionStore] = None, device=None):
+        if mesh is None:
+            if device is None and store is not None:
+                device = store.device
+            mesh = make_host_mesh(dcfg.num_workers if dcfg is not None
+                                  else DEFAULT_WORKERS, device)
+        elif device is not None and torch.device(device) != \
+                torch.device(mesh.device):
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        self.w = mesh.num_workers
+        if dcfg is None:
+            dcfg = default_delta_config(self.w)
+        if dcfg.num_workers != self.w:
+            raise ValueError(
+                f"dcfg does not match the mesh: {dcfg.num_workers} workers "
+                f"vs a mesh of {self.w}")
+        if store is not None:
+            if store.shard_w != self.w:
+                raise ValueError(
+                    f"shared store is sharded over {store.shard_w} workers, "
+                    f"mesh has {self.w}")
+            if store.device != torch.device(mesh.device):
+                raise ValueError(f"shared store lives on {store.device}, "
+                                 f"the mesh on {mesh.device}")
+        self.dcfg = dcfg
+        self._programs: Dict[int, DistributedProgram] = {}
+        super().__init__(query, initial_edges, cfg=dcfg.base,
+                         compact_ratio=compact_ratio, store=store,
+                         device=mesh.device)
+
+    def _new_store(self, edges, compact_ratio, device):
+        return _delta.RegionStore(edges, shard_w=self.w,
+                                  compact_ratio=compact_ratio, device=device)
+
+    def _program(self, pi: int) -> DistributedProgram:
+        if pi not in self._programs:
+            self._programs[pi] = get_distributed_program(
+                self.plans[pi], self.dcfg, self.mesh)
+        return self._programs[pi]
+
+    def _run_plan(self, plan, indices, seed, weights):
+        # the per-worker seed chunk rides its own ratcheted rung, so every
+        # epoch of a stream runs at one seed shape (prewarm pins the mark
+        # at the update-batch bound; the session's static count keeps off
+        # this key)
+        prog = self._program(self.plans.index(plan))
+        width = plan.seed_width
+        per = -(-seed.shape[0] // self.w)
+        floor = self.store.ratchet.capacity(("seed", width), per)
+        return run_program(prog, self.w, self.dcfg.base.mode == "collect",
+                           indices, seed, weights, width=width,
+                           seed_floor=floor)
+
+    def _escalate(self, exc) -> None:
+        """Mesh overflow recovery: grows the per-peer route tables too and
+        drops the programs of the old config (the cache keys on it)
+        before the replay."""
+        qn = self.query.name
+        r = self.store.ratchet
+        base, dcfg, changed = self.dcfg.base, self.dcfg, False
+        if exc.kinds & ESCALATES_OUT:
+            new_out = r.escalate(("cap", "out", qn),
+                                 floor=base.out_capacity)
+            base = dataclasses.replace(base, out_capacity=new_out)
+            changed = True
+        if exc.kinds & ESCALATES_BATCH:
+            new_b = r.escalate(("cap", "batch", qn), floor=base.batch)
+            base = dataclasses.replace(
+                base, batch=new_b, seed_chunk=max(base.seed_chunk, new_b))
+            changed = True
+        if exc.kinds & ESCALATES_ROUTE:
+            new_rt = r.escalate(("cap", "route", qn),
+                                floor=dcfg.route_capacity)
+            dcfg = dataclasses.replace(dcfg, route_capacity=new_rt)
+            changed = True
+        if not changed:
+            raise exc
+        if base is not self.dcfg.base:
+            dcfg = dataclasses.replace(dcfg, base=base)
+        self.dcfg = dcfg
+        self.cfg = base
+        self._programs.clear()
+        self.store.stats.escalations += 1
+
+    def prewarm(self, update_batch: int,
+                horizon: Optional[int] = None) -> int:
+        """The mesh engine's admission prewarm: the one-device engine's
+        (probe and delta marks pinned, every kernel library loaded on the
+        card), then each delta plan's program built and its
+        ``("seed", width)`` mark pinned to the per-worker share of
+        ``update_batch``, as the JAX engine's walk pins it.  Returns the
+        compile events spent."""
+        snap = compilestats.snapshot()
+        super().prewarm(update_batch, horizon)
+        ub = max(int(update_batch), 1)
+        for pi, plan in enumerate(self.plans):
+            self._program(pi)
+            self.store.ratchet.capacity(("seed", plan.seed_width),
+                                        -(-ub // self.w))
+        return compilestats.since(snap)

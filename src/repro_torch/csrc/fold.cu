@@ -62,6 +62,19 @@
 // by phase 3 at four slots a thread, so at the main path's sizes its
 // phase-1 warps all run at once; a first form with a second search chain
 // in phase 3 and a grid sized by its slots was slower on the H100.
+//
+// The worker axis (the sharded store of the mesh, the TPU kernel's
+// sharded=True, grid=(w,)): every region, output and count carries a
+// leading [w] axis, contiguous ([w, cap], n [w]), and one launch folds
+// every worker's shard.  The descriptors name worker 0's shard; worker g's
+// is the same region g capacities further on (n: g words).  The grid is w
+// groups of GW blocks; block b serves worker b / GW as block b % GW of a
+// one-region fold over that worker's regions, its own scratch and its own
+// outputs, so a worker's outputs depend on its inputs only.  The one grid
+// barrier is shared, and each group scans only its own GW chunk sums.
+// The w groups share the resident blocks: GW is at most resident / w (a
+// grid of w groups that cannot be co-resident is refused, never run
+// smaller).  With w = 1 the one-region instantiation runs, unchanged.
 #include <cooperative_groups.h>
 
 #include "search.cuh"
@@ -84,6 +97,8 @@ struct FoldArgs {
   Region ci, cd, ui, ud;
   Region ba;           // base (the base form)
   const int* in_ba;    // udel's bits in base (the in_ba form)
+  int w;               // workers: regions [w, cap], counts [w]
+  int gw;              // blocks a worker
 };
 
 struct FoldBufs {
@@ -92,6 +107,7 @@ struct FoldBufs {
   int* part;            // [FOLD_MAX_GRID] chunk sums
   int* rank;            // [L + cap_cd] merge ranks in the other operand
   int k64;
+  long long stride;     // scratch int32 words a worker (even)
 };
 
 // scratch (int32 words): winfo (8-byte aligned) first, then the chunk
@@ -105,7 +121,29 @@ __host__ __device__ inline long long fold_scratch_words(int cap_ci,
                                                         int cap_ui,
                                                         int cap_ud) {
   long long L = (long long)cap_ci + cap_ui + cap_ud;
-  return 2 * fold_words(L) + FOLD_MAX_GRID + L + cap_cd;
+  long long s = 2 * fold_words(L) + FOLD_MAX_GRID + L + cap_cd;
+  return s + (s & 1);  // even: the next worker's winfo stays 8-byte aligned
+}
+
+// Worker g's shard of a [w, cap] region, and of an output.
+__device__ __forceinline__ Region shard_region(const Region& r, int g) {
+  Region s = r;
+  const long long off = (long long)g * r.cap;
+  s.key = (const char*)r.key + off * (r.k64 ? 8 : 4);
+  s.val = r.val + off;
+  s.n = r.n + g;
+  s.lo = r.lo ? r.lo + off : nullptr;
+  return s;
+}
+
+__device__ __forceinline__ Out shard_out(const Out& o, int k64, int g) {
+  Out s = o;
+  const long long off = (long long)g * o.cap;
+  s.key = (char*)o.key + off * (k64 ? 8 : 4);
+  s.val = o.val + off;
+  s.lo = o.lo ? o.lo + off : nullptr;
+  s.n = o.n + g;
+  return s;
 }
 
 // Exclusive scan of one value per thread across the block, the block
@@ -206,16 +244,15 @@ __device__ __forceinline__ bool kept_at(const uint2* winfo, int x) {
   return (winfo[x >> 5].x >> (x & 31)) & 1u;
 }
 
-// BASE: the base form (base probed in phase 1), else the in_ba form.
+// One worker's fold: block k of the G blocks of its group, over its
+// regions `a`, its scratch and outputs `p`.  BASE: the base form (base
+// probed in phase 1), else the in_ba form.
 template <bool LO, bool BASE>
-__global__ void __launch_bounds__(FOLD_THREADS)
-    fold_kernel(const __grid_constant__ FoldArgs a,
-                const __grid_constant__ FoldBufs p) {
-  __shared__ int s_off[FOLD_MAX_GRID];
-  __shared__ unsigned s_red[FOLD_WARPS];
+__device__ __forceinline__ void fold_body(const FoldArgs& a,
+                                          const FoldBufs& p, int k, int G,
+                                          int* s_off, unsigned* s_red) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int t = threadIdx.x, T = blockDim.x;
-  const int k = blockIdx.x, G = gridDim.x;
   const int lane = t & 31, warp = t >> 5, nwarps = T >> 5;
   const int cap_ci = a.ci.cap, cap_ui = a.ui.cap, cap_ud = a.ud.cap;
   const int s_ui = cap_ci, s_ud = cap_ci + cap_ui, L = s_ud + cap_ud;
@@ -378,10 +415,41 @@ __global__ void __launch_bounds__(FOLD_THREADS)
   }
 }
 
+// SHARDED: the worker axis (w > 1), an instantiation of its own, so the
+// one-region kernel keeps its registers: the shards' copies of the
+// arguments take a stack frame and about twice the registers.
+template <bool LO, bool BASE, bool SHARDED>
+__global__ void __launch_bounds__(FOLD_THREADS)
+    fold_kernel(const __grid_constant__ FoldArgs a,
+                const __grid_constant__ FoldBufs p) {
+  __shared__ int s_off[FOLD_MAX_GRID];
+  __shared__ unsigned s_red[FOLD_WARPS];
+  if constexpr (!SHARDED) {
+    fold_body<LO, BASE>(a, p, blockIdx.x, gridDim.x, s_off, s_red);
+  } else {
+    const int g = blockIdx.x / a.gw;  // this block's worker
+    FoldArgs sa = a;
+    sa.ci = shard_region(a.ci, g);
+    sa.cd = shard_region(a.cd, g);
+    sa.ui = shard_region(a.ui, g);
+    sa.ud = shard_region(a.ud, g);
+    sa.ba = shard_region(a.ba, g);
+    FoldBufs sp = p;
+    sp.oci = shard_out(p.oci, p.k64, g);
+    sp.ocd = shard_out(p.ocd, p.k64, g);
+    int* base = (int*)p.winfo + g * p.stride;
+    const long long L = (long long)a.ci.cap + a.ui.cap + a.ud.cap;
+    sp.winfo = (uint2*)base;
+    sp.part = base + 2 * fold_words(L);
+    sp.rank = sp.part + FOLD_MAX_GRID;
+    fold_body<LO, BASE>(sa, sp, blockIdx.x % a.gw, a.gw, s_off, s_red);
+  }
+}
+
 // Blocks of one instantiation that the card holds at once (occupancy for
 // its registers and shared memory, times the SMs; asked once), or a
 // negative CUDA error.
-template <bool LO, bool BASE>
+template <bool LO, bool BASE, bool SHARDED>
 static int fold_resident() {
   static int resident = 0;
   if (resident == 0) {
@@ -391,38 +459,45 @@ static int fold_resident() {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, fold_kernel<LO, BASE>, FOLD_THREADS, 0);
+          &per_sm, fold_kernel<LO, BASE, SHARDED>, FOLD_THREADS, 0);
     if (e != cudaSuccess) return -(int)e;
     resident = per_sm * sms;
   }
   return resident;
 }
 
-// The grid: every block resident at once, no more than the largest phase
-// fills (a warp a word of keep bits, a thread a cdel rank, four entries or
-// output slots of phase 3 a thread), or a negative CUDA error.
-template <bool LO, bool BASE>
+// Blocks a worker: every block of the w groups resident at once, no more
+// than the largest phase of one worker's fold fills (a warp a word of keep
+// bits, a thread a cdel rank, four entries or output slots of phase 3 a
+// thread); 0 when w groups of one block cannot be co-resident, or a
+// negative CUDA error.
+template <bool LO, bool BASE, bool SHARDED>
 static int fold_grid(const FoldArgs& a, const FoldBufs& p) {
-  int resident = fold_resident<LO, BASE>();
+  int resident = fold_resident<LO, BASE, SHARDED>();
   if (resident < 0) return resident;
+  const int per = resident / imax(a.w, 1);  // resident blocks a worker
+  if (per < 1) return 0;
   long long L = (long long)a.ci.cap + a.ui.cap + a.ud.cap;
   long long units = fold_words(L) * 32;
   long long items = (L + a.cd.cap + p.oci.cap + p.ocd.cap + 3) / 4;
   if (a.cd.cap > units) units = a.cd.cap;
   if (items > units) units = items;
   long long want = (units + FOLD_THREADS - 1) / FOLD_THREADS;
-  int G = (int)(want < resident ? want : resident);
+  int G = (int)(want < per ? want : per);
   return imax(1, imin(G, FOLD_MAX_GRID));
 }
 
-template <bool LO, bool BASE>
-static int fold_launch(const FoldArgs& a, const FoldBufs& p, void* stream) {
-  int resident = fold_resident<LO, BASE>();
+template <bool LO, bool BASE, bool SHARDED>
+static int fold_launch(FoldArgs a, const FoldBufs& p, void* stream) {
+  int resident = fold_resident<LO, BASE, SHARDED>();
   if (resident < 0) return -resident;
   if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  auto kernel = fold_kernel<LO, BASE>;
-  const int G = fold_grid<LO, BASE>(a, p);
-  return REPRO_LAUNCH_COOP(kernel, G, FOLD_THREADS, stream, a, p);
+  auto kernel = fold_kernel<LO, BASE, SHARDED>;
+  const int gw = fold_grid<LO, BASE, SHARDED>(a, p);
+  if (gw < 0) return -gw;
+  if (gw == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  a.gw = gw;
+  return REPRO_LAUNCH_COOP(kernel, gw * a.w, FOLD_THREADS, stream, a, p);
 }
 
 extern "C" int repro_commit_fold_scratch(int cap_ci, int cap_cd, int cap_ui,
@@ -430,48 +505,69 @@ extern "C" int repro_commit_fold_scratch(int cap_ci, int cap_cd, int cap_ui,
   return (int)fold_scratch_words(cap_ci, cap_cd, cap_ui, cap_ud);
 }
 
-// The grid a call would take (for the card's checks, which must reach a
-// one-block and a multi-block grid), or a negative CUDA error.  Regions
-// as repro_commit_fold's; `nreg` 5 is the base form.
-extern "C" int repro_commit_fold_grid(const int64_t* desc, int nreg, int lo,
-                                      int cap_oci, int cap_ocd) {
+// The scratch of the worker axis: `w` workers' scratch, each of
+// repro_commit_fold_scratch's words, one after another.
+extern "C" int repro_commit_fold_scratch_w(int cap_ci, int cap_cd,
+                                           int cap_ui, int cap_ud, int w) {
+  return (int)(imax(w, 1) *
+               fold_scratch_words(cap_ci, cap_cd, cap_ui, cap_ud));
+}
+
+static FoldArgs fold_args(const int64_t* desc, int nreg, int w) {
   FoldArgs a;
   a.ci = region_from(desc);
   a.cd = region_from(desc + REPRO_DESC_WORDS);
   a.ui = region_from(desc + 2 * REPRO_DESC_WORDS);
   a.ud = region_from(desc + 3 * REPRO_DESC_WORDS);
+  a.ba = nreg == 5 ? region_from(desc + 4 * REPRO_DESC_WORDS) : a.ud;
+  a.in_ba = nullptr;
+  a.w = imax(w, 1);
+  a.gw = 0;
+  return a;
+}
+
+// The grid a call would take, every worker's blocks together (for the
+// card's checks, which must reach a one-block and a multi-block grid), 0
+// when it cannot be co-resident, or a negative CUDA error.  Regions as
+// repro_commit_fold_w's; `nreg` 5 is the base form.
+extern "C" int repro_commit_fold_grid_w(const int64_t* desc, int nreg,
+                                        int lo, int cap_oci, int cap_ocd,
+                                        int w) {
+  FoldArgs a = fold_args(desc, nreg, w);
   FoldBufs p;
   p.oci.cap = cap_oci;
   p.ocd.cap = cap_ocd;
   const bool base = nreg == 5;
-  if (lo)
-    return base ? fold_grid<true, true>(a, p) : fold_grid<true, false>(a, p);
-  return base ? fold_grid<false, true>(a, p) : fold_grid<false, false>(a, p);
+  int gw;
+  if (a.w > 1)  // the worker axis: the base form only
+    gw = !base ? (int)-cudaErrorInvalidValue
+               : lo ? fold_grid<true, true, true>(a, p)
+                    : fold_grid<false, true, true>(a, p);
+  else
+    gw = lo ? (base ? fold_grid<true, true, false>(a, p)
+                    : fold_grid<true, false, false>(a, p))
+            : (base ? fold_grid<false, true, false>(a, p)
+                    : fold_grid<false, false, false>(a, p));
+  return gw > 0 ? gw * a.w : gw;
 }
 
-// `desc`: the regions cins, cdel, uins, udel, and base in the base form
-// (nreg 5; `in_ba` null), or the four with `in_ba` (nreg 4).  All share
-// one key width and one layout (all composite or none): a base of another
-// layout is refused, never cast.  `oci_lo` / `ocd_lo` are the outputs' lo
-// words for composite regions, null otherwise.
-extern "C" int repro_commit_fold(const int64_t* desc, int nreg,
-                                 const int* in_ba, int* scratch,
-                                 void* oci_key, int* oci_val, i64* oci_lo,
-                                 int* oci_n, int cap_oci, void* ocd_key,
-                                 int* ocd_val, i64* ocd_lo, int* ocd_n,
-                                 int cap_ocd, void* stream) {
+extern "C" int repro_commit_fold_grid(const int64_t* desc, int nreg, int lo,
+                                      int cap_oci, int cap_ocd) {
+  return repro_commit_fold_grid_w(desc, nreg, lo, cap_oci, cap_ocd, 1);
+}
+
+static int fold_call(const int64_t* desc, int nreg, int w, const int* in_ba,
+                     int* scratch, void* oci_key, int* oci_val, i64* oci_lo,
+                     int* oci_n, int cap_oci, void* ocd_key, int* ocd_val,
+                     i64* ocd_lo, int* ocd_n, int cap_ocd, void* stream) {
   const int base = nreg == 5;
   int lo = 0;
-  if ((nreg != 4 && nreg != 5) || (base != (in_ba == nullptr)) ||
-      !lo_uniform(desc, nreg, &lo) || (lo != 0) != (oci_lo != nullptr) ||
-      (lo != 0) != (ocd_lo != nullptr) || cap_oci < 0 || cap_ocd < 0)
+  if ((nreg != 4 && nreg != 5) || (base != (in_ba == nullptr)) || w < 1 ||
+      (w > 1 && !base) || !lo_uniform(desc, nreg, &lo) ||
+      (lo != 0) != (oci_lo != nullptr) || (lo != 0) != (ocd_lo != nullptr) ||
+      cap_oci < 0 || cap_ocd < 0)
     return (int)cudaErrorInvalidValue;
-  FoldArgs a;
-  a.ci = region_from(desc);
-  a.cd = region_from(desc + REPRO_DESC_WORDS);
-  a.ui = region_from(desc + 2 * REPRO_DESC_WORDS);
-  a.ud = region_from(desc + 3 * REPRO_DESC_WORDS);
-  a.ba = base ? region_from(desc + 4 * REPRO_DESC_WORDS) : a.ud;
+  FoldArgs a = fold_args(desc, nreg, w);
   a.in_ba = in_ba;
   const int k64 = a.ci.k64;
   if (a.cd.k64 != k64 || a.ui.k64 != k64 || a.ud.k64 != k64 ||
@@ -487,12 +583,49 @@ extern "C" int repro_commit_fold(const int64_t* desc, int nreg,
   p.part = scratch + 2 * fold_words(L);
   p.rank = p.part + FOLD_MAX_GRID;
   p.k64 = k64;
-  int rc = lo ? (base ? fold_launch<true, true>(a, p, stream)
-                      : fold_launch<true, false>(a, p, stream))
-              : (base ? fold_launch<false, true>(a, p, stream)
-                      : fold_launch<false, false>(a, p, stream));
+  p.stride = fold_scratch_words(a.ci.cap, a.cd.cap, a.ui.cap, a.ud.cap);
+  int rc;
+  if (w > 1)  // checked above: the base form
+    rc = lo ? fold_launch<true, true, true>(a, p, stream)
+            : fold_launch<false, true, true>(a, p, stream);
+  else
+    rc = lo ? (base ? fold_launch<true, true, false>(a, p, stream)
+                    : fold_launch<true, false, false>(a, p, stream))
+            : (base ? fold_launch<false, true, false>(a, p, stream)
+                    : fold_launch<false, false, false>(a, p, stream));
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// `desc`: the regions cins, cdel, uins, udel, and base in the base form
+// (nreg 5; `in_ba` null), or the four with `in_ba` (nreg 4).  All share
+// one key width and one layout (all composite or none): a base of another
+// layout is refused, never cast.  `oci_lo` / `ocd_lo` are the outputs' lo
+// words for composite regions, null otherwise.
+extern "C" int repro_commit_fold(const int64_t* desc, int nreg,
+                                 const int* in_ba, int* scratch,
+                                 void* oci_key, int* oci_val, i64* oci_lo,
+                                 int* oci_n, int cap_oci, void* ocd_key,
+                                 int* ocd_val, i64* ocd_lo, int* ocd_n,
+                                 int cap_ocd, void* stream) {
+  return fold_call(desc, nreg, 1, in_ba, scratch, oci_key, oci_val, oci_lo,
+                   oci_n, cap_oci, ocd_key, ocd_val, ocd_lo, ocd_n, cap_ocd,
+                   stream);
+}
+
+// The worker axis: the base form (nreg 5) over `w` workers in one launch.
+// Every region is [w, cap] contiguous with n [w], and `desc` names worker
+// 0's shard of each; the outputs are [w, cap_oci] / [w, cap_ocd] with
+// counts [w]; `scratch` holds repro_commit_fold_scratch_w's words.
+extern "C" int repro_commit_fold_w(const int64_t* desc, int nreg, int w,
+                                   int* scratch, void* oci_key, int* oci_val,
+                                   i64* oci_lo, int* oci_n, int cap_oci,
+                                   void* ocd_key, int* ocd_val, i64* ocd_lo,
+                                   int* ocd_n, int cap_ocd, void* stream) {
+  if (nreg != 5) return (int)cudaErrorInvalidValue;
+  return fold_call(desc, nreg, w, nullptr, scratch, oci_key, oci_val, oci_lo,
+                   oci_n, cap_oci, ocd_key, ocd_val, ocd_lo, ocd_n, cap_ocd,
+                   stream);
 }
 
 REPRO_ERROR_STRING

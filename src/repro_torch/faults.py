@@ -13,11 +13,10 @@ and epoch-commit call sites:
     snapshot.write      before a snapshot checkpoint write
     dist.program        before launching a distributed join program
 
-In the port every point but ``dist.program`` has a call site, placed
-where the JAX package fires it (``core.delta.RegionStore``,
-``serve.pool.SessionPool``, ``serve.wal``), so one schedule faults at the
-same hit in both packages.  ``dist.program`` keeps its name for the mesh,
-which is not ported yet; until then nothing fires it.
+In the port every point has a call site, placed where the JAX package
+fires it (``core.delta.RegionStore``, ``serve.pool.SessionPool``,
+``serve.wal``, ``core.distributed.run_program``), so one schedule faults
+at the same hit in both packages.
 
 Each call site calls :func:`fire(point)`; the registry counts the hit and
 raises :class:`~repro_torch.errors.FaultInjected` when the hit number is in

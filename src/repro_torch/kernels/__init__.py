@@ -10,7 +10,9 @@ run can show that its main path went through the kernels.
 :data:`VARIANTS_OF` lists each kernel's launch names.  The kernels of the
 sorted-region engine (membership, fused extend, merge ranks, commit fold)
 have a 1-word and a composite (hi, lo) variant; a launch of the composite
-one counts under the kernel's ``_lex`` name.  ``segment_sum`` and
+one counts under the kernel's ``_lex`` name.  The commit fold's worker axis
+(one launch over every shard of the mesh's store) counts under
+``commit_fold_w`` and ``commit_fold_lex_w``.  ``segment_sum`` and
 ``flash_attention`` have one variant each, their own name.
 """
 from __future__ import annotations
@@ -22,6 +24,9 @@ VARIANTS_OF: Dict[str, Tuple[str, ...]] = {
     for name in ("signed_member", "member", "fused_extend", "rank_lt_le",
                  "commit_fold")
 }
+# the commit fold's worker axis (the mesh's sharded store): one launch over
+# every worker's shard, 1-word and composite
+VARIANTS_OF["commit_fold"] += ("commit_fold_w", "commit_fold_lex_w")
 VARIANTS_OF["segment_sum"] = ("segment_sum",)
 VARIANTS_OF["flash_attention"] = ("flash_attention",)
 

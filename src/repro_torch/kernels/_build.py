@@ -62,6 +62,10 @@ SIGNATURES = {
                               P),
         "repro_commit_fold_scratch": (I, I, I, I),
         "repro_commit_fold_grid": (DESC, I, I, I, I),
+        "repro_commit_fold_w": (DESC, I, I, P, P, P, P, P, I, P, P, P, P,
+                                I, P),
+        "repro_commit_fold_scratch_w": (I, I, I, I, I),
+        "repro_commit_fold_grid_w": (DESC, I, I, I, I, I),
     },
     "segment_sum": {
         "repro_segment_sum": (P, I, P, I, I, I, P, P, P),

@@ -14,6 +14,11 @@ import dataclasses
 
 from repro_torch.core.csr import resolve_device
 
+# Workers of a mesh no one sized: the port's stand-in for the JAX
+# package's device count, whose tests and drivers force four host devices
+# (``--xla_force_host_platform_device_count=4``).
+DEFAULT_WORKERS = 4
+
 
 @dataclasses.dataclass(frozen=True)
 class WorkerMesh:

@@ -1,16 +1,16 @@
 """The paper's engine as a CLI, driven through the GraphSession facade:
 
     python -m repro_torch.launch.run_query --query triangle --scale 12 \
-        --mode static|delta|serial [--verify] [--device cpu]
+        --mode static|delta|distributed|serial [--verify] [--device cpu]
 
-``static`` counts on a session, ``delta`` streams update batches through
-a standing registration, ``serial`` runs the Generic-Join oracle baseline
+``static`` counts on a local session, ``distributed`` on a mesh session
+of ``--workers`` workers (default 4, the port's stand-in for the JAX
+package's host device count), ``delta`` streams update batches through a
+standing registration, ``serial`` runs the Generic-Join oracle baseline
 on the host.  ``--verify`` holds the delta mode's maintained change to
-the oracle's recount of the graph before and after the stream.  Sessions
-run on ``--device`` (default the card).  The JAX package's ``distributed``
-mode counts on a mesh session, the streaming half of the mesh (ROADMAP
-Queue 1 item 6b), and raises; the static mesh is
-``core.distributed.distributed_join`` (``core._dist_check``).
+the oracle's recount of the graph before and after the stream, and the
+static and distributed counts to the oracle's count.  Sessions run on
+``--device`` (default the card).
 """
 from __future__ import annotations
 
@@ -45,11 +45,9 @@ def main(argv=None):
                     "the serial oracle's recount (raises on a mismatch)")
     ap.add_argument("--device", default="cuda",
                     help="device of the session (cpu: the plain versions)")
+    ap.add_argument("--workers", type=int, default=4,
+                    help="mesh workers of the distributed mode")
     args = ap.parse_args(argv)
-    if args.mode == "distributed":
-        raise NotImplementedError(
-            "--mode distributed needs the mesh session, a later slice of "
-            "the port (ROADMAP Queue 1 item 6b)")
 
     g = Graph.from_edges(rmat_graph(args.scale, args.edge_factor,
                                     seed=args.seed))
@@ -94,14 +92,27 @@ def main(argv=None):
                   f"recompute diff ✓")
         return handle.net_change
 
-    session = GraphSession(g.edges, device=args.device, batch=args.batch)
+    # static count: one device, or a mesh of --workers on it
+    mesh = None
+    if args.mode == "distributed":
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(args.workers, args.device)
+    session = GraphSession(g.edges, device=args.device, mesh=mesh,
+                           batch=args.batch)
     t0 = time.time()
     handle = session.register(args.query, symmetric=args.symmetric)
     t_reg = time.time() - t0
     t0 = time.time()
     count = handle.count()
+    where = f"one {session.device.type} device" if session.local else \
+        f"w={session.w} mesh on {session.device.type}"
     print(f"BiGJoin: {count:,} results in {time.time()-t0:.2f}s "
-          f"(one {session.device.type} device, register {t_reg:.2f}s)")
+          f"({where}, register {t_reg:.2f}s)")
+    if args.verify:
+        want = oracle_count(handle.query, g.edges)
+        if count != want:
+            raise AssertionError(f"count {count:,} != oracle {want:,}")
+        print(f"verified: count {count:,} == serial GJ oracle ✓")
     return count
 
 

@@ -13,9 +13,11 @@ dAQ_1..dAQ_n (every query) -> commit`` as edge updates stream in::
         --scale 10 --epochs 12 --batch-size 512
 
 and ``--concurrent N`` serves N tenants from their own client threads on
-one :class:`repro_torch.serve.SessionPool`.  Every mode runs on
-``--device`` (default the card; ``--device cpu`` runs the plain versions
-on the host).
+one :class:`repro_torch.serve.SessionPool`.  ``--workers N`` (N > 1)
+serves both on a mesh of N workers (every region hash-sharded over them,
+``--balance`` the BiGJoin-S Balance operator); ``--local`` keeps the
+one-device session.  Every mode runs on ``--device`` (default the card;
+``--device cpu`` runs the plain versions on the host).
 """
 from __future__ import annotations
 
@@ -24,6 +26,27 @@ import time
 
 import numpy as np
 import torch
+
+
+def _pool(args, **kw):
+    """The pool of the stream and concurrent modes: local, or a mesh of
+    ``--workers`` workers on ``--device``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import SessionPool
+    mesh = None if args.local or args.workers <= 1 else \
+        make_host_mesh(args.workers, args.device)
+    return SessionPool(device=args.device, mesh=mesh, balance=args.balance,
+                       update_batch=args.batch_size,
+                       horizon=args.epochs * args.batch_size,
+                       durable_dir=args.durable_dir,
+                       snapshot_every=args.snapshot_every, **kw)
+
+
+def _where(session) -> str:
+    if session.local:
+        return f"one {session.device.type} device"
+    return (f"a {session.w}-worker mesh on {session.device.type}"
+            + (" (balanced)" if session.balance else ""))
 
 
 def serve_stream(args):
@@ -35,7 +58,6 @@ def serve_stream(args):
     from repro_torch.api import Graph, oracle_count
     from repro_torch.data.synthetic import EdgeUpdateStream, rmat_graph
     from repro_torch.kernels import _build
-    from repro_torch.serve import SessionPool
 
     g = Graph.from_edges(rmat_graph(args.scale, args.edge_factor,
                                     seed=args.seed))
@@ -61,11 +83,7 @@ def serve_stream(args):
                 handles = [feeder] + handles
         state.update(handles=handles, needs_tri=needs_tri, tri0=tri0)
 
-    pool = SessionPool(device=args.device, balance=args.balance,
-                       update_batch=args.batch_size, prewarm=args.prewarm,
-                       horizon=args.epochs * args.batch_size,
-                       durable_dir=args.durable_dir,
-                       snapshot_every=args.snapshot_every)
+    pool = _pool(args, prewarm=args.prewarm)
     t0 = time.time()
     tenant = pool.admit("stream", g.edges, setup=setup, coalesce=1,
                         batch=args.bprime, out_capacity=args.out_capacity)
@@ -77,7 +95,7 @@ def serve_stream(args):
                               insert_frac=args.insert_frac,
                               skew=args.stream_skew, seed=args.seed + 1)
     print(f"monitoring {', '.join(names)} over {g.num_edges:,} edges on "
-          f"one {session.device.type} device; {args.epochs} epochs x "
+          f"{_where(session)}; {args.epochs} epochs x "
           f"{args.batch_size} updates (one shared commit per epoch"
           + (", tri relation fed by the standing triangle query)"
              if needs_tri else ")"))
@@ -187,17 +205,12 @@ def serve_concurrent(args):
 
     from repro_torch.api import oracle_count
     from repro_torch.data.synthetic import EdgeUpdateStream, rmat_graph
-    from repro_torch.serve import SessionPool
 
     names = [n.strip() for n in args.query.split(",") if n.strip()]
     # admission prewarm is non-optional here: the multi-tenant serving
     # contract (DESIGN.md §9) is zero serving-path compile events, which
     # --verify asserts below
-    pool = SessionPool(device=args.device, balance=args.balance,
-                       update_batch=args.batch_size, prewarm=True,
-                       horizon=args.epochs * args.batch_size,
-                       durable_dir=args.durable_dir,
-                       snapshot_every=args.snapshot_every)
+    pool = _pool(args, prewarm=True)
     graphs, tenants = {}, {}
     t0 = time.time()
     for i in range(args.concurrent):
@@ -208,8 +221,10 @@ def serve_concurrent(args):
             name, graphs[name], queries=names, coalesce=args.coalesce,
             max_queue=args.max_queue, batch=args.bprime,
             out_capacity=args.out_capacity)
+    where = f"one {pool.device.type} device" if pool.local else \
+        f"a {pool.mesh.num_workers}-worker mesh on {pool.device.type}"
     print(f"admitted {len(tenants)} tenants ({', '.join(names)} each) on "
-          f"one {pool.device.type} device pool in {time.time()-t0:.1f}s; "
+          f"{where} in {time.time()-t0:.1f}s; "
           f"{args.epochs} epochs x {args.batch_size} updates per tenant")
 
     # materialize each tenant's live mirror + epoch on THIS thread, before
@@ -355,9 +370,13 @@ def main(argv=None):
     ap.add_argument("--bprime", type=int, default=2048,
                     help="B' proposal budget (stream mode)")
     ap.add_argument("--out-capacity", type=int, default=1 << 20)
+    ap.add_argument("--workers", type=int, default=1,
+                    help="mesh workers of the stream and concurrent modes "
+                    "(1: the one-device session)")
+    ap.add_argument("--local", action="store_true",
+                    help="the one-device session whatever --workers says")
     ap.add_argument("--balance", action="store_true",
-                    help="BiGJoin-S Balance operator: needs the mesh, not "
-                    "ported yet (raises)")
+                    help="BiGJoin-S Balance operator (the mesh's)")
     ap.add_argument("--prewarm", action="store_true",
                     help="admission prewarm: pin the delta and probe "
                     "marks and load every kernel library before the first "

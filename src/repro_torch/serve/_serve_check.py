@@ -23,8 +23,11 @@ package's ``repro.serve._serve_check`` on one device:
         --epochs 30 --tight-out 32
 
 Everything runs on ``--device`` (default the card; the tests pass
-``cpu``).  ``--workers`` above 1 raises until the mesh is ported, and
-``dist.program`` has no caller, so chaos schedules leave it out.
+``cpu``).  ``--workers N`` above 1 builds every session and the pool on
+a mesh of N workers (every region hash-sharded over them); its chaos
+schedule then spans all eight fault points, ``dist.program`` (fired by
+each mesh program run) included.  One worker keeps the one-device
+sessions, where nothing fires ``dist.program``.
 
 Every tenant gets its OWN initial graph and update stream (derived from
 ``--seed`` + tenant index, so a resume child regenerates them exactly);
@@ -34,9 +37,20 @@ initial size.  Prints one JSON line; exit code 0 iff every check held.
 import os
 import sys
 
-# every point the port fires; dist.program waits for the mesh
+# the points a one-device run fires: every point but dist.program, which
+# fires where a mesh program runs (a run of more than one worker spans
+# them all, faults.POINTS)
 CHAOS_POINTS = ("store.commit.fold", "store.normalize", "pool.prep",
                 "pool.apply", "wal.append", "wal.fsync", "snapshot.write")
+
+
+def _mesh(args):
+    """The mesh of ``--workers`` workers on ``--device``, or None for the
+    one-device sessions (one worker)."""
+    if args.workers <= 1:
+        return None
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(args.workers, args.device)
 
 
 def _digest(obj) -> str:
@@ -80,6 +94,7 @@ def worker(args) -> int:
     if args.oracle:
         for n in names:
             o = GraphSession(graphs[n], device=args.device,
+                             mesh=_mesh(args),
                              update_batch=args.update_batch)
             o.register(args.query)
             spent = o.prewarm(horizon=args.update_batch * (args.epochs + 2))
@@ -99,7 +114,8 @@ def worker(args) -> int:
         kill_box[name] = epoch
 
     pool = SessionPool(
-        device=args.device, update_batch=args.update_batch,
+        device=args.device, mesh=_mesh(args),
+        update_batch=args.update_batch,
         pipeline=not args.pump, durable_dir=args.durable_dir,
         snapshot_every=args.snapshot_every, fsync=not args.no_fsync,
         on_logged=on_logged if args.durable_dir else None,
@@ -164,7 +180,7 @@ def worker(args) -> int:
     agg = stats.aggregate()
     out = {
         "mode": "worker", "device": str(pool.device),
-        "workers": args.workers, "local": True,
+        "workers": args.workers, "local": args.workers <= 1,
         "tenants": args.tenants, "epochs": args.epochs,
         "starts": {n: int(s) for n, s in starts.items()},
         "oracle_exact": bool(exact) if args.oracle else None,
@@ -220,7 +236,7 @@ def chaos(args) -> int:
     oracles = {}
     for n in names:
         o = GraphSession(graphs[n], device=args.device,
-                         update_batch=args.update_batch)
+                         mesh=_mesh(args), update_batch=args.update_batch)
         o.register(args.query)
         o.prewarm(horizon=args.update_batch * (args.epochs + 2))
         oracles[n] = o
@@ -228,7 +244,8 @@ def chaos(args) -> int:
 
     tmp = args.durable_dir or tempfile.mkdtemp(prefix="serve_chaos_")
     pool = SessionPool(
-        device=args.device, update_batch=args.update_batch,
+        device=args.device, mesh=_mesh(args),
+        update_batch=args.update_batch,
         pipeline=False, durable_dir=tmp,
         snapshot_every=args.snapshot_every, fsync=not args.no_fsync,
         horizon=args.update_batch * (args.epochs + 2))
@@ -251,7 +268,8 @@ def chaos(args) -> int:
         note(f"pinned fault schedule: {args.faults}")
     else:
         schedule = faults.random_schedule(
-            args.seed + 777, points=CHAOS_POINTS,
+            args.seed + 777,
+            points=faults.POINTS if args.workers > 1 else CHAOS_POINTS,
             horizon=args.chaos_horizon, rate=args.chaos_rate)
         note(f"random fault schedule: seed {args.seed + 777} "
              f"rate {args.chaos_rate} over {sorted(schedule)}")
@@ -332,7 +350,7 @@ def chaos(args) -> int:
     #                              tested nothing — fail loudly
     out = {
         "mode": "chaos", "device": str(pool.device),
-        "workers": args.workers, "local": True,
+        "workers": args.workers, "local": args.workers <= 1,
         "tenants": args.tenants, "epochs": args.epochs,
         "faults_injected": len(injected),
         "injected": [f"{p}@{h}" for p, h in injected[:40]],
@@ -425,7 +443,7 @@ def supervise(args) -> int:
             and compared > 0
         print(json.dumps({
             "mode": "supervise", "device": args.device,
-            "workers": args.workers, "local": True,
+            "workers": args.workers, "local": args.workers <= 1,
             "tenants": args.tenants, "epochs": args.epochs,
             "kill_at": args.kill_at, "kill_tenant": kill_tenant,
             "resume_starts": resumed["starts"],
@@ -461,7 +479,8 @@ def main(argv=None) -> int:
                          "rung to force escalate+replay")
     ap.add_argument("--tenants", type=int, default=4)
     ap.add_argument("--workers", type=int, default=1,
-                    help="mesh workers: only 1 until the mesh is ported")
+                    help="mesh workers of every session and the pool (1: "
+                    "one device's sessions)")
     ap.add_argument("--device", default="cuda",
                     help="device of every session and pool (cpu: the "
                     "plain versions)")
@@ -482,10 +501,9 @@ def main(argv=None) -> int:
                     help="os._exit(9) when --kill-tenant logs this epoch")
     ap.add_argument("--kill-tenant", default="t0")
     args = ap.parse_args(argv)
-    if args.workers != 1:
-        raise NotImplementedError(
-            "--workers above 1 needs the mesh pool, a later slice of the "
-            "port (ROADMAP Queue 1 item 6b)")
+    if args.workers < 1:
+        raise ValueError(f"--workers must be at least 1, got "
+                         f"{args.workers}")
     if args.supervise:
         return supervise(args)
     if args.chaos:

@@ -1,4 +1,4 @@
-"""SessionPool: N tenants served from ONE device.
+"""SessionPool: N tenants served from ONE device (or one mesh on it).
 
 The serving layer above :mod:`repro_torch.api` (the JAX package's
 ``repro.serve.pool``, on one card): each tenant owns an independent
@@ -149,8 +149,10 @@ class SessionPool:
 
     ``device=None`` means ``"cuda"`` and raises when CUDA is absent, as
     ``GraphSession`` does; pass ``device="cpu"`` to serve on the host.
-    Only the local pool is ported: ``local=False``, a ``mesh`` or
-    ``balance=True`` raise."""
+    ``local``, ``mesh`` and ``balance`` choose every tenant's engine as
+    ``GraphSession``'s do: ``local=False`` without a ``mesh`` builds one of
+    ``launch.mesh.DEFAULT_WORKERS`` (4) workers on the pool's device, and
+    every tenant's session is built on the pool's mesh."""
 
     def __init__(self, *, device=None, local: Optional[bool] = None,
                  mesh=None, balance: bool = False, update_batch: int = 2048,
@@ -161,11 +163,22 @@ class SessionPool:
                  on_logged: Optional[Callable[[str, int], None]] = None,
                  quarantine_after: int = 3, wal_retries: int = 3,
                  wal_backoff_s: float = 0.02):
-        if local is False or mesh is not None or balance:
-            raise NotImplementedError(
-                "only the local single-device pool is ported (the mesh and "
-                "BiGJoin-S balancing are a later slice)")
+        if local is None:
+            local = mesh is None
+        self.local = bool(local)
+        if mesh is not None and not self.local and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        if not self.local:
+            from repro_torch.launch.mesh import (DEFAULT_WORKERS,
+                                                 make_host_mesh)
+            if mesh is None:
+                mesh = make_host_mesh(DEFAULT_WORKERS, self.device)
+            elif resolve_device(mesh.device) != self.device:
+                raise ValueError(f"the mesh's device {mesh.device} is not "
+                                 f"the pool's {self.device}")
+        self.mesh = None if self.local else mesh
+        self.balance = bool(balance)
         self.update_batch = int(update_batch)
         self.prewarm = bool(prewarm)
         self.horizon = horizon
@@ -212,8 +225,8 @@ class SessionPool:
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} already admitted")
         session = GraphSession(
-            initial, device=self.device,
-            batch=batch, out_capacity=out_capacity,
+            initial, device=self.device, local=self.local, mesh=self.mesh,
+            balance=self.balance, batch=batch, out_capacity=out_capacity,
             update_batch=update_batch or self.update_batch)
         for q in queries:
             session.register(q)

@@ -31,6 +31,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.compilestats",
             "repro_torch.core.distributed", "repro_torch.core.balance",
             "repro_torch.core._dist_check", "repro_torch.launch.mesh",
+            "repro_torch.core._delta_dist_check",
+            "repro_torch.core._nary_dist_check",
             "repro_torch.launch.kernel_coverage",
             "repro_torch.models.recsys",
             "repro_torch.configs.recsys_family"} <= set(MODULES)
@@ -74,4 +76,7 @@ def test_cuda_sources_are_complete():
     assert VARIANTS_OF["segment_sum"] == ("segment_sum",)
     assert VARIANTS_OF["flash_attention"] == ("flash_attention",)
     assert VARIANTS_OF["member"] == ("member", "member_lex")
-    assert len(VARIANTS) == 12
+    assert VARIANTS_OF["commit_fold"] == ("commit_fold", "commit_fold_lex",
+                                          "commit_fold_w",
+                                          "commit_fold_lex_w")
+    assert len(VARIANTS) == 14

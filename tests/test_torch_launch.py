@@ -74,8 +74,7 @@ def test_serve_concurrent_verifies(capsys):
 
 
 def test_serve_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        serve.main(["--stream", "--balance", "--device", "cpu"] + STREAM)
+    # the mesh's --workers/--balance are ported (test_torch_mesh_stream)
     with pytest.raises(NotImplementedError):
         serve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
     with pytest.raises(KeyError):
@@ -140,6 +139,13 @@ def test_run_query_modes_against_the_oracle(mode, capsys):
     assert results(out) and results(out) == results(jout)
 
 
-def test_run_query_distributed_needs_the_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run_query.main(["--mode", "distributed", "--device", "cpu"])
+def test_run_query_distributed_needs_the_mesh(capsys):
+    """The distributed mode counts on a mesh session of ``--workers``,
+    the count the oracle's."""
+    cnt = run_query.main(["--mode", "distributed", "--device", "cpu",
+                          "--workers", "2", "--scale", "6", "--verify"])
+    out = capsys.readouterr().out
+    assert "w=2 mesh" in out and "✓" in out and cnt > 0
+    with pytest.raises(ValueError):
+        run_query.main(["--mode", "distributed", "--device", "cpu",
+                        "--workers", "0", "--scale", "6"])

@@ -421,9 +421,14 @@ def test_pool_wal_and_snapshot_faults_match_jax(tmp_path, spec, retries):
 
 
 def test_pool_refuses_what_is_not_ported():
-    for kw in (dict(local=False), dict(mesh=object()), dict(balance=True)):
-        with pytest.raises(NotImplementedError):
-            serve.SessionPool(device="cpu", **kw)
+    """The mesh pool is ported: ``local=False`` is four workers on the
+    pool's device; a mesh on another device is refused."""
+    from repro_torch.launch.mesh import make_host_mesh
+    pool = serve.SessionPool(device="cpu", local=False, balance=True)
+    assert (pool.local, pool.mesh.num_workers, pool.balance) == \
+        (False, 4, True)
+    with pytest.raises(ValueError, match="device"):
+        serve.SessionPool(device="cpu", mesh=make_host_mesh(2, "meta"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.SessionPool()
@@ -519,6 +524,8 @@ def test_serve_check_modes(mode):
 
 
 def test_serve_check_refuses_workers():
+    """``--workers`` above 1 runs on the mesh (``test_torch_mesh_stream``);
+    fewer than one worker is refused."""
     from repro_torch.serve import _serve_check
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _serve_check.main(["--workers", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="workers"):
+        _serve_check.main(["--workers", "0", "--device", "cpu"])

@@ -160,14 +160,20 @@ def test_auto_sizing_matches_jax(name, num_edges):
     from repro_torch.core.query import query_by_name as tq
     got, want = auto_sizing(tq(name), num_edges), \
         j_auto_sizing(jq(name), num_edges)
-    # the mesh's route sizing is not ported (the session is local only)
-    assert (got.batch, got.out_capacity) == (want.batch, want.out_capacity)
+    assert (got.batch, got.out_capacity, got.route_capacity) == \
+        (want.batch, want.out_capacity, want.route_capacity)
 
 
 def test_session_device_and_mesh_guards():
+    """``local=False`` without a mesh is four workers on the session's
+    device; a mesh on another device is refused."""
+    from repro_torch.launch.mesh import make_host_mesh
     edges = tsyn.rmat_graph(4, 2, seed=0)
-    with pytest.raises(NotImplementedError):
-        GraphSession(edges, device="cpu", local=False)
+    s = GraphSession(edges, device="cpu", local=False)
+    assert (s.local, s.w, s.store.shard_w) == (False, 4, 4)
+    assert GraphSession(edges, device="cpu").local
+    with pytest.raises(ValueError, match="device"):
+        GraphSession(edges, device="cpu", mesh=make_host_mesh(2, "meta"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             GraphSession(edges)
