@@ -102,7 +102,8 @@ Phases, in order, each printed with its result and seconds:
               ``launch.serve`` (stream, concurrent, gemma2-2b) and
               ``launch.run_query --mode delta``;
 8. examples — every ``examples/torch_*.py`` twin in a process of its own
-              on the card: exit 0 and its "✓" lines;
+              on the card (the LM twin 40 steps): exit 0 and its "✓"
+              lines;
 9. mesh     — the paper's distributed dataflow with w = 4 workers as a
               leading tensor axis on the card (``core.distributed``,
               BiGJoin-S aggregation, deferral and Balance): triangle,
@@ -137,18 +138,20 @@ Phases, in order, each printed with its result and seconds:
               ``tri`` store of (a)) at those shapes, one worker's delta
               empty, bit for bit the plain version on host copies, timed
               against w launches of the one-region kernel on the shards;
-11. train driver — ``repro_torch.launch.train`` with --arch gatedgcn at its
-              defaults to step 10, relaunched to step 20: it resumes from
-              its checkpoint and ends with a finite loss;
+11. train driver — ``repro_torch.launch.train`` with --arch gatedgcn and
+              with --arch mixtral-8x7b (its smoke config) at their
+              defaults, each to step 10, relaunched to step 20: it resumes
+              from its checkpoint and ends with a finite loss;
 12. train full — GatedGCN at full width (16 layers, d 70, the minibatch_lg
               shape) on a 232,965-node graph: triangle features from the
               port's BiGJoin on the card, sampled union graphs, the
               segment_sum kernel against its plain version at that shape
               (f32, f16, unsorted; random rows on the padding hub and all
               rows in one segment against float64; two calls bitwise
-              equal), the first step against the host's, then
-              6 steps: step ms, peak memory, idle share of a profiled step,
-              2 segment_sum launches per layer and step;
+              equal), the first step against the host's (the host's in
+              a thread beside the card's steps), then 6 steps: step ms,
+              peak memory, idle share of a profiled step, 2 segment_sum
+              launches per layer and step;
 13. train archs — one step of each GNN arch at smoke width and of a
               graph_reg batch, the card's loss against the host's;
 14. train recsys — the two-tower model: one smoke step against the host
@@ -159,14 +162,28 @@ Phases, in order, each printed with its result and seconds:
               serve_p99 (512 events) and one query against 1,000,000
               candidates (top 100);
 15. lm verify — the LM transformer on the card against the host, f32 on
-              both: the yi-34b, gemma-7b and gemma2-2b smoke configs
-              (forward, loss, prefill, 4 decode steps) and gemma2-2b at
-              full width and depth 2 on a 4,160-token request;
-16. lm serve gemma2-2b — full width and depth, bf16, random parameters
+              both: the five archs' smoke configs (forward and loss through
+              ``_attend`` with no flash launch; prefill and 4 decode steps
+              with one a layer), gemma2-2b at full width and depth 2 on a
+              4,160-token request and mixtral-8x7b (MoE) at full width and
+              depth 1 on a 520-token request (prefill, 2 decode steps);
+16. lm train verify — ``make_train_step`` on the card against the host,
+              f32, the five archs' smoke configs at 1 and 2 microbatches:
+              two steps, each loss and gradient norm, every parameter and
+              AdamW moment after; no flash launch;
+17. lm train mixtral-8x7b — full width (8 experts top-2), depth 2, bf16,
+              8 sequences of 4,096 tokens in 4 microbatches: the first
+              microbatch's bf16 loss against f32, the share of assignments
+              each layer keeps, 6 steps and one profiled: step ms, tokens/s,
+              peak memory, idle share; finite losses and gradient norms;
+18. lm serve gemma2-2b — full width and depth, bf16, random parameters
               from the seed: 4 prompts of 8,192 tokens, prefill and 32
               greedy decode steps, 3 rounds (1 cold) and one profiled
               prefill and decode step; decode held against prefill; 26
-              flash launches per prefill and per decode step.
+              flash launches per prefill and per decode step;
+19. lm serve mixtral-8x7b — the same at full width, depth 12, on 4
+              prompts of 4,096 tokens: 12 flash launches a pass, the warm
+              rounds' tokens equal, the kept share of each layer.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's ``name, power.limit``; the last line is
@@ -177,6 +194,8 @@ repository root: ``python3 chip_smoke.py [--serve 16:triangle,diamond@10]``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -2685,8 +2704,12 @@ def pool_phase(update_batch: int, seed: int) -> dict:
     return counts
 
 
-EXAMPLE_TWINS = ("torch_quickstart", "torch_incremental_motifs",
-                 "torch_multi_relation", "torch_train_gnn_with_motifs")
+# each twin and its arguments: the LM twin trains 40 of its 200 steps
+# (34.81 s at 100 and 28.97 s at 60 beside the others: PERF.md §6)
+EXAMPLE_TWINS = {"torch_quickstart": (), "torch_incremental_motifs": (),
+                 "torch_multi_relation": (),
+                 "torch_train_gnn_with_motifs": (),
+                 "torch_train_lm": ("--steps", "40")}
 
 
 def examples_phase() -> None:
@@ -2696,10 +2719,10 @@ def examples_phase() -> None:
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     procs = {}
     try:
-        for name in EXAMPLE_TWINS:
+        for name, args in EXAMPLE_TWINS.items():
             procs[name] = (time.time(), subprocess.Popen(
                 [sys.executable, os.path.join(root, "examples",
-                                              f"{name}.py")],
+                                              f"{name}.py"), *args],
                 env=env, cwd=root, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True))
         bad = []
@@ -2843,38 +2866,49 @@ def segment_sum_rows(table: dict, dst: np.ndarray, mask: np.ndarray,
 
 def train_driver_phase(seed: int) -> dict:
     """The port's driver (``launch/train.py`` main) with --arch gatedgcn
-    at its defaults, to step 10 and relaunched to step 20 in one
-    checkpoint directory: it must resume from step 10 and end with a
-    finite loss.  Returns the kernel launches of both runs."""
+    and with --arch mixtral-8x7b (its smoke config) at their defaults, each
+    to step 10 and relaunched to step 20 in one checkpoint directory: it
+    must resume from step 10 and end with a finite loss.  Returns the
+    kernel launches of every run."""
     import contextlib
     import io
     import tempfile
     from repro_torch import kernels
     from repro_torch.launch import train
-    runs = []
-    kernels.reset_launches()
-    with tempfile.TemporaryDirectory() as ck:
-        for steps in (10, 20):
-            buf = io.StringIO()
-            t = time.time()
-            with contextlib.redirect_stdout(buf):
-                loss = train.main(["--arch", "gatedgcn", "--steps",
-                                   str(steps), "--seed", str(seed),
-                                   "--ckpt-dir", ck])
-            runs.append((loss, buf.getvalue()))
-            log(f"  train driver --steps {steps}: {time.time() - t:.2f} s")
-            for line in buf.getvalue().splitlines():
-                log(f"    {line}")
-    counts = kernels.launches()
-    if "resumed from step 10" not in runs[1][1]:
-        raise AssertionError("train driver: the relaunch did not resume "
-                             "from step 10")
-    if not np.isfinite(runs[1][0]):
-        raise AssertionError(f"train driver: final loss {runs[1][0]}")
-    require_launches("train driver", counts, ["segment_sum",
-                                              "fused_extend"])
-    log(f"  train driver: launches {counts}")
-    return counts
+    totals = {}
+    for arch in ("gatedgcn", "mixtral-8x7b"):
+        runs = []
+        kernels.reset_launches()
+        with tempfile.TemporaryDirectory() as ck:
+            for steps in (10, 20):
+                buf = io.StringIO()
+                t = time.time()
+                with contextlib.redirect_stdout(buf):
+                    loss = train.main(["--arch", arch, "--steps",
+                                       str(steps), "--seed", str(seed),
+                                       "--ckpt-dir", ck])
+                runs.append((loss, buf.getvalue()))
+                log(f"  train driver {arch} --steps {steps}: "
+                    f"{time.time() - t:.2f} s")
+                for line in buf.getvalue().splitlines():
+                    log(f"    {line}")
+        counts = kernels.launches()
+        if "resumed from step 10" not in runs[1][1]:
+            raise AssertionError(f"train driver {arch}: the relaunch did "
+                                 f"not resume from step 10")
+        if not np.isfinite(runs[1][0]):
+            raise AssertionError(f"train driver {arch}: final loss "
+                                 f"{runs[1][0]}")
+        if arch == "gatedgcn":
+            require_launches("train driver", counts, ["segment_sum",
+                                                      "fused_extend"])
+        elif counts["flash_attention"]:
+            raise AssertionError(f"train driver {arch}: flash launches "
+                                 f"{counts['flash_attention']}, expected "
+                                 f"none")
+        log(f"  train driver {arch}: launches {counts}")
+        add_counts(totals, counts)
+    return totals
 
 
 def _loss_and_gnorm(model, batch, cfg):
@@ -2900,6 +2934,7 @@ def train_full_phase(table: dict, reps: int, seed: int) -> dict:
     on the card, the sampler's union graphs padded to the shape, the
     segment_sum kernel rows at this shape, the first step's loss and
     gradient norm against the host's, then TRAIN_STEPS training steps."""
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_arch
@@ -2965,22 +3000,18 @@ def train_full_phase(table: dict, reps: int, seed: int) -> dict:
                      batches[0]["edge_mask"].cpu().numpy(), n_max,
                      cfg.d_hidden, reps, seed)
 
-    # the first step on the card against the same step on the host
+    # the first step on the card against the same step on the host; the
+    # host's (~35 s) runs in a thread beside the card's steps below, which
+    # keep the card busy (idle share ~0.003) and need little of the host
     model = G.GNN(cfg, seed=seed)
     host = G.GNN(cfg, seed=seed, device="cpu")
     kernels.reset_launches()
     card = _loss_and_gnorm(model, batches[0], cfg)
     add(kernels.launches())
-    t = time.time()
-    cpu = _loss_and_gnorm(host, {k: v.cpu() for k, v in
-                                 batches[0].items()}, cfg)
-    log(f"  train full: first step loss / grad norm card {card}, host "
-        f"{cpu} (host step {time.time() - t:.2f} s)")
-    if not (_close(card[0], cpu[0], FULL_STEP_RTOL)
-            and _close(card[1], cpu[1], FULL_STEP_RTOL)):
-        raise AssertionError(f"train full: the card's first step {card} "
-                             f"differs from the host's {cpu}")
-    del host
+    t_host = time.time()
+    beside = ThreadPoolExecutor(1)
+    host_step = beside.submit(_loss_and_gnorm, host, {
+        k: v.cpu() for k, v in batches[0].items()}, cfg)
 
     opt = adamw_init(model)
     step_fn = make_train_step(cfg)
@@ -3016,6 +3047,16 @@ def train_full_phase(table: dict, reps: int, seed: int) -> dict:
         f"kernel launches recorded); device time by kernel (launches, ms):")
     for name, (n, ms) in top:
         log(f"    {ms:10.3f} ms {n:5d}x {name}")
+    cpu = host_step.result()
+    beside.shutdown()
+    log(f"  train full: first step loss / grad norm card {card}, host "
+        f"{cpu} (host step done {time.time() - t_host:.2f} s after it "
+        f"started)")
+    if not (_close(card[0], cpu[0], FULL_STEP_RTOL)
+            and _close(card[1], cpu[1], FULL_STEP_RTOL)):
+        raise AssertionError(f"train full: the card's first step {card} "
+                             f"differs from the host's {cpu}")
+    del host
     warm = np.asarray(secs[1:]) * 1e3
     out = dict(
         layers=cfg.n_layers, d_hidden=cfg.d_hidden, d_in=cfg.d_in,
@@ -4044,11 +4085,33 @@ SERVE_PROMPT = 8192
 SERVE_DECODE = 32
 SERVE_ROUNDS = 3  # 1 cold + 2 warm
 DECODE_OFFSET = 8200  # the kernel rows' decode position in that cache
-LM_SMOKE_ARCHS = ("yi-34b", "gemma-7b", "gemma2-2b")
+LM_SMOKE_ARCHS = ("yi-34b", "gemma-7b", "gemma2-2b", "mixtral-8x7b",
+                  "llama4-scout-17b-a16e")
+ALL_LM_ARCHS = ("llama4-scout-17b-a16e", "mixtral-8x7b", "yi-34b",
+                "gemma-7b", "gemma2-2b")
+# mixtral-8x7b at full width and depth 1 held card against host on one
+# request of this many tokens (its MoE capacity 168 a expert)
+LM_MOE_VERIFY_TOKENS = 520
+# mixtral-8x7b training at full width: train_4k's 4,096-token sequences,
+# depth cut 32 -> 2 (~3.03B parameters, 16 bytes each with the bf16
+# gradient, the f32 accumulator and moments: ~48.5 GB), the batch cut
+# from 256 x 8 microbatches to 8 x 4
+LM_TRAIN_LAYERS = 2
+LM_TRAIN_BATCH = 8
+LM_TRAIN_MICRO = 4
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_STEPS = 6  # 1 cold + 5 warm, then one profiled
+# the first microbatch's bf16 loss within this share of its f32 loss
+LM_LOSS_GAP = 0.02
+# mixtral-8x7b serving: depth cut 32 -> 12 (~35 GB of bf16 parameters),
+# 4 prompts of 4,096 tokens, so the 4,096 window masks keys in decode
+LM_SERVE_MOE_LAYERS = 12
+LM_SERVE_MOE_PROMPT = 4096
 # card against host, f32 on both: matmuls and softmax sums in another
 # order (cuBLAS against the host's BLAS, the kernel's online softmax
 # against one softmax), |err| <= tol * max(1, max |host|): 2 layers at
-# smoke width, 2 layers at full width (d 2304, ff 9216, 4,160 keys)
+# smoke width (the train steps too), 2 layers at full width (d 2304, ff
+# 9216, 4,160 keys), 1 MoE layer at full width (d 4096, ff 14336)
 LM_SMOKE_TOL = 1e-4
 LM_FULL_TOL = 1e-3
 # decode against prefill at full depth in bf16 on the card, |err| <= tol *
@@ -4343,7 +4406,9 @@ def _lm_verify(cfg, tokens, labels, decode_tokens, tol, full: bool,
     """One config on the card and on the host from the same parameters:
     forward, logits and loss (unless ``full``), prefill, then one decode
     step per column of ``decode_tokens`` into a cache filled from the
-    prefill; the card's flash launches per pass."""
+    prefill; the card's flash launches per pass: none in forward and
+    loss (they attend through ``_attend``, what training
+    differentiates), ``num_layers`` in every prefill and decode step."""
     import copy
     import torch
     from repro_torch import kernels
@@ -4357,24 +4422,22 @@ def _lm_verify(cfg, tokens, labels, decode_tokens, tol, full: bool,
     for dev, m in ((DEVICE, model), ("cpu", host)):
         tok = torch.from_numpy(tokens).to(dev)
         out = {}
+
+        def counted(what, fn):
+            kernels.reset_launches()
+            res = fn()
+            if dev == DEVICE:
+                flash.append((what, kernels.launches()["flash_attention"]))
+            return res
         with torch.no_grad():
             if not full:
-                kernels.reset_launches()
-                hidden, _aux = T.forward(m, tok)
-                if dev == DEVICE:
-                    flash.append(kernels.launches()["flash_attention"])
+                hidden, _aux = counted("forward", lambda: T.forward(m, tok))
                 out["hidden"] = hidden
                 out["logits"] = T.logits_fn(m, hidden)
-                kernels.reset_launches()
-                out["loss"], _ = T.loss_fn(m, {
+                out["loss"], _ = counted("loss", lambda: T.loss_fn(m, {
                     "tokens": tok,
-                    "labels": torch.from_numpy(labels).to(dev)})
-                if dev == DEVICE:
-                    flash.append(kernels.launches()["flash_attention"])
-            kernels.reset_launches()
-            logits, kv = T.prefill(m, tok)
-            if dev == DEVICE:
-                flash.append(kernels.launches()["flash_attention"])
+                    "labels": torch.from_numpy(labels).to(dev)}))
+            logits, kv = counted("prefill", lambda: T.prefill(m, tok))
             out["prefill"] = logits
             out["prefill_k"] = kv["k"]
             cache = T.make_cache(cfg, B, S + n_dec, device=dev)
@@ -4382,31 +4445,34 @@ def _lm_verify(cfg, tokens, labels, decode_tokens, tol, full: bool,
             cache["v"][:, :, :S] = kv["v"]
             del kv
             for j in range(n_dec):
-                kernels.reset_launches()
                 step = torch.from_numpy(decode_tokens[:, j:j + 1]).to(dev)
-                lg, cache = T.decode_step(m, cache, step, S + j)
-                if dev == DEVICE:
-                    flash.append(kernels.launches()["flash_attention"])
+                lg, cache = counted("decode", lambda: T.decode_step(
+                    m, cache, step, S + j))
                 out[f"decode{j}"] = lg
             out["cache_k"] = cache["k"]
             out["cache_v"] = cache["v"]
         outs[dev] = out
+    del model
     for key in outs["cpu"]:
         errs[key] = _lm_close(f"{cfg.name} {key}", outs[DEVICE][key],
                               outs["cpu"][key], tol)
-    if any(n != cfg.num_layers for n in flash):
+    torch.cuda.empty_cache()
+    want = {"forward": 0, "loss": 0, "prefill": cfg.num_layers,
+            "decode": cfg.num_layers}
+    if any(n != want[what] for what, n in flash):
         raise AssertionError(f"lm verify {cfg.name}: flash launches per "
-                             f"pass {flash}, expected {cfg.num_layers}")
-    return dict(errs=errs, flash=flash)
+                             f"pass {flash}, expected {want}")
+    return dict(errs=errs, flash=[n for _, n in flash])
 
 
 def lm_verify_phase(seed: int) -> dict:
     """The card against the host, f32 on both: the smoke configs of the
-    three dense archs (forward, logits, loss, prefill and 4 decode steps
-    past the window of 8), and gemma2-2b at full width and depth 2 (one
-    local, one global layer) on one 4,160-token request (prefill and 2
-    decode steps), so the 4096 window masks early keys.  Returns the
-    kernel launches."""
+    five archs (forward, logits, loss, prefill and 4 decode steps past the
+    window of 8), gemma2-2b at full width and depth 2 (one local, one
+    global layer) on one 4,160-token request (prefill and 2 decode
+    steps), so the 4096 window masks early keys, and mixtral-8x7b at full
+    width and depth 1 (8 experts top-2) on one 520-token request (prefill
+    and 2 decode steps).  Returns the kernel launches."""
     import dataclasses
     import torch
     from repro_torch.data.synthetic import TokenStream
@@ -4426,35 +4492,224 @@ def lm_verify_phase(seed: int) -> dict:
         log(f"  lm verify {cfg.name}: max |card - host| "
             f"{json.dumps(out['errs'])}, flash launches {out['flash']} "
             f"({time.time() - t:.2f} s)")
-    full = _lm_arch("gemma2-2b").full_config
-    cfg = dataclasses.replace(full, name="gemma2-2b-depth2", num_layers=2,
-                              param_dtype=torch.float32,
-                              act_dtype=torch.float32)
-    b = TokenStream(cfg.vocab, 1, 4162, seed).batch_at(0)
-    t = time.time()
-    out = _lm_verify(cfg, b[:, :4160], None, b[:, 4160:4162], LM_FULL_TOL,
-                     True, seed)
-    add(out["flash"])
-    log(f"  lm verify {cfg.name} (full width, 4,160 tokens): max |card - "
-        f"host| {json.dumps(out['errs'])}, flash launches {out['flash']} "
-        f"({time.time() - t:.2f} s)")
+    for arch, depth, S in (("gemma2-2b", 2, 4160),
+                           ("mixtral-8x7b", 1, LM_MOE_VERIFY_TOKENS)):
+        cfg = dataclasses.replace(
+            _lm_arch(arch).full_config, name=f"{arch}-depth{depth}",
+            num_layers=depth, param_dtype=torch.float32,
+            act_dtype=torch.float32)
+        b = TokenStream(cfg.vocab, 1, S + 2, seed).batch_at(0)
+        t = time.time()
+        out = _lm_verify(cfg, b[:, :S], None, b[:, S:S + 2], LM_FULL_TOL,
+                         True, seed)
+        add(out["flash"])
+        log(f"  lm verify {cfg.name} (full width, {S:,} tokens): max |card "
+            f"- host| {json.dumps(out['errs'])}, flash launches "
+            f"{out['flash']} ({time.time() - t:.2f} s)")
     return totals
 
 
-def lm_serve_phase(seed: int) -> dict:
-    """gemma2-2b at full width and depth (26 layers, bf16 parameters and
-    activations, random parameters drawn on the card from ``seed``): 4
-    requests of 8,192-token prompts (TokenStream), prefill, then 32 greedy
-    decode steps into an 8,224-row cache filled from the prefill's k/v;
-    SERVE_ROUNDS rounds (1 cold), one profiled prefill and one profiled
-    decode step.  The first decode step's logits are held against a
-    prefill of the prompt and that step's token.  Returns the launches."""
+@contextlib.contextmanager
+def kept_shares(into: list):
+    """Record, while open, the share of each MoE call's token-expert
+    assignments that its capacity keeps (``transformer._route``'s
+    ``kept``), one a layer and pass, into ``into``: 0-d tensors on the
+    card while open (no synchronise inside a timed pass), floats after."""
+    from repro_torch.models import transformer as T
+    route = T._route
+
+    def recording(x2d, router, cfg):
+        r = route(x2d, router, cfg)
+        into.append(r["kept"].float().mean())
+        return r
+    T._route = recording
+    try:
+        yield into
+    finally:
+        T._route = route
+        into[:] = [float(x) for x in into]
+
+
+def lm_train_verify_phase(seed: int) -> dict:
+    """``make_train_step`` on the card against the host, f32 on both, for
+    the five archs' smoke configs at 1 and 2 microbatches: two steps from
+    the same parameters on the same TokenStream batches; each step's loss
+    and gradient norm, then every parameter and both AdamW moments, at
+    LM_SMOKE_TOL; no flash launch (training attends through
+    ``_attend``).  Returns the launches."""
+    import copy
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.lm_family import make_train_step, token_batch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    totals = {}
+    for arch in ALL_LM_ARCHS:
+        cfg = _lm_arch(arch).smoke_config
+        ts = TokenStream(cfg.vocab, 4, 32, seed)
+        for M in (1, 2):
+            t = time.time()
+            model = T.Transformer(cfg, seed=seed, device=DEVICE)
+            runs = {}
+            host = copy.deepcopy(model).cpu()
+            for dev, m in ((DEVICE, model), ("cpu", host)):
+                opt = adamw_init(m)
+                step = make_train_step(cfg, microbatches=M)
+                kernels.reset_launches()
+                ms = [step(m, opt, token_batch(ts.batch_at(s), dev))
+                      for s in range(2)]
+                if dev == DEVICE:
+                    add_counts(totals, kernels.launches())
+                    flash = kernels.launches()["flash_attention"]
+                runs[dev] = (m, opt, ms)
+            (cm, copt, cms), (hm, hopt, hms) = runs[DEVICE], runs["cpu"]
+            label = f"train {cfg.name} M={M}"
+            errs = {}
+            for s in range(2):
+                for k in ("loss", "gnorm"):
+                    errs[f"{k}{s}"] = _lm_close(f"{label} {k} step {s}",
+                                                cms[s][k], hms[s][k],
+                                                LM_SMOKE_TOL)
+            hp = dict(hm.named_parameters())
+            for what, card, host in (
+                    ("param", dict(cm.named_parameters()), hp),
+                    ("mu", copt.mu, hopt.mu), ("nu", copt.nu, hopt.nu)):
+                errs[what] = max(_lm_close(f"{label} {what} {k}", card[k],
+                                           host[k], LM_SMOKE_TOL)
+                                 for k in host)
+            if copt.step != hopt.step or copt.step != 2 or flash:
+                raise AssertionError(f"{label}: steps {copt.step}/"
+                                     f"{hopt.step}, flash launches {flash}")
+            log(f"  lm train verify {cfg.name} M={M}: loss "
+                f"{[float(x['loss']) for x in cms]}, max |card - host| "
+                f"{json.dumps(errs)} ({time.time() - t:.2f} s)")
+    return totals
+
+
+def lm_train_phase(seed: int) -> dict:
+    """mixtral-8x7b at full width (8 experts top-2, window 4096), depth
+    LM_TRAIN_LAYERS, bf16 parameters and activations, f32 moments and
+    gradient accumulator: first the loss of the first microbatch in bf16
+    against the same parameters cast to f32 (no grad; within LM_LOSS_GAP),
+    with the share of assignments each layer keeps; then LM_TRAIN_STEPS
+    steps of LM_TRAIN_BATCH sequences of LM_TRAIN_SEQ tokens in
+    LM_TRAIN_MICRO microbatches and one profiled step: step ms, tokens/s,
+    peak memory, idle share; every loss and gradient norm finite; no
+    flash launch.  Returns the launches."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.lm_family import make_train_step, token_batch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(_lm_arch("mixtral-8x7b").full_config,
+                              num_layers=LM_TRAIN_LAYERS)
+    B, M, S = LM_TRAIN_BATCH, LM_TRAIN_MICRO, LM_TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.time()
+    model = T.Transformer(cfg, seed=seed, device=DEVICE)
+    sync()
+    init_s = time.time() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    ts = TokenStream(cfg.vocab, B, S, seed)
+    mb0 = token_batch(ts.batch_at(0)[:B // M], DEVICE)
+    kept = []
+    with torch.no_grad():
+        with kept_shares(kept):
+            loss16 = float(T.loss_fn(model, mb0)[0])
+        f32 = copy.deepcopy(model).float()
+        f32.cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                      act_dtype=torch.float32)
+        loss32 = float(T.loss_fn(f32, mb0)[0])
+        del f32
+    torch.cuda.empty_cache()
+    gap = abs(loss16 - loss32) / abs(loss32)
+    log(f"  lm train {cfg.name}: first microbatch's loss bf16 {loss16} "
+        f"against f32 {loss32} (gap {gap}), kept share per layer {kept}")
+
+    opt = adamw_init(model)
+    step = make_train_step(cfg, microbatches=M)
+    step_ms, losses, gnorms = [], [], []
+    for s in range(LM_TRAIN_STEPS):
+        batch = token_batch(ts.batch_at(s), DEVICE)
+        sync()
+        t = time.time()
+        m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        step_ms.append((time.time() - t) * 1e3)
+        log(f"  lm train step {s}: {step_ms[-1]:.2f} ms, loss {losses[-1]}, "
+            f"gnorm {gnorms[-1]}")
+    batch = token_batch(ts.batch_at(LM_TRAIN_STEPS), DEVICE)
+    by_name = {}
+    wall, busy, idle, _rec, _exp = idle_share(
+        lambda: step(model, opt, batch), by_name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernels.launches()
+    warm = np.asarray(step_ms[1:])
+    out = dict(
+        arch=cfg.name, layers=cfg.num_layers, params=n_params, init_s=init_s,
+        batch=B, microbatches=M, seq=S, steps=LM_TRAIN_STEPS,
+        step_first_ms=step_ms[0], step_warm_ms=step_ms[1:],
+        step_p50_ms=float(np.percentile(warm, 50)),
+        step_p99_ms=float(np.percentile(warm, 99)),
+        tokens_per_s=float(B * S / np.percentile(warm, 50) * 1e3),
+        peak_mem_gib=peak, free_gib=(torch.cuda.get_device_properties(
+            0).total_memory / 2**30 - peak),
+        profiled_step_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+        idle_share=idle, losses=losses, gnorms=gnorms,
+        loss_bf16=loss16, loss_f32=loss32, loss_gap=gap,
+        kept_share=kept, top_kernels_ms={n: ms for n, (_c, ms) in top},
+        launches=counts)
+    log("  lm train: " + json.dumps(out))
+    del opt, model
+    # torch.utils.checkpoint leaves reference cycles that hold the
+    # parameters until a collection
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  lm train: {torch.cuda.memory_allocated() / 2**30:.2f} GiB left "
+        f"allocated")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"lm train: losses {losses}, gnorms {gnorms}")
+    if not gap <= LM_LOSS_GAP:
+        raise AssertionError(f"lm train: bf16 loss {loss16} differs from "
+                             f"f32 {loss32} by {gap} (> {LM_LOSS_GAP})")
+    if counts["flash_attention"]:
+        raise AssertionError(f"lm train: {counts['flash_attention']} flash "
+                             f"launches, expected none")
+    return counts
+
+
+def lm_serve_phase(seed: int, arch: str = "gemma2-2b", layers=None,
+                   prompt_len: int = SERVE_PROMPT) -> dict:
+    """``arch`` at full width (depth ``layers``, else the config's; bf16
+    parameters and activations, random parameters drawn on the card from
+    ``seed``): 4 requests of ``prompt_len``-token prompts (TokenStream),
+    prefill, then 32 greedy decode steps into a cache filled from the
+    prefill's k/v; SERVE_ROUNDS rounds (1 cold), one profiled prefill and
+    one profiled decode step.  A dense arch's first decode step's logits
+    are held against a prefill of the prompt and that step's token, and
+    every round emits the same tokens.  An MoE arch is not held so: a
+    prefill of S + 1 tokens has another capacity and sort order than a
+    decode step, so its drops differ legitimately (``lm verify`` holds
+    the card to the host); its warm rounds emit the same tokens, and the
+    share of assignments each layer keeps is reported.  Returns the
+    launches."""
+    import dataclasses
     import torch
     from repro_torch import kernels
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models import transformer as T
-    cfg = _lm_arch("gemma2-2b").full_config
-    B, S, n_dec = SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE
+    cfg = _lm_arch(arch).full_config
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    B, S, n_dec = SERVE_BATCH, prompt_len, SERVE_DECODE
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
     model = T.Transformer(cfg, seed=seed, device=DEVICE)
@@ -4503,7 +4758,9 @@ def lm_serve_phase(seed: int) -> dict:
         if not torch.isfinite(lg.float()).all():
             raise AssertionError("lm serve: non-finite decode logits")
         gen_r = torch.cat(toks, 1).cpu().numpy()
-        if generated is not None and not np.array_equal(gen_r, generated):
+        # an MoE arch's cold round is not held to the warm ones
+        if generated is not None and not np.array_equal(gen_r, generated) \
+                and not (cfg.is_moe and r == 1):
             raise AssertionError("lm serve: greedy tokens differ between "
                                  "rounds")
         generated = gen_r
@@ -4512,23 +4769,26 @@ def lm_serve_phase(seed: int) -> dict:
     del cache
     torch.cuda.empty_cache()
 
-    # decode against prefill at full depth: the first decode step (the
-    # token at position S) against the last row of a prefill of S + 1
-    # tokens; both bf16 on the card, with other matmul shapes (4 rows
-    # against 4 x 8,193) and so other roundings through 26 layers
-    ext = torch.cat([prompt, torch.from_numpy(generated[:, :1]).to(DEVICE)],
-                    1)
-    (want, kv), n = counted(lambda: T.prefill(model, ext))
-    per_prefill.append(n)
-    del kv
-    err = float((first.float() - want.float()).abs().max())
-    scale = float(want.float().abs().max())
-    agree = float((first.argmax(-1) == want.argmax(-1)).float().mean())
-    log(f"  lm serve: decode at position {S} against prefill of {S + 1}: "
-        f"max |err| {err} of max |logit| {scale}, argmax agreement {agree}")
-    if not err <= LM_DECODE_TOL * scale:
-        raise AssertionError(f"lm serve: decode differs from prefill "
-                             f"(max |err| {err}, scale {scale})")
+    err = scale = None
+    if not cfg.is_moe:
+        # decode against prefill at full depth: the first decode step (the
+        # token at position S) against the last row of a prefill of S + 1
+        # tokens; both bf16 on the card, with other matmul shapes (4 rows
+        # against 4 x (S + 1)) and so other roundings through every layer
+        ext = torch.cat([prompt,
+                         torch.from_numpy(generated[:, :1]).to(DEVICE)], 1)
+        (want, kv), n = counted(lambda: T.prefill(model, ext))
+        per_prefill.append(n)
+        del kv
+        err = float((first.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        agree = float((first.argmax(-1) == want.argmax(-1)).float().mean())
+        log(f"  lm serve: decode at position {S} against prefill of "
+            f"{S + 1}: max |err| {err} of max |logit| {scale}, argmax "
+            f"agreement {agree}")
+        if not err <= LM_DECODE_TOL * scale:
+            raise AssertionError(f"lm serve: decode differs from prefill "
+                                 f"(max |err| {err}, scale {scale})")
 
     # one profiled prefill and decode step, through the bf16 prefill kernel
     # and the decode split and combine; a pass whose records the profiler
@@ -4548,12 +4808,16 @@ def lm_serve_phase(seed: int) -> dict:
             f"{attempt}")
         return res, names
 
-    (wall, busy, idle, rec, exp), by_name = profiled(
-        lambda: T.prefill(model, prompt), prefill_names, per_prefill)
+    kept_prefill, kept_step = [], []
+    with kept_shares(kept_prefill):
+        (wall, busy, idle, rec, exp), by_name = profiled(
+            lambda: T.prefill(model, prompt), prefill_names, per_prefill)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     cache = T.make_cache(cfg, B, S + n_dec, device=DEVICE)
-    (dwall, dbusy, didle, drec, dexp), dec_by = profiled(
-        lambda: T.decode_step(model, cache, tok, S), step_names, per_step)
+    with kept_shares(kept_step):
+        (dwall, dbusy, didle, drec, dexp), dec_by = profiled(
+            lambda: T.decode_step(model, cache, tok, S), step_names,
+            per_step)
     dtop = sorted(dec_by.items(), key=lambda kv: -kv[1][1])[:6]
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  lm serve: profiled prefill {wall * 1e3:.1f} ms, device busy "
@@ -4593,6 +4857,8 @@ def lm_serve_phase(seed: int) -> dict:
         decode_profiled_ms=dwall * 1e3, decode_device_busy_ms=dbusy * 1e3,
         decode_idle_share=didle, decode_launches_recorded=[drec, dexp],
         decode_vs_prefill_err=err, decode_vs_prefill_scale=scale,
+        kept_share_prefill=kept_prefill[-cfg.num_layers:] or None,
+        kept_share_decode=kept_step[-cfg.num_layers:] or None,
         flash_per_prefill=per_prefill[0], flash_per_step=per_step[0],
         prefill_top_kernels_ms={n: ms for n, (_c, ms) in top},
         launches=totals)
@@ -4923,7 +5189,12 @@ def main() -> int:
             ("train archs", lambda: train_archs_phase(args.seed)),
             ("train recsys", lambda: train_recsys_phase(args.seed)),
             ("lm verify", lambda: lm_verify_phase(args.seed)),
-            ("lm serve gemma2-2b", lambda: lm_serve_phase(args.seed))):
+            ("lm train verify", lambda: lm_train_verify_phase(args.seed)),
+            ("lm train mixtral-8x7b", lambda: lm_train_phase(args.seed)),
+            ("lm serve gemma2-2b", lambda: lm_serve_phase(args.seed)),
+            ("lm serve mixtral-8x7b", lambda: lm_serve_phase(
+                args.seed, "mixtral-8x7b", LM_SERVE_MOE_LAYERS,
+                LM_SERVE_MOE_PROMPT))):
         with phase(label):
             counts = run()
             for name in VARIANTS:

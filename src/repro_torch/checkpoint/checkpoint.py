@@ -10,7 +10,9 @@ The JAX package's on-disk layout:
   * retention — keep_last N; the manager restores from the newest intact
     checkpoint, skipping corrupt ones.
 
-Leaves are tensors (restored onto the template leaf's device), numpy
+Leaves are tensors (restored onto the template leaf's device; bf16 ones
+as their raw bits under the dtype name ``bfloat16``, as the JAX package
+writes them), numpy
 arrays, or Python ints (an optimizer's step counter), in dicts and lists
 named as the JAX package names them (``['key']``, ``[0]``), so either
 package reads the other's checkpoints; a store snapshot's list of leaves
@@ -58,6 +60,8 @@ def _unflatten(template, leaves):
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:  # numpy has no bf16: its bits
+            return leaf.detach().view(torch.int16).cpu().numpy()
         return leaf.detach().cpu().numpy()
     if isinstance(leaf, int):  # a step counter, int32 as the JAX one
         return np.asarray(leaf, np.int32)
@@ -85,8 +89,10 @@ def save_pytree(tree, directory: str, step: int,
             np.save(f, np.frombuffer(arr.tobytes(), np.uint8))
             f.flush()
             os.fsync(f.fileno())
+        dtype = "bfloat16" if isinstance(leaf, torch.Tensor) \
+            and leaf.dtype == torch.bfloat16 else str(arr.dtype)
         manifest["leaves"].append({
-            "name": name, "file": fname, "dtype": str(arr.dtype),
+            "name": name, "file": fname, "dtype": dtype,
             "shape": list(arr.shape), "sha": _checksum(arr)})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -107,7 +113,10 @@ def load_raw(path: str) -> Tuple[list, dict]:
     for rec in manifest["leaves"]:
         raw = np.load(os.path.join(path, rec["file"]))
         try:
-            arr = np.frombuffer(raw.tobytes(), np.dtype(rec["dtype"])
+            # numpy has no bfloat16: such a leaf comes back as its bits
+            dtype = np.int16 if rec["dtype"] == "bfloat16" \
+                else rec["dtype"]
+            arr = np.frombuffer(raw.tobytes(), np.dtype(dtype)
                                 ).reshape(rec["shape"])
         except (TypeError, ValueError) as e:
             raise IOError(f"undecodable leaf {rec['file']}: {e}")
@@ -119,6 +128,9 @@ def load_raw(path: str) -> Tuple[list, dict]:
 
 def _like(arr: np.ndarray, leaf):
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16).to(leaf.device)
         return torch.from_numpy(arr.copy()).to(leaf.device)
     if isinstance(leaf, int):
         return int(arr)

@@ -9,7 +9,7 @@ a fake device mesh) have no meaning on one card and are not carried over.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,7 +20,6 @@ class ArchSpec:
     full_config: Any
     smoke_config: Any
     # smoke_run(cfg, device=None) -> metrics dict; real reduced-config
-    # steps.  None for the lm family, which serves only until its training
-    # slice (make_train_step, an attention backward) is ported
-    smoke_run: Optional[Callable[..., Dict[str, float]]]
+    # steps
+    smoke_run: Callable[..., Dict[str, float]]
     model_flops: Callable[[str], float]  # analytic 6*N*D-style FLOPs/step

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution over the archs the
-port trains (the GNN family and the two-tower recsys model).  The LM archs
-(``configs.lm_archs``) serve but do not train on the port yet, so they
-enter with their training slice."""
+port trains: the five LM archs, the GNN family and the two-tower recsys
+model.  The JAX package's ``wcoj-subgraph`` (its dry-run cells) is not
+ported."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -10,10 +10,12 @@ from repro_torch.configs.base import ArchSpec
 
 
 def _all() -> Dict[str, ArchSpec]:
+    from repro_torch.configs import lm_archs as lm
     from repro_torch.configs.gnn_family import (EGNN, GAT_CORA, GATEDGCN,
                                                 GRAPHCAST)
     from repro_torch.configs.recsys_family import TWO_TOWER
-    specs = [EGNN, GRAPHCAST, GATEDGCN, GAT_CORA, TWO_TOWER]
+    specs = [lm.LLAMA4_SCOUT, lm.MIXTRAL_8X7B, lm.YI_34B, lm.GEMMA_7B,
+             lm.GEMMA2_2B, EGNN, GRAPHCAST, GATEDGCN, GAT_CORA, TWO_TOWER]
     return {s.arch_id: s for s in specs}
 
 

@@ -89,6 +89,30 @@ def transformer_params(params, cfg, *, device):
     return _load(Transformer(cfg, device=device), params)
 
 
+def adamw_state(state, model, *, device):
+    """The port's :class:`~repro_torch.optim.AdamWState` for ``model``'s
+    parameters from an AdamW state object of host arrays (``step``, and
+    ``mu``/``nu`` nested dicts of the parameter tree's names, e.g. the
+    JAX package's ``AdamWState`` as numpy), by dotted name, f32."""
+    from repro_torch.optim import AdamWState
+    names = [k for k, _ in model.named_parameters()]
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    moments = []
+    for tree in (state.mu, state.nu):
+        flat = _dotted(tree)
+        if set(flat) != set(names):
+            raise ValueError(f"moment names differ: "
+                             f"{sorted(set(flat) ^ set(names))}")
+        out = {}
+        for k in names:
+            arr = np.asarray(flat[k], np.float32)
+            if arr.shape != shapes[k]:
+                raise ValueError(f"{k}: shape {arr.shape} != {shapes[k]}")
+            out[k] = torch.from_numpy(arr.copy()).to(device)
+        moments.append(out)
+    return AdamWState(int(np.asarray(state.step)), *moments)
+
+
 def recsys_params(params, cfg, *, device):
     """The port's two-tower parameters (``models.recsys``) of ``cfg`` on
     ``device`` holding a nested tree of host arrays (the JAX package's

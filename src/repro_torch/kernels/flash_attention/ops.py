@@ -11,9 +11,10 @@ tanh softcap and a query offset; GQA reads each query head's KV head by
 index.  ``ref.attention_ref`` is the plain version, and
 ``ref.attention_split_ref`` the decode route's split and combine.
 
-Neither kernel has a backward: a CUDA call whose inputs require grad
-raises (LM training, with an attention backward, is a later slice of the
-port, ``ROADMAP.md``).
+Neither kernel has a backward, as the TPU kernel has none: a CUDA call
+whose inputs require grad raises.  Training attends as the JAX package's
+does, through ``models.transformer._attend``, which autograd
+differentiates; only prefill and decode run this kernel.
 """
 from __future__ import annotations
 
@@ -106,8 +107,8 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset, plan=None):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "the flash-attention kernel has no backward; LM training (an "
-            "attention backward) is a later slice of the port (ROADMAP.md)")
+            "the flash-attention kernel has no backward (nor has the TPU "
+            "kernel); training attends through models.transformer._attend")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the flash-attention kernel takes q, k, v of one "
                          f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -326,7 +326,7 @@ def serve_lm(args):
     spec = specs[args.arch]
     cfg = spec.full_config if args.full else spec.smoke_config
     dev = resolve_device(args.device)
-    model = T.Transformer(cfg, seed=args.seed, device=dev)  # MoE raises
+    model = T.Transformer(cfg, seed=args.seed, device=dev)
 
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(rng.integers(

@@ -1,10 +1,12 @@
 """Fault-tolerant training:
-``python -m repro_torch.launch.train --arch gatedgcn``.
+``python -m repro_torch.launch.train --arch mixtral-8x7b``.
 
-The JAX package's ``launch/train.py`` for the GNN and recsys families, on
-the card.  A recsys arch (``two-tower-retrieval``) runs its smoke
-config's ``smoke_run`` (three steps and a retrieval), as the JAX package
-does.  The GNN family:
+The JAX package's ``launch/train.py`` on the card.  The LM family
+(:func:`train_lm`) trains the smoke config (``--full``: the assigned
+one) on ``TokenStream`` batches with checkpoint/restart, logging tok/s.
+A recsys arch (``two-tower-retrieval``) runs its smoke config's
+``smoke_run`` (three steps and a retrieval), as the JAX package does.
+The GNN family:
   * motif features — per-vertex triangle counts from the port's BiGJoin
     (on the card), appended to the node features;
   * minibatches — GraphSAGE blocks from the neighbor sampler, flattened
@@ -13,8 +15,8 @@ does.  The GNN family:
     relaunching the same command resumes from the newest intact one
     (a crash during a write leaves only skippable partial state).
 
-The driver runs the smoke config of the arch whatever ``--full`` says, as
-the JAX package's does for the GNN family.  ``device`` (a function
+The GNN driver runs the smoke config of the arch whatever ``--full``
+says, as the JAX package's does.  ``device`` (a function
 argument, ``None``: the card) lets tests run it on the host.
 """
 from __future__ import annotations
@@ -23,6 +25,7 @@ import argparse
 import dataclasses
 import os
 import tempfile
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -78,6 +81,51 @@ def load_state(model, opt, state: dict) -> None:
         opt.nu[k].copy_(state["opt"]["nu"][k])
 
 
+def _restore(mgr, model, opt) -> int:
+    """Load the newest intact checkpoint into ``model`` and ``opt``;
+    returns its step (0 without one)."""
+    restored = mgr.restore_latest(train_state(model, opt))
+    if restored is None:
+        return 0
+    state, manifest = restored
+    load_state(model, opt, state)
+    print(f"resumed from step {manifest['step']}")
+    return manifest["step"]
+
+
+def train_lm(spec, args, device=None) -> float:
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.lm_family import make_train_step, token_batch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    device = resolve_device(device)
+    cfg = spec.full_config if args.full else spec.smoke_config
+    model = T.Transformer(cfg, seed=args.seed, device=device)
+    opt = adamw_init(model)
+    step_fn = make_train_step(cfg)
+    mgr = CheckpointManager(args.ckpt_dir, keep_last=3)
+    start = _restore(mgr, model, opt)
+
+    ts = TokenStream(cfg.vocab, args.batch, args.seq, seed=args.seed)
+    t0 = time.time()
+    m = None
+    for s in range(start, args.steps):
+        m = step_fn(model, opt, token_batch(ts.batch_at(s), device))
+        if (s + 1) % args.log_every == 0:
+            loss = float(m["loss"])  # waits for the step
+            dt = (time.time() - t0) / args.log_every
+            print(f"step {s+1} loss {loss:.4f} gnorm "
+                  f"{float(m['gnorm']):.3f} "
+                  f"{args.batch * args.seq / dt:,.0f} tok/s", flush=True)
+            t0 = time.time()
+        if (s + 1) % args.ckpt_every == 0 or s + 1 == args.steps:
+            mgr.save(train_state(model, opt), s + 1,
+                     extra={"loss": float(m["loss"])})
+    return float(m["loss"])
+
+
 def train_gnn(spec, args, device=None) -> float:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.gnn_family import make_train_step
@@ -105,13 +153,7 @@ def train_gnn(spec, args, device=None) -> float:
     sampler = NeighborSampler(edges, args.nodes)
 
     mgr = CheckpointManager(args.ckpt_dir, keep_last=3)
-    start = 0
-    restored = mgr.restore_latest(train_state(model, opt))
-    if restored is not None:
-        state, manifest = restored
-        load_state(model, opt, state)
-        start = manifest["step"]
-        print(f"resumed from step {start}")
+    start = _restore(mgr, model, opt)
 
     N_max, E_max = 512, 2048
     m = None
@@ -147,7 +189,9 @@ def main(argv=None, device=None):
 
     from repro_torch.configs import get_arch
     spec = get_arch(args.arch)  # KeyError for an arch the port lacks
-    if spec.family == "gnn":
+    if spec.family == "lm":
+        loss = train_lm(spec, args, device)
+    elif spec.family == "gnn":
         loss = train_gnn(spec, args, device)
     else:
         m = spec.smoke_run(spec.smoke_config, device=device)

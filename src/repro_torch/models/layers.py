@@ -19,27 +19,45 @@ from torch import nn
 Params = Dict[str, Any]
 
 
+DRAW = 1 << 26  # elements drawn in f32 at a time
+
+
 def he_init(gen: torch.Generator, shape: Sequence[int], dtype,
             fan_in: Optional[int] = None) -> torch.Tensor:
     """Normal(0, 2 / fan_in) on the generator's device, fan_in =
     ``shape[0]`` unless given."""
     fan = fan_in if fan_in is not None else shape[0]
-    std = (2.0 / max(fan, 1)) ** 0.5
-    return (_normal(gen, shape) * std).to(dtype)
+    return _normal(gen, shape, (2.0 / max(fan, 1)) ** 0.5, dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype
                ) -> torch.Tensor:
     """Normal(0, 1 / shape[-1]) on the generator's device."""
-    return (_normal(gen, shape) * (1.0 / shape[-1] ** 0.5)).to(dtype)
+    return _normal(gen, shape, 1.0 / shape[-1] ** 0.5, dtype)
 
 
-def _normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+def _normal(gen: torch.Generator, shape: Sequence[int], std: float,
+            dtype) -> torch.Tensor:
+    """f32 standard normals times ``std``, cast to ``dtype``.  A leaf of
+    more than DRAW elements is drawn a block of leading rows at a time,
+    so that a large bf16 leaf never exists whole in f32 (mixtral's
+    stacked experts: 45 GB in f32 at 12 layers)."""
     # a host generator draws on the current default device (the GNN's
     # parameter count draws on "meta"), a CUDA one on its card
     device = gen.device if gen.device.type != "cpu" else None
-    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                       device=device)
+    shape = tuple(shape)
+
+    def draw(sub):
+        return (torch.randn(sub, generator=gen, dtype=torch.float32,
+                            device=device) * std).to(dtype)
+    if not shape or int(np.prod(shape)) <= DRAW:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(DRAW // int(np.prod(shape[1:])), 1)
+    for a in range(0, shape[0], rows):
+        b = min(a + rows, shape[0])
+        out[a:b] = draw((b - a,) + shape[1:])
+    return out
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,

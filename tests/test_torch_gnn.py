@@ -236,7 +236,7 @@ def test_driver_skips_a_corrupt_checkpoint(tmp_path, capsys):
     ttrain.train_gnn(spec, _args(ck, 20), device="cpu")
     assert "resumed from step 10" in capsys.readouterr().out
     with pytest.raises(KeyError):
-        ttrain.main(["--arch", "gemma2-2b", "--ckpt-dir", str(ck)],
+        ttrain.main(["--arch", "wcoj-subgraph", "--ckpt-dir", str(ck)],
                     device="cpu")
 
 

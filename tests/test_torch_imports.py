@@ -24,7 +24,7 @@ _FORBIDDEN = re.compile(
 
 
 def test_every_module_imports_without_jax_or_repro():
-    assert len(TWINS) == 4, TWINS
+    assert len(TWINS) == 5, TWINS
     assert {"repro_torch.serve.pool", "repro_torch.serve.wal",
             "repro_torch.serve._serve_check", "repro_torch.launch.serve",
             "repro_torch.launch.run_query",
@@ -35,7 +35,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core._nary_dist_check",
             "repro_torch.launch.kernel_coverage",
             "repro_torch.models.recsys",
-            "repro_torch.configs.recsys_family"} <= set(MODULES)
+            "repro_torch.configs.recsys_family",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives"} <= set(MODULES)
     code = (
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}:\n"

@@ -75,8 +75,6 @@ def test_serve_concurrent_verifies(capsys):
 
 def test_serve_refuses_what_is_not_ported():
     # the mesh's --workers/--balance are ported (test_torch_mesh_stream)
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
     with pytest.raises(KeyError):
         serve.main(["--arch", "gatedgcn", "--device", "cpu"])
 
@@ -87,15 +85,24 @@ def test_serve_lm_decode_loop_matches_jax():
     into the port's decode loop give the JAX prefill logits and the JAX
     driver's greedy tokens; the port's own driver runs on its own
     parameters."""
+    _decode_loop_matches_jax("GEMMA2_2B", "gemma2-2b")
+
+
+def test_serve_lm_moe_decode_loop_matches_jax():
+    """The same for mixtral-8x7b's smoke config (MoE, top-2)."""
+    _decode_loop_matches_jax("MIXTRAL_8X7B", "mixtral-8x7b")
+
+
+def _decode_loop_matches_jax(name, arch):
     seed, batch, prompt_len, steps = 0, 2, 8, 4
-    jc = JA.GEMMA2_2B.smoke_config
-    tc = TA.GEMMA2_2B.smoke_config
+    jc = getattr(JA, name).smoke_config
+    tc = getattr(TA, name).smoke_config
     params = JT.init(jax.random.PRNGKey(seed), jc)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, jc.vocab, (batch, prompt_len)).astype(np.int32)
     jlogits, _ = jax.jit(lambda p, t: JT.prefill(p, t, jc))(
         params, jnp.asarray(prompts))
-    argv = ["--arch", "gemma2-2b", "--batch", str(batch), "--prompt-len",
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
             str(prompt_len), "--steps", str(steps), "--seed", str(seed)]
     jtoks = jlaunch.main(argv)
     model = convert.transformer_params(

@@ -1,15 +1,16 @@
 """The port's LM transformer on the CPU against the JAX package: the
 smoke configs of the three dense archs (yi-34b: GQA, SwiGLU; gemma-7b:
 GeGLU, 1 + w norms, embedding scale; gemma2-2b: window 8 on alternate
-layers, attention and final softcaps) with the JAX parameters carried
+layers, attention and final softcaps; the MoE archs' are
+``tests/test_torch_moe.py``'s) with the JAX parameters carried
 across by ``convert.transformer_params``; configs, token batches and the
 parameter conversion exactly.
 
 Tolerance: f32 rtol 1e-4 / atol 1e-4 on hidden states, logits, losses
 and caches of magnitude up to about 4: the packages run the same f32
-arithmetic with sums in another order (XLA's dots against torch's, one
-softmax over masked scores in XLA against the flash kernel's plain
-version), which leaves them 1e-6 to 1e-5 apart."""
+arithmetic with sums in another order (XLA's dots against torch's; in
+prefill and decode one softmax over masked scores in XLA against the
+flash kernel's plain version), which leaves them 1e-6 to 1e-5 apart."""
 import dataclasses
 
 import jax
@@ -62,11 +63,15 @@ def _t(x):
 
 @pytest.fixture(scope="module", params=DENSE)
 def run(request):
+    return both_packages(request.param)
+
+
+def both_packages(name):
     """One arch's smoke config through both packages from the same
     parameters and tokens: forward, logits, loss, prefill and the decode
     steps of DECODE_POS from a cache holding the prefill's k/v."""
-    jc = getattr(JA, request.param).smoke_config
-    tc = getattr(TA, request.param).smoke_config
+    jc = getattr(JA, name).smoke_config
+    tc = getattr(TA, name).smoke_config
     params = JT.init(jax.random.PRNGKey(3), jc)
     model = convert.transformer_params(_np(params), tc, device="cpu")
     b = JTokenStream(jc.vocab, B, S + len(DECODE_POS), seed=5).batch_at(0)
@@ -200,19 +205,9 @@ def test_configs_equal_jax(name):
     assert TF.SHAPES == JF.SHAPES
     for shape in TF.SHAPES:
         assert t.model_flops(shape) == j.model_flops(shape)
-    assert t.smoke_run is None  # the training slice brings it
+    assert t.smoke_run is not None
     assert t in TA.LM_ARCHS
-    with pytest.raises(KeyError):
-        get_arch(t.arch_id)
-
-
-@pytest.mark.parametrize("name", ["LLAMA4_SCOUT", "MIXTRAL_8X7B"])
-def test_moe_raises(name):
-    cfg = getattr(TA, name).smoke_config
-    with pytest.raises(NotImplementedError):
-        TT.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TT.init(torch.Generator().manual_seed(0), cfg)
+    assert get_arch(t.arch_id) is t
 
 
 def test_default_device_is_the_card(monkeypatch):
