@@ -2934,7 +2934,6 @@ def train_full_phase(table: dict, reps: int, seed: int) -> dict:
     on the card, the sampler's union graphs padded to the shape, the
     segment_sum kernel rows at this shape, the first step's loss and
     gradient norm against the host's, then TRAIN_STEPS training steps."""
-    from concurrent.futures import ThreadPoolExecutor
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_arch
@@ -3001,17 +3000,12 @@ def train_full_phase(table: dict, reps: int, seed: int) -> dict:
                      cfg.d_hidden, reps, seed)
 
     # the first step on the card against the same step on the host; the
-    # host's (~35 s) runs in a thread beside the card's steps below, which
-    # keep the card busy (idle share ~0.003) and need little of the host
+    # host's (~25-35 s) runs after the card's timed and profiled steps, so
+    # that nothing shares the host with them
     model = G.GNN(cfg, seed=seed)
-    host = G.GNN(cfg, seed=seed, device="cpu")
     kernels.reset_launches()
     card = _loss_and_gnorm(model, batches[0], cfg)
     add(kernels.launches())
-    t_host = time.time()
-    beside = ThreadPoolExecutor(1)
-    host_step = beside.submit(_loss_and_gnorm, host, {
-        k: v.cpu() for k, v in batches[0].items()}, cfg)
 
     opt = adamw_init(model)
     step_fn = make_train_step(cfg)
@@ -3047,11 +3041,12 @@ def train_full_phase(table: dict, reps: int, seed: int) -> dict:
         f"kernel launches recorded); device time by kernel (launches, ms):")
     for name, (n, ms) in top:
         log(f"    {ms:10.3f} ms {n:5d}x {name}")
-    cpu = host_step.result()
-    beside.shutdown()
+    t_host = time.time()
+    host = G.GNN(cfg, seed=seed, device="cpu")
+    cpu = _loss_and_gnorm(host, {k: v.cpu() for k, v in batches[0].items()},
+                          cfg)
     log(f"  train full: first step loss / grad norm card {card}, host "
-        f"{cpu} (host step done {time.time() - t_host:.2f} s after it "
-        f"started)")
+        f"{cpu} (host step {time.time() - t_host:.2f} s)")
     if not (_close(card[0], cpu[0], FULL_STEP_RTOL)
             and _close(card[1], cpu[1], FULL_STEP_RTOL)):
         raise AssertionError(f"train full: the card's first step {card} "
@@ -4087,8 +4082,6 @@ SERVE_ROUNDS = 3  # 1 cold + 2 warm
 DECODE_OFFSET = 8200  # the kernel rows' decode position in that cache
 LM_SMOKE_ARCHS = ("yi-34b", "gemma-7b", "gemma2-2b", "mixtral-8x7b",
                   "llama4-scout-17b-a16e")
-ALL_LM_ARCHS = ("llama4-scout-17b-a16e", "mixtral-8x7b", "yi-34b",
-                "gemma-7b", "gemma2-2b")
 # mixtral-8x7b at full width and depth 1 held card against host on one
 # request of this many tokens (its MoE capacity 168 a expert)
 LM_MOE_VERIFY_TOKENS = 520
@@ -4101,8 +4094,17 @@ LM_TRAIN_BATCH = 8
 LM_TRAIN_MICRO = 4
 LM_TRAIN_SEQ = 4096
 LM_TRAIN_STEPS = 6  # 1 cold + 5 warm, then one profiled
-# the first microbatch's bf16 loss within this share of its f32 loss
-LM_LOSS_GAP = 0.02
+LM_TRAIN_LR = 3e-4  # the default schedule's peak, held constant
+# the first microbatch's bf16 loss, and each leaf's bf16 gradient norm,
+# within these shares of the same parameters' f32 ones.  At random init
+# the loss is ln(vocab) + ~0.5 whatever the hidden states (its gap
+# measured 7.5e-05), so the gradient norms are what see the backward:
+# every leaf but the tied embedding within 0.0113 of f32, the embedding's
+# 0.101 below it (the JAX package's bf16 path shrinks it too, on 8,192
+# tokens and more)
+LM_LOSS_GAP = 1e-3
+LM_GNORM_GAP = 0.03
+LM_EMBED_GNORM_GAP = 0.2
 # mixtral-8x7b serving: depth cut 32 -> 12 (~35 GB of bf16 parameters),
 # 4 prompts of 4,096 tokens, so the 4,096 window masks keys in decode
 LM_SERVE_MOE_LAYERS = 12
@@ -4114,6 +4116,16 @@ LM_SERVE_MOE_PROMPT = 4096
 # 9216, 4,160 keys), 1 MoE layer at full width (d 4096, ff 14336)
 LM_SMOKE_TOL = 1e-4
 LM_FULL_TOL = 1e-3
+# the train steps held card against host run at this constant learning
+# rate, so every parameter moves by about that much (the default schedule
+# is 0 at step 0; one case runs it, to cover its wiring); each moment is
+# held at LM_SMOKE_TOL with an atol of LM_MOMENT_ATOL times its leaf's
+# largest |moment|, and each parameter's change at LM_SMOKE_TOL with that
+# atol carried through the steps' lr * m^ / (sqrt(v^) + eps), which turns
+# a small gradient's rounding into a large part of its move, plus two ulps
+# of the leaf's largest parameter
+LM_VERIFY_LR = 1e-3
+LM_MOMENT_ATOL = 1e-5
 # decode against prefill at full depth in bf16 on the card, |err| <= tol *
 # max |prefill logits|: both round every activation to bf16 (2^-8
 # relative), through 26 layers whose matmuls have other shapes (4 rows
@@ -4530,12 +4542,35 @@ def kept_shares(into: list):
         into[:] = [float(x) for x in into]
 
 
+def _leaf_close(what, card, host, atol) -> float:
+    """|card - host| <= atol + LM_SMOKE_TOL * |host| in every element
+    (``atol`` a number or a tensor of the leaf's shape), or raise; returns
+    the worst |err| / bound."""
+    import torch
+    c = card.detach().float().cpu()
+    h = host.detach().float()
+    if c.shape != h.shape:
+        raise AssertionError(f"lm train verify {what}: shapes {c.shape} "
+                             f"{h.shape}")
+    err = (c - h).abs()
+    bound = torch.as_tensor(atol, dtype=torch.float32) \
+        + LM_SMOKE_TOL * h.abs()
+    bad = ~(err <= bound)
+    if bool(bad.any()):
+        raise AssertionError(f"lm train verify {what}: card differs from "
+                             f"host in {int(bad.sum())} of {err.numel()} "
+                             f"elements (worst |err| {float(err[bad].max())})")
+    return float((err / bound.clamp_min(1e-30)).max())
+
+
 def lm_train_verify_phase(seed: int) -> dict:
     """``make_train_step`` on the card against the host, f32 on both, for
-    the five archs' smoke configs at 1 and 2 microbatches: two steps from
-    the same parameters on the same TokenStream batches; each step's loss
-    and gradient norm, then every parameter and both AdamW moments, at
-    LM_SMOKE_TOL; no flash launch (training attends through
+    the five archs' smoke configs at 1 and 2 microbatches, at the constant
+    learning rate LM_VERIFY_LR, and mixtral at 1 on the default schedule:
+    two steps from the same parameters on the same TokenStream batches;
+    each step's loss and gradient norm at LM_SMOKE_TOL, then both AdamW
+    moments and every parameter's change over the two steps (see
+    LM_MOMENT_ATOL); no flash launch (training attends through
     ``_attend``).  Returns the launches."""
     import copy
     import torch
@@ -4544,59 +4579,91 @@ def lm_train_verify_phase(seed: int) -> dict:
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedules import constant, cosine_decay
     totals = {}
-    for arch in ALL_LM_ARCHS:
+    cases = [(a, M, LM_VERIFY_LR) for a in LM_SMOKE_ARCHS for M in (1, 2)]
+    cases.append(("mixtral-8x7b", 1, None))
+    for arch, M, lr in cases:
         cfg = _lm_arch(arch).smoke_config
         ts = TokenStream(cfg.vocab, 4, 32, seed)
-        for M in (1, 2):
-            t = time.time()
-            model = T.Transformer(cfg, seed=seed, device=DEVICE)
-            runs = {}
-            host = copy.deepcopy(model).cpu()
-            for dev, m in ((DEVICE, model), ("cpu", host)):
-                opt = adamw_init(m)
-                step = make_train_step(cfg, microbatches=M)
-                kernels.reset_launches()
-                ms = [step(m, opt, token_batch(ts.batch_at(s), dev))
-                      for s in range(2)]
-                if dev == DEVICE:
-                    add_counts(totals, kernels.launches())
-                    flash = kernels.launches()["flash_attention"]
-                runs[dev] = (m, opt, ms)
-            (cm, copt, cms), (hm, hopt, hms) = runs[DEVICE], runs["cpu"]
-            label = f"train {cfg.name} M={M}"
-            errs = {}
+        sched = constant(lr) if lr is not None \
+            else cosine_decay(3e-4, 2000, 100_000)
+        t = time.time()
+        model = T.Transformer(cfg, seed=seed, device=DEVICE)
+        host = copy.deepcopy(model).cpu()
+        p0 = {k: p.detach().clone() for k, p in host.named_parameters()}
+        runs, moments = {}, []
+        for dev, m in ((DEVICE, model), ("cpu", host)):
+            opt = adamw_init(m)
+            step = make_train_step(cfg, schedule=sched if lr else None,
+                                   microbatches=M)
+            kernels.reset_launches()
+            ms = []
             for s in range(2):
-                for k in ("loss", "gnorm"):
-                    errs[f"{k}{s}"] = _lm_close(f"{label} {k} step {s}",
-                                                cms[s][k], hms[s][k],
-                                                LM_SMOKE_TOL)
-            hp = dict(hm.named_parameters())
-            for what, card, host in (
-                    ("param", dict(cm.named_parameters()), hp),
-                    ("mu", copt.mu, hopt.mu), ("nu", copt.nu, hopt.nu)):
-                errs[what] = max(_lm_close(f"{label} {what} {k}", card[k],
-                                           host[k], LM_SMOKE_TOL)
-                                 for k in host)
-            if copt.step != hopt.step or copt.step != 2 or flash:
-                raise AssertionError(f"{label}: steps {copt.step}/"
-                                     f"{hopt.step}, flash launches {flash}")
-            log(f"  lm train verify {cfg.name} M={M}: loss "
-                f"{[float(x['loss']) for x in cms]}, max |card - host| "
-                f"{json.dumps(errs)} ({time.time() - t:.2f} s)")
+                ms.append(step(m, opt, token_batch(ts.batch_at(s), dev)))
+                if dev == "cpu":
+                    moments.append(({k: v.clone() for k, v in
+                                     opt.mu.items()},
+                                    {k: v.clone() for k, v in
+                                     opt.nu.items()}))
+            if dev == DEVICE:
+                add_counts(totals, kernels.launches())
+                flash = kernels.launches()["flash_attention"]
+            runs[dev] = (m, opt, ms)
+        (cm, copt, cms), (hm, hopt, hms) = runs[DEVICE], runs["cpu"]
+        label = f"train {cfg.name} M={M} lr={lr or 'default'}"
+        errs = {}
+        for s in range(2):
+            for k in ("loss", "gnorm"):
+                errs[f"{k}{s}"] = _lm_close(f"{label} {k} step {s}",
+                                            cms[s][k], hms[s][k],
+                                            LM_SMOKE_TOL)
+        for what, card, hst in (("mu", copt.mu, hopt.mu),
+                                ("nu", copt.nu, hopt.nu)):
+            errs[what] = max(_leaf_close(
+                f"{label} {what} {k}", card[k], hst[k],
+                LM_MOMENT_ATOL * float(hst[k].abs().max())) for k in hst)
+        cp, worst = dict(cm.named_parameters()), 0.0
+        for k, p in hm.named_parameters():
+            moved = p.detach() - p0[k]
+            got = cp[k].detach().cpu() - p0[k]
+            if lr and not (float(moved.abs().max()) > 0.5 * lr
+                           and float(got.abs().max()) <= 3 * lr):
+                raise AssertionError(f"{label} {k}: moved "
+                                     f"{float(moved.abs().max())} on the "
+                                     f"host, {float(got.abs().max())} on "
+                                     f"the card, at lr {lr}")
+            atol = 2 * float(np.spacing(np.float32(p0[k].abs().max())))
+            for n, (mu, nu) in enumerate(moments, 1):
+                atol = atol + float(sched(n - 1)) * LM_MOMENT_ATOL \
+                    * float(mu[k].abs().max()) / (1 - 0.9 ** n) \
+                    / ((nu[k] / (1 - 0.95 ** n)).sqrt() + 1e-8)
+            worst = max(worst, _leaf_close(f"{label} param change {k}",
+                                           got, moved, atol))
+        errs["param_change"] = worst
+        if copt.step != hopt.step or copt.step != 2 or flash:
+            raise AssertionError(f"{label}: steps {copt.step}/"
+                                 f"{hopt.step}, flash launches {flash}")
+        log(f"  lm {label}: loss "
+            f"{[float(x['loss']) for x in cms]}, max |card - host| "
+            f"(moments and changes: the worst share of their bound) "
+            f"{json.dumps(errs)} ({time.time() - t:.2f} s)")
     return totals
 
 
 def lm_train_phase(seed: int) -> dict:
     """mixtral-8x7b at full width (8 experts top-2, window 4096), depth
     LM_TRAIN_LAYERS, bf16 parameters and activations, f32 moments and
-    gradient accumulator: first the loss of the first microbatch in bf16
-    against the same parameters cast to f32 (no grad; within LM_LOSS_GAP),
-    with the share of assignments each layer keeps; then LM_TRAIN_STEPS
-    steps of LM_TRAIN_BATCH sequences of LM_TRAIN_SEQ tokens in
-    LM_TRAIN_MICRO microbatches and one profiled step: step ms, tokens/s,
-    peak memory, idle share; every loss and gradient norm finite; no
-    flash launch.  Returns the launches."""
+    gradient accumulator: first the loss and each leaf's gradient norm of
+    the first microbatch in bf16 against the same parameters cast to f32
+    (within LM_LOSS_GAP, LM_GNORM_GAP and LM_EMBED_GNORM_GAP), with the
+    share of assignments each layer keeps; then LM_TRAIN_STEPS steps at
+    the constant rate LM_TRAIN_LR of LM_TRAIN_BATCH sequences of
+    LM_TRAIN_SEQ tokens in LM_TRAIN_MICRO microbatches and one profiled
+    step: step ms, tokens/s,
+    peak memory of the steps, idle share; every loss and gradient norm
+    finite; every weight matrix moved; no flash launch.  Returns the
+    launches."""
     import copy
     import dataclasses
     import torch
@@ -4605,6 +4672,7 @@ def lm_train_phase(seed: int) -> dict:
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedules import constant
     cfg = dataclasses.replace(_lm_arch("mixtral-8x7b").full_config,
                               num_layers=LM_TRAIN_LAYERS)
     B, M, S = LM_TRAIN_BATCH, LM_TRAIN_MICRO, LM_TRAIN_SEQ
@@ -4618,22 +4686,46 @@ def lm_train_phase(seed: int) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     ts = TokenStream(cfg.vocab, B, S, seed)
     mb0 = token_batch(ts.batch_at(0)[:B // M], DEVICE)
-    kept = []
-    with torch.no_grad():
-        with kept_shares(kept):
-            loss16 = float(T.loss_fn(model, mb0)[0])
-        f32 = copy.deepcopy(model).float()
-        f32.cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
-                                      act_dtype=torch.float32)
-        loss32 = float(T.loss_fn(f32, mb0)[0])
-        del f32
+    kept, kept32 = [], []
+
+    def loss_and_gnorm(m, keep):
+        """The first microbatch's loss, f32 gradient norm and each leaf's
+        gradient norm."""
+        names, params = zip(*m.named_parameters())
+        with kept_shares(keep):
+            loss = T.loss_fn(m, mb0)[0]
+        grads = torch.autograd.grad(loss, params)
+        leaf = {k: float(g.float().norm()) for k, g in zip(names, grads)}
+        del grads
+        return float(loss.detach()), float(np.sqrt(sum(
+            v * v for v in leaf.values()))), leaf
+
+    loss16, gnorm16, leaf16 = loss_and_gnorm(model, kept)
+    f32 = copy.deepcopy(model).float()
+    f32.cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                  act_dtype=torch.float32)
+    loss32, gnorm32, leaf32 = loss_and_gnorm(f32, kept32)
+    del f32
+    gc.collect()
     torch.cuda.empty_cache()
     gap = abs(loss16 - loss32) / abs(loss32)
+    ggap = abs(gnorm16 - gnorm32) / abs(gnorm32)
+    leaf_gap = {k: leaf16[k] / leaf32[k] - 1 for k in leaf32}
     log(f"  lm train {cfg.name}: first microbatch's loss bf16 {loss16} "
-        f"against f32 {loss32} (gap {gap}), kept share per layer {kept}")
+        f"against f32 {loss32} (gap {gap}), gradient norm bf16 {gnorm16} "
+        f"against f32 {gnorm32} (gap {ggap}; by leaf, bf16 / f32 - 1: "
+        f"{json.dumps(leaf_gap)}), kept share per layer {kept} (f32 "
+        f"{kept32})")
 
+    # a slice of every weight matrix, to see the steps move it (not the
+    # norm scales: at 1.0 a bf16 step is 2^-7, more than the steps move)
+    before = {k: p.detach().reshape(-1)[:1 << 16].clone()
+              for k, p in model.named_parameters()
+              if p.ndim >= 2 and not k.split(".")[-1].startswith("ln")}
+    torch.cuda.reset_peak_memory_stats()
     opt = adamw_init(model)
-    step = make_train_step(cfg, microbatches=M)
+    step = make_train_step(cfg, schedule=constant(LM_TRAIN_LR),
+                           microbatches=M)
     step_ms, losses, gnorms = [], [], []
     for s in range(LM_TRAIN_STEPS):
         batch = token_batch(ts.batch_at(s), DEVICE)
@@ -4652,6 +4744,10 @@ def lm_train_phase(seed: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = kernels.launches()
+    still = sorted(k for k, p in model.named_parameters() if k in before
+                   and torch.equal(p.detach().reshape(-1)[:1 << 16],
+                                   before[k]))
+    del before
     warm = np.asarray(step_ms[1:])
     out = dict(
         arch=cfg.name, layers=cfg.num_layers, params=n_params, init_s=init_s,
@@ -4665,8 +4761,10 @@ def lm_train_phase(seed: int) -> dict:
         profiled_step_ms=wall * 1e3, device_busy_ms=busy * 1e3,
         idle_share=idle, losses=losses, gnorms=gnorms,
         loss_bf16=loss16, loss_f32=loss32, loss_gap=gap,
-        kept_share=kept, top_kernels_ms={n: ms for n, (_c, ms) in top},
-        launches=counts)
+        gnorm_bf16=gnorm16, gnorm_f32=gnorm32, gnorm_gap=ggap,
+        gnorm_leaf_gap=leaf_gap, lr=LM_TRAIN_LR, kept_share=kept,
+        kept_share_f32=kept32,
+        top_kernels_ms={n: ms for n, (_c, ms) in top}, launches=counts)
     log("  lm train: " + json.dumps(out))
     del opt, model
     # torch.utils.checkpoint leaves reference cycles that hold the
@@ -4680,6 +4778,14 @@ def lm_train_phase(seed: int) -> dict:
     if not gap <= LM_LOSS_GAP:
         raise AssertionError(f"lm train: bf16 loss {loss16} differs from "
                              f"f32 {loss32} by {gap} (> {LM_LOSS_GAP})")
+    off = {k: v for k, v in leaf_gap.items() if not abs(v) <= (
+        LM_EMBED_GNORM_GAP if k == "embed" else LM_GNORM_GAP)}
+    if off:
+        raise AssertionError(f"lm train: bf16 gradient norms differ from "
+                             f"f32 ones by {off} (> {LM_GNORM_GAP}, the "
+                             f"embedding's > {LM_EMBED_GNORM_GAP})")
+    if still:
+        raise AssertionError(f"lm train: the steps left {still} unchanged")
     if counts["flash_attention"]:
         raise AssertionError(f"lm train: {counts['flash_attention']} flash "
                              f"launches, expected none")
@@ -4695,12 +4801,12 @@ def lm_serve_phase(seed: int, arch: str = "gemma2-2b", layers=None,
     prefill's k/v; SERVE_ROUNDS rounds (1 cold), one profiled prefill and
     one profiled decode step.  A dense arch's first decode step's logits
     are held against a prefill of the prompt and that step's token, and
-    every round emits the same tokens.  An MoE arch is not held so: a
-    prefill of S + 1 tokens has another capacity and sort order than a
-    decode step, so its drops differ legitimately (``lm verify`` holds
-    the card to the host); its warm rounds emit the same tokens, and the
-    share of assignments each layer keeps is reported.  Returns the
-    launches."""
+    every round emits the same tokens.  An MoE arch's decode is not held
+    to a prefill: a prefill of S + 1 tokens has another capacity and sort
+    order than a decode step, so its drops differ legitimately (``lm
+    verify`` holds the card to the host); its rounds, the cold one too,
+    emit the same tokens, and the share of assignments each layer keeps
+    is reported.  Returns the launches."""
     import dataclasses
     import torch
     from repro_torch import kernels
@@ -4758,9 +4864,7 @@ def lm_serve_phase(seed: int, arch: str = "gemma2-2b", layers=None,
         if not torch.isfinite(lg.float()).all():
             raise AssertionError("lm serve: non-finite decode logits")
         gen_r = torch.cat(toks, 1).cpu().numpy()
-        # an MoE arch's cold round is not held to the warm ones
-        if generated is not None and not np.array_equal(gen_r, generated) \
-                and not (cfg.is_moe and r == 1):
+        if generated is not None and not np.array_equal(gen_r, generated):
             raise AssertionError("lm serve: greedy tokens differ between "
                                  "rounds")
         generated = gen_r

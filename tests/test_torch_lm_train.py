@@ -13,10 +13,19 @@
   ends bit for bit where an uninterrupted 20-step run ends (one thread).
 - The twin of ``examples/train_lm.py`` runs on the CPU at a small width.
 
-Tolerance: f32 rtol 1e-4 / atol 1e-4, as ``tests/test_torch_transformer.py``
-states (the same f32 arithmetic with sums in another order).  The default
-schedule's learning rate is 0 at step 0 and 1.5e-7 at step 1, so the
-parameters move little; the moments carry both steps' gradients."""
+Tolerance: f32 rtol 1e-4 / atol 1e-4 on losses and norms, as
+``tests/test_torch_transformer.py`` states (the same f32 arithmetic with
+sums in another order).  The steps run at a constant learning rate of
+1e-3, so every parameter moves by about that much.  Each moment is held to
+JAX's at rtol 1e-4 with an atol of 1e-5 times that leaf's largest
+magnitude (``nu`` is about g², far below any fixed atol).  Each
+parameter's change over the two steps is held to JAX's at rtol 1e-4 with
+a per-element atol: that moment atol carried through each step's update
+lr·m̂/(√v̂ + eps), since Adam divides an element's first moment by its own
+gradient scale and so turns a small gradient's rounding into a large part
+of its move, plus two ulps of the leaf's largest parameter, since a change
+is a difference of two f32 parameters.  One case runs the default
+schedule, whose learning rate is 0 at step 0, to cover its wiring."""
 import functools
 import importlib.util
 from pathlib import Path
@@ -32,12 +41,14 @@ from repro.configs import lm_family as JF
 from repro.data.synthetic import TokenStream as JTokenStream
 from repro.models import transformer as JT
 from repro.optim import adamw_init as jadamw_init
+from repro.optim import schedules as JS
 from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.configs import lm_archs as TA
 from repro_torch.configs import lm_family as TF
 from repro_torch.launch import train as ttrain
 from repro_torch.optim import adamw_init
+from repro_torch.optim import schedules as TS
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ["MIXTRAL_8X7B", "LLAMA4_SCOUT", "GEMMA2_2B"]
@@ -57,10 +68,22 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+LR = 1e-3
+MOMENT_ATOL = 1e-5  # times the leaf's largest |moment|
+
+
+def _scheds(lr):
+    """(JAX schedule, port schedule): a constant ``lr``, or the default."""
+    if lr is None:
+        return None, None
+    return JS.constant(lr), TS.constant(lr)
+
+
 @functools.lru_cache(maxsize=None)
-def _jstep(name, M):
+def _jstep(name, M, lr=None):
     """The JAX train step of an arch's smoke config, jitted once."""
     return jax.jit(JF.make_train_step(getattr(JA, name).smoke_config,
+                                      schedule=_scheds(lr)[0],
                                       microbatches=M))
 
 
@@ -73,22 +96,36 @@ def _flat(tree, prefix=""):
     return {prefix[:-1]: np.asarray(tree, np.float32)}
 
 
-@pytest.mark.parametrize("M", [1, 2])
-@pytest.mark.parametrize("name", ARCHS)
-def test_train_step_matches_jax(name, M):
+def _check_leaf(label, got, want, atol):
+    """rtol 1e-4; ``atol`` a number or an array of the leaf's shape."""
+    bad = np.abs(got - want) > atol + 1e-4 * np.abs(want)
+    assert not bad.any(), (
+        f"{label}: {bad.sum()} of {bad.size} elements; worst "
+        f"{np.abs(got - want)[bad].max()}")
+
+
+@pytest.mark.parametrize(
+    "name,M,lr",
+    [pytest.param(n, m, LR, id=f"{n}-{m}") for n in ARCHS for m in (1, 2)]
+    + [pytest.param("MIXTRAL_8X7B", 1, None,
+                    id="MIXTRAL_8X7B-1-default-schedule")])
+def test_train_step_matches_jax(name, M, lr):
     jc = getattr(JA, name).smoke_config
     tc = getattr(TA, name).smoke_config
     params = JT.init(jax.random.PRNGKey(2), jc)
+    p0 = _flat(params)
     model = convert.transformer_params(
         jax.tree_util.tree_map(np.asarray, params), tc, device="cpu")
     jopt, opt = jadamw_init(params), adamw_init(model)
-    jstep = _jstep(name, M)
-    step = TF.make_train_step(tc, microbatches=M)
+    jstep = _jstep(name, M, lr)
+    step = TF.make_train_step(tc, schedule=_scheds(lr)[1], microbatches=M)
     ts = JTokenStream(jc.vocab, B, S, seed=1)
+    jmo = []
     for s in range(2):
         b = ts.batch_at(s)
         params, jopt, jm = jstep(params, jopt, {
             "tokens": jnp.asarray(b[:, :-1]), "labels": jnp.asarray(b[:, 1:])})
+        jmo.append((_flat(jopt.mu), _flat(jopt.nu)))
         m = step(model, opt, TF.token_batch(b, "cpu"))
         want = ["loss", "gnorm"] + (["ce", "aux"] if M == 1 else [])
         assert sorted(m) == sorted(jm) == sorted(want)
@@ -96,16 +133,29 @@ def test_train_step_matches_jax(name, M):
             np.testing.assert_allclose(float(m[k]), float(jm[k]),
                                        err_msg=f"step {s} {k}", **TOL)
     assert opt.step == int(jopt.step) == 2
-    own = {k: p.detach().numpy() for k, p in model.named_parameters()}
-    for label, got, tree in (("param", own, params), ("mu", opt.mu, jopt.mu),
-                             ("nu", opt.nu, jopt.nu)):
+    for label, got, tree in (("mu", opt.mu, jopt.mu), ("nu", opt.nu,
+                                                       jopt.nu)):
         want = _flat(tree)
         assert set(got) == set(want)
         for k in want:
-            g = got[k] if isinstance(got[k], np.ndarray) \
-                else got[k].numpy()
-            np.testing.assert_allclose(g, want[k], err_msg=f"{label} {k}",
-                                       **TOL)
+            _check_leaf(f"{label} {k}", got[k].numpy(), want[k],
+                        MOMENT_ATOL * np.abs(want[k]).max())
+    own = {k: p.detach().numpy() for k, p in model.named_parameters()}
+    want = _flat(params)
+    assert set(own) == set(want) == set(p0)
+    sched = _scheds(lr)[1] or TS.cosine_decay(3e-4, 2000, 100_000)
+    for k in want:
+        moved, got = want[k] - p0[k], own[k] - p0[k]
+        if lr is not None:
+            # Adam's first steps move a parameter by about lr each.
+            assert np.abs(moved).max() > 0.5 * lr, k
+            assert np.abs(got).max() <= 3 * lr, k
+        atol = 2 * np.spacing(np.abs(p0[k]).max())
+        for t, (mu, nu) in enumerate(jmo, 1):
+            atol = atol + sched(t - 1) * MOMENT_ATOL \
+                * np.abs(mu[k]).max() / (1 - 0.9 ** t) \
+                / (np.sqrt(nu[k] / (1 - 0.95 ** t)) + 1e-8)
+        _check_leaf(f"param change {k}", got, moved, atol)
 
 
 def test_adamw_state_converts_exactly():
