@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Phases, in order, each printed with its result and seconds:
+Phases, each printed with its result and seconds.  They run in this
+order: 1 and 2; then 11, 13-17 and phase 20's card cells, which need no
+graph, while the R-MAT graphs are made on the host (``graph`` waits for
+what is left); then 3-10, 12, 18 and 19:
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
 2. build    — compile the CUDA kernels from ``src/repro_torch/csrc`` (the
@@ -54,7 +57,8 @@ Phases, in order, each printed with its result and seconds:
               drivers at w = 4 (``_delta_dist_check``,
               ``_nary_dist_check``, ``run_query --mode distributed
               --verify``, ``_serve_check --workers 4 --chaos`` with
-              ``dist.program`` faults), each a process that must exit 0
+              ``dist.program`` faults), and phase 20's wcoj smoke run,
+              each a process that must exit 0
               with its exact line: each epoch's
               signed delta equal to the numpy oracle (full
               recomputation), compaction included.  A cell
@@ -73,15 +77,15 @@ Phases, in order, each printed with its result and seconds:
               A runs 4 epochs, its snapshot goes through the port's
               checkpoint under ``build/`` and is restored into session B
               (built over 1,024 edges; every restored tensor on the card),
-              then A and B run 6 epochs in lockstep, deltas bit for bit, B
+              then A and B run 4 epochs in lockstep, deltas bit for bit, B
               on the session kernels, and end with equal snapshots; a
               fault at a projection fold and one at normalize leave A
               equal to its pre-epoch snapshot and the retried batch gives
               B's delta; the same restore and lockstep on a composite
               session (scale 12, triangle,4-clique-tri, ``lo`` leaves and
               a derived projection, B on the ``_lex`` kernels); §5.4 on the
-              card (tri rows and 4-cliques through tri at scale 12 against
-              the host oracle, at scale 13 against a static symmetric
+              card (tri rows and 4-cliques through tri at scale 11 against
+              the host oracle, at scale 12 against a static symmetric
               4-clique count on the card); and the public folds of ``csr``
               on the card against the same calls on CPU copies, bit for
               bit, over the scale-18 edge set and the scale-14 ``tri``
@@ -89,7 +93,7 @@ Phases, in order, each printed with its result and seconds:
 7. pool     — serving: four tenants (R-MAT scale 18 each) on one
               ``SessionPool(device="cuda")`` with a fsynced WAL and a
               snapshot every 4 epochs under ``build/pool``; three take
-              8 dirty batches of 2,048 at coalesce 1, one bursts of 8
+              6 timed dirty batches of 2,048 at coalesce 1, one bursts of 8
               clean batches of 256 at coalesce 8; every epoch's delta
               equal to an isolated session's fed the batches the
               tenant's WAL logged, every session kernel launched by the
@@ -118,7 +122,7 @@ Phases, in order, each printed with its result and seconds:
               peak memory, the idle share of a profiled step;
 10. mesh stream — Delta-BiGJoin on the worker-sharded store (the paper's
               §4, memory split w = 4 ways), mesh ``GraphSession``s on the
-              card: (a) triangle and diamond at R-MAT scale 10, 6 epochs
+              card: (a) triangle and diamond at R-MAT scale 10, 4 epochs
               of 256 dirty updates, plain and balanced, and the §5.4 pair
               at scale 9 (triangle feeding ``tri``, 4-clique-tri over it),
               each bit for bit the same session's on the host (a spawned
@@ -127,8 +131,8 @@ Phases, in order, each printed with its result and seconds:
               launch of the commit fold's worker axis a relation or
               projection fold and epoch (``commit_fold_lex_w`` for
               ``tri``); (b) triangle on the scale-18 graph at w = 4 (B'
-              and route from ``auto_sizing``), 8 epochs of 2,048 plain,
-              then the snapshot restored into a balanced session for 4
+              and route from ``auto_sizing``), 6 epochs of 2,048 plain,
+              then the snapshot restored into a balanced session for 3
               more, every epoch's canonical delta equal to the one-device
               session's on the card, every shard entry owned once: epoch
               p50/p99, steps, launches an epoch, live entries a worker,
@@ -149,7 +153,7 @@ Phases, in order, each printed with its result and seconds:
               (f32, f16, unsorted; random rows on the padding hub and all
               rows in one segment against float64; two calls bitwise
               equal), the first step against the host's (the host's in
-              a thread beside the card's steps), then 6 steps: step ms,
+              a thread beside the card's steps), then 5 steps: step ms,
               peak memory, idle share of a profiled step, 2 segment_sum
               launches per layer and step;
 13. train archs — one step of each GNN arch at smoke width and of a
@@ -183,7 +187,25 @@ Phases, in order, each printed with its result and seconds:
               flash launches per prefill and per decode step;
 19. lm serve mixtral-8x7b — the same at full width, depth 12, on 4
               prompts of 4,096 tokens: 12 flash launches a pass, the warm
-              rounds' tokens equal, the kept share of each layer.
+              rounds' tokens equal, the kept share of each layer;
+20. dryrun  — the dry run (``launch.dryrun --mesh both``: every arch x
+              shape x production mesh on meta tensors, a process that
+              sees no card), the meta counts of this phase's card cells
+              (``--dryrun-meta``, a process that sees no card either) and
+              ``launch.train --arch wcoj-subgraph`` (the distributed
+              triangle count on one worker held to Generic Join's,
+              membership launches above 0); the first two start beside
+              the build, the third beside the verify cells, and the dry
+              run and the wcoj run are checked when the verify cells
+              end: 88 records, no error, the registry's skipped cells;
+              the card cells, run after phase 17: gemma2-2b's
+              train_4k (batch 4) and prefill_32k (batch 1) cells at depth
+              2 on the card against the same cells on meta: equal FLOPs
+              (FlopCounterMode plus the flash kernel's operations), equal
+              output shapes, the flash calls' operations equal the meta
+              counter's, the allocator's peak beyond the arguments within
+              64 MiB + 2 % of the meta peak; and segment_sum's scratch
+              size against the library's.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's ``name, power.limit``; the last line is
@@ -194,6 +216,7 @@ repository root: ``python3 chip_smoke.py [--serve 16:triangle,diamond@10]``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import json
@@ -207,10 +230,11 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+# the card's peaks, one source for the bounds here and the dry run
+from repro_torch.launch.mesh import (BF16_OPS_PER_S,  # noqa: E402
+                                     HBM_BYTES_PER_S, SCALAR_OPS_PER_S)
+
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 # the composite kernels' relations: the triangles of R-MAT scale 14 (the
 # tri serve cell's 4,506,715 tuples) and random 4-column rows as many as
 # the 4-cliques of R-MAT scale 12 (rmat_graph seed 0, edge factor 16)
@@ -1988,11 +2012,11 @@ def serve_nary_phase(edges, nv, names, epochs, update_batch, ratio, seed,
 # ---------------------------------------------------------------------------
 
 TXN_EPOCHS = 4  # epochs on session A before its snapshot
-TXN_LOCKSTEP = 6  # then epochs 4-9 on A and the restored B in lockstep
+TXN_LOCKSTEP = 4  # then epochs 4-7 on A and the restored B in lockstep
 TXN_B_EDGES = 1024  # B is built over these first edges only
 TXN_NARY_SCALE = 12  # the composite session's R-MAT scale
 TXN_NARY_EPOCHS = (2, 2)  # its epochs before / after the restore
-OPT_SCALES = (12, 13)  # §5.4: against the host oracle / a card count
+OPT_SCALES = (11, 12)  # §5.4: against the host oracle / a card count
 TXN_FAULTS = ("store.commit.fold@2", "store.normalize@1")
 OPT_CFG = dict(batch=8192, seed_chunk=8192)  # §5.4 on the card
 FOLD_SAMPLE = 65_536  # rows of the public folds' second region
@@ -2372,25 +2396,25 @@ def txn_phase(edges, nv, update_batch, seed, built, fold_edges=None):
 
 POOL_SCALE = 18  # four tenants hold the serve 20:triangle cell's edges
 POOL_TENANTS = 4
-POOL_EPOCHS = 8  # timed pipelined steps
+POOL_EPOCHS = 6  # timed pipelined steps (8 before the dry run phase)
 POOL_IDLE_STEPS = 3  # then a profiled window of about 2 s
 POOL_SNAPSHOT_EVERY = 4
 POOL_BURST = (8, 256)  # the coalescing tenant: 8 clean batches of 256
-POOL_RECOVER = "t0"  # 11 epochs: snapshot at 8, epochs 9-11 replayed
+POOL_RECOVER = "t0"  # 9 epochs: snapshot at 8, epoch 9 replayed
 # the subprocesses, each in a process of its own, all started together:
 # (label, module, arguments, what its output must show)
 POOL_CHILDREN = (
     ("serve_check supervise", "repro_torch.serve._serve_check",
      ["--supervise", "--tenants", "4", "--nv", "65536", "--ne", "1048576",
-      "--batch-size", "2048", "--update-batch", "2048", "--epochs", "12",
-      "--kill-at", "7"], '"all_exact": true'),
+      "--batch-size", "2048", "--update-batch", "2048", "--epochs", "8",
+      "--kill-at", "5"], '"all_exact": true'),
     ("serve_check chaos", "repro_torch.serve._serve_check",
      ["--chaos", "--tenants", "4", "--nv", "16384", "--ne", "262144",
       "--batch-size", "512", "--update-batch", "512", "--epochs", "30",
       "--tight-out", "32"], '"oracle_exact": true'),
     ("serve stream", "repro_torch.launch.serve",
      ["--stream", "--query", "triangle,diamond", "--scale", "12",
-      "--epochs", "4", "--verify"], "✓"),
+      "--epochs", "2", "--verify"], "✓"),
     ("serve concurrent", "repro_torch.launch.serve",
      ["--concurrent", "2", "--query", "triangle", "--scale", "12",
       "--epochs", "4", "--verify"], "✓"),
@@ -2436,8 +2460,8 @@ def require_apply_thread(by_thread: dict) -> None:
                              f"{threads}, not the apply thread alone")
 
 
-def start_children(root: str, children=POOL_CHILDREN) -> dict:
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+def start_children(root: str, children=POOL_CHILDREN, **env_vars) -> dict:
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), **env_vars)
     return {label: (time.time(), subprocess.Popen(
         [sys.executable, "-m", module] + args, env=env, cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -2445,9 +2469,10 @@ def start_children(root: str, children=POOL_CHILDREN) -> dict:
 
 
 def finish_children(procs: dict, children=POOL_CHILDREN,
-                    what: str = "pool") -> dict:
+                    what: str = "pool", outs=None) -> dict:
     """Wait for every child; each must exit 0 and print what its entry of
-    ``children`` names.  Returns each child's seconds."""
+    ``children`` names.  Returns each child's seconds; ``outs``, when
+    given, receives each child's standard output."""
     from concurrent.futures import ThreadPoolExecutor
     want = {label: mark for label, _m, _a, mark in children}
 
@@ -2462,6 +2487,8 @@ def finish_children(procs: dict, children=POOL_CHILDREN,
                     for label, (t0, p) in procs.items()}
         for label, (_t0, p) in procs.items():
             out, err, secs[label] = futs[label].result()
+            if outs is not None:
+                outs[label] = out
             lines = out.strip().splitlines()
             shown = [ln for ln in lines if want[label] in ln]
             log(f"  {what} child {label}: rc {p.returncode}, "
@@ -2755,7 +2782,7 @@ def examples_phase() -> None:
 TRAIN_NODES = 232_965
 TRAIN_SEEDS = 1024
 TRAIN_FANOUTS = [15, 10]
-TRAIN_STEPS = 6  # 1 cold + 5 warm
+TRAIN_STEPS = 5  # 1 cold + 4 warm (5 warm before the dry run phase)
 SMOKE_ARCHS = ("egnn", "gat-cora", "graphcast", "gatedgcn")
 # segment_sum against its plain version: f32 sums in another order
 # (tile partials, then partials in row order, against index_add_'s row
@@ -2854,7 +2881,8 @@ def segment_sum_rows(table: dict, dst: np.ndarray, mask: np.ndarray,
         lms = cuda_ms(lib, reps)
         ldms = library_device_ms(lib, reps, "index_add_")
         nbytes = E * D * data.element_size() + E * 4 + NS * D * 4
-        record("segment_sum", err, ms, dms, pms, nbytes, E * D, lms,
+        record("segment_sum", err, ms, dms, pms, nbytes,
+               sops.kernel_ops(E, D), lms,
                f"{label} E={E} D={D} NS={NS} "
                f"{'sorted' if is_sorted else 'unsorted'}"
                f"{'' if kind == 'trainer' else ', ' + kind} rtol={rtol} "
@@ -3577,13 +3605,13 @@ def mesh_scale(graph, tri_plan, add) -> None:
 STREAM_W = 4
 STREAM_SCALE = 10  # (a) card against host: triangle, diamond
 STREAM_NARY_SCALE = 9  # (a) the §5.4 pair: tri from triangle, 4-clique-tri
-STREAM_EPOCHS = 6
+STREAM_EPOCHS = 4
 STREAM_BATCH = 256
 REAL_SCALE = 18  # (b) the pool's graph (20, the serve 20 cell's, ran
 # past the script's budget on a slow host: PERF.md §4)
 REAL_BATCH = 2048
-REAL_EPOCHS = 8  # plain, then REAL_BALANCED epochs balanced
-REAL_BALANCED = 4
+REAL_EPOCHS = 6  # plain, then REAL_BALANCED epochs balanced
+REAL_BALANCED = 3
 # the fold kernel's worker axis: the workers' delta rows are dropped on
 # this one, so one worker folds an empty delta
 EMPTY_WORKER = 2
@@ -4138,15 +4166,6 @@ def _lm_arch(arch_id: str):
     return {a.arch_id: a for a in LM_ARCHS}[arch_id]
 
 
-def _pairs(sq: int, sk: int, window: int, q_offset: int) -> int:
-    """Live (query, key) pairs of causal attention of ``sq`` rows at
-    positions q_offset.. over ``sk`` keys, with a window (0: none)."""
-    p = q_offset + np.arange(sq, dtype=np.int64)
-    hi = np.minimum(p, sk - 1)
-    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros_like(p)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def _flex_attention(softcap: float, window: int, q_offset: int, sq: int,
                     sk: int):
     """The one PyTorch call that computes the kernel's function with a
@@ -4351,8 +4370,8 @@ def flash_rows(table: dict, reps: int, seed: int) -> None:
             f"{'null' if dms is None else f'{dms:.4f}'} ms, host "
             f"{hus:.2f} us, recorded {ours}")
         pms = cuda_ms(plain, 2)
-        pairs = qq.shape[0] * H * _pairs(qq.shape[1], kk.shape[1], window,
-                                          q_offset)
+        pairs = qq.shape[0] * H * fops.live_pairs(
+            qq.shape[1], kk.shape[1], True, window, q_offset)
         if not decode:  # every q, k, v and o element once
             nbytes = 2 * (2 * qq.numel() + 2 * kk.numel())
         else:  # the live cache rows of k and v, and q and o
@@ -4394,7 +4413,9 @@ def flash_rows(table: dict, reps: int, seed: int) -> None:
                  f"{pairs} live pairs, rtol {rtol} atol {atol}; "
                  f"library_ms: {lib_name}; kernels {ours}")
         record("flash_attention", err, ms, dms, pms, nbytes,
-               4 * D * pairs, lib_ms, shape, main, BF16_OPS_PER_S,
+               fops.kernel_ops(tuple(qq.shape), kk.shape[1], True, window,
+                               q_offset), lib_ms, shape, main,
+               BF16_OPS_PER_S,
                library_device_ms=lib_dms, host=hus, library=lib_name)
     del rows, want
     del q, k, v, qd, kc, vc
@@ -5067,6 +5088,243 @@ SOURCES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the dry run — every (arch x shape x production mesh) cell on
+# meta tensors in a process beside the verify cells, the wcoj arch's smoke
+# run on the card beside them, and two cells on the card at a cut size
+# held to the dry run's own counts at the same shapes
+# ---------------------------------------------------------------------------
+
+DRYRUN_RECORDS = 88  # 44 cells x 2 meshes
+# (label, module, arguments, what a passing run prints); the dry run sees
+# no card (it allocates nothing), the wcoj smoke run is on the card
+DRYRUN_CHILDREN = (
+    ("dryrun", "repro_torch.launch.dryrun",
+     ["--mesh", "both", "--out",
+      os.path.join("build", "dryrun_torch.jsonl")], "done; 0 failures"),)
+WCOJ_CHILDREN = (
+    ("train wcoj-subgraph", "repro_torch.launch.train",
+     ["--arch", "wcoj-subgraph"], "smoke {"),)
+# the card cells' meta counts, a process of its own beside the verify
+# cells (no card visible): ``chip_smoke.py --dryrun-meta``
+DRY_META_CHILDREN = (
+    ("dryrun meta", "chip_smoke", ["--dryrun-meta"], '{"dryrun_meta"'),)
+DRY_ARCH = "gemma2-2b"
+DRY_DEPTH = 2  # cut from 26
+DRY_BATCH = {"train_4k": 4, "prefill_32k": 1}  # cut from 256 and 32
+# the card's peak of bytes allocated beyond the arguments against the meta
+# run's peak of live storage bytes: the caching allocator rounds every
+# block up to 512 bytes (under 1 MiB over a step's live tensors), and
+# cuBLAS and cuBLASLt take their workspaces through it at a stream's first
+# matmul (tens of MiB); the meta run sees neither.  So the bar is 64 MiB
+# plus 2 % of the meta peak, not equality
+DRY_TEMP_TOL = (0.02, 64 << 20)
+
+
+def start_dryrun(root: str) -> dict:
+    """The dry-run and meta-count children: no card visible, one thread
+    each (they run beside the build and the first phases).  Any still
+    running when the script exits, as after a failed phase, is killed."""
+    procs = start_children(root, DRYRUN_CHILDREN + DRY_META_CHILDREN,
+                           CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+
+    def stop():
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return procs
+
+
+def finish_dryrun(root: str, procs: dict) -> dict:
+    """Wait for the dry-run child and the wcoj train driver's (started
+    beside the verify cells) and check them: the dry run wrote
+    DRYRUN_RECORDS records, none an error, its skipped cells those of the
+    registry's skip reasons (on both meshes); the wcoj smoke run counted
+    (its own check: equal to Generic Join's) through the membership
+    kernel.  Returns the wcoj child's launches."""
+    from repro_torch.configs import get_arch, list_archs
+    outs = {}
+    secs = finish_children(procs, DRYRUN_CHILDREN + WCOJ_CHILDREN,
+                           "dryrun", outs)
+    path = os.path.join(root, DRYRUN_CHILDREN[0][2][-1])
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f]
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    want = sorted((a, s, m) for a in list_archs()
+                  for s, c in get_arch(a).cells.items() if c.skip_reason
+                  for m in ("16x16", "2x16x16"))
+    skipped = sorted((r["arch"], r["shape"], r["mesh"]) for r in recs
+                     if r["status"] == "skipped")
+    log(f"  dryrun: {len(recs)} records {status}, skipped "
+        f"{sorted({(a, s) for a, s, _ in skipped})}; child "
+        f"{secs['dryrun']:.2f} s (no card visible)")
+    wcoj_rows = [dict(shape=r["shape"], mesh=r["mesh"],
+                      argument_bytes=r["per_device"]["argument_bytes"],
+                      flops=r["flops_per_device"])
+                 for r in recs if r["arch"] == "wcoj-subgraph"
+                 and r["status"] == "ok"]
+    log("  " + json.dumps({"dryrun_wcoj_per_device": wcoj_rows}))
+    if len(recs) != DRYRUN_RECORDS or status.get("error") or \
+            skipped != want:
+        raise AssertionError(f"dryrun: {len(recs)} records {status}, "
+                             f"skipped {skipped}, want {want}")
+    line = [ln for ln in outs["train wcoj-subgraph"].splitlines()
+            if ln.startswith("smoke {")][-1]
+    smoke, launched = line[len("smoke "):].split(" launches ")
+    smoke, launched = json.loads(smoke), json.loads(launched)
+    log(f"  train wcoj-subgraph: count {smoke['count']} (Generic Join's), "
+        f"{smoke['steps']} steps, {secs['train wcoj-subgraph']:.2f} s; "
+        f"signed_member {launched['signed_member']}, fused_extend "
+        f"{launched['fused_extend']} launches (the mesh's levels go "
+        f"through its services)")
+    if not launched["signed_member"] > 0:
+        raise AssertionError(f"train wcoj-subgraph: no membership launch "
+                             f"{launched}")
+    return launched
+
+
+def _dry_cells():
+    """(name, shape, the cell's maker) of the card cells, and the cut
+    config."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import lm_family as LF
+    cfg = dataclasses.replace(get_arch(DRY_ARCH).full_config,
+                              num_layers=DRY_DEPTH)
+    cells = []
+    for name, batch in DRY_BATCH.items():
+        shape = dict(LF.SHAPES[name], batch=batch)
+        cells.append((name, shape, LF.CELL_OF[shape["kind"]]))
+    return cfg, cells
+
+
+def dryrun_meta_counts() -> dict:
+    """The card cells' counts on meta (``dryrun.count``) and their
+    argument bytes on one device, with the seconds each took."""
+    from repro_torch.launch import dryrun
+    cfg, cells = _dry_cells()
+    one = {"data": 1, "model": 1}  # one device: every spec replicated
+    out = {}
+    for name, shape, make in cells:
+        t = time.time()
+        step, margs, axes, donate = make(cfg, shape)
+        meta = dryrun.count(step, margs)
+        meta["argument_bytes"] = dryrun.argument_bytes(margs, axes, donate,
+                                                       one)[0]
+        meta["seconds"] = time.time() - t
+        out[name] = meta
+    return out
+
+
+def dryrun_card_phase(seed: int, procs: dict) -> dict:
+    """gemma2-2b's train_4k and prefill_32k cells at depth DRY_DEPTH and
+    the batches of DRY_BATCH, on meta (the dry run's counts) and on the
+    card (random parameters from the seed): the train step runs no kernel
+    and its FlopCounterMode total equals the meta count; the prefill
+    launches the flash kernel once a layer, its outputs have the meta
+    run's shapes and dtypes, and the kernel operations of its calls
+    (``kernel_ops``, the bound column's count) equal the meta counter's;
+    on both the card's allocator peak beyond the arguments is within
+    DRY_TEMP_TOL of the meta peak, and the arguments' bytes equal the meta
+    ones.  Also segment_sum's scratch size on the host against the
+    library's.  The meta counts come from the ``--dryrun-meta`` child
+    among ``procs`` (taken out of it).  Returns the flash launches of the
+    prefill."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.segment_ops import ops as sops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+
+    outs = {}
+    finish_children({"dryrun meta": procs.pop("dryrun meta")},
+                    DRY_META_CHILDREN, "dryrun", outs)
+    metas = json.loads([ln for ln in outs["dryrun meta"].splitlines()
+                        if ln.startswith('{"dryrun_meta"')][-1])
+    metas = metas["dryrun_meta"]
+    lib = _build.lib("segment_sum")
+    for E, D in ((163_840, 70), (524_288, 256), (0, 3), (1, 1), (33, 4),
+                 (1000, 7)):
+        if sops.scratch_words(E, D) != lib.repro_segment_sum_scratch(E, D):
+            raise AssertionError(f"segment_sum scratch at E={E} D={D}: "
+                                 f"{sops.scratch_words(E, D)} words, the "
+                                 f"library's "
+                                 f"{lib.repro_segment_sum_scratch(E, D)}")
+    cfg, cells = _dry_cells()
+    total = {}
+    for name, shape, make in cells:
+        meta = metas[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        step, cargs, _, _ = make(cfg, shape, device=DEVICE, seed=seed)
+        sync()
+        base = torch.cuda.memory_allocated()
+        calls = []
+        inner = T.mha
+
+        def mha(q, k, v, causal=True, window=0, softcap=0.0, q_offset=0):
+            calls.append((tuple(q.shape), k.shape[1], causal, window,
+                          q_offset))
+            return inner(q, k, v, causal, window, softcap, q_offset)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        T.mha = mha
+        try:
+            t = time.time()
+            card = dryrun.count(step, cargs)
+            sync()
+            card_s = time.time() - t
+        finally:
+            T.mha = inner
+        counts = kernels.launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        kops = sum(fops.kernel_ops(*c) for c in calls)
+        rtol, atol = DRY_TEMP_TOL
+        row = dict(
+            shape=name, depth=DRY_DEPTH, batch=shape["batch"],
+            seq=shape["seq"],
+            meta_flops=meta["flops"], card_torch_flops=card["torch_flops"],
+            meta_kernel_ops=meta["kernel_ops"]["flash_attention"],
+            card_kernel_ops=kops, flash_launches=counts["flash_attention"],
+            meta_temp_bytes=meta["temp_bytes"], card_peak_bytes=peak,
+            card_tracked_temp_bytes=card["temp_bytes"],
+            temp_ratio=peak / max(meta["temp_bytes"], 1),
+            meta_argument_bytes=meta["argument_bytes"],
+            card_argument_bytes=base - before, outputs=meta["outputs"],
+            meta_s=meta["seconds"], card_s=card_s)
+        log("  " + json.dumps({"dryrun_card": row}))
+        bad = []
+        if card["torch_flops"] + kops != meta["flops"]:
+            bad.append("FLOPs")
+        if json.loads(json.dumps(card["outputs"])) != meta["outputs"]:
+            bad.append(f"outputs {card['outputs']}")
+        if kops != meta["kernel_ops"]["flash_attention"] or \
+                counts["flash_attention"] != len(calls) or \
+                len(calls) != (DRY_DEPTH if shape["kind"] == "prefill"
+                               else 0):
+            bad.append("flash calls")
+        if abs(peak - meta["temp_bytes"]) > rtol * meta["temp_bytes"] + atol:
+            bad.append("peak bytes")
+        if abs((base - before) - meta["argument_bytes"]) > atol:
+            bad.append("argument bytes")
+        if bad:
+            raise AssertionError(f"dryrun {name}: the card disagrees with "
+                                 f"the meta count: {bad}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del step, cargs, card
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def parse_cell(text: str):
     """``SCALE:query,query[@EPOCHS[/BATCH]]`` -> (scale, [queries], epochs
     or None for the phase's default, update batch or None for
@@ -5099,9 +5357,9 @@ def main() -> int:
     ap.add_argument("--verify", action="append", type=parse_cell,
                     help="a verify cell SCALE:query,query[@EPOCHS[/BATCH]] "
                     "(repeatable, 8 epochs unless given); default "
-                    "9:triangle,diamond@8, 14:triangle@6, "
-                    "9:triangle,4-clique,4-clique-tri@8 and "
-                    "8:4-clique,5-clique,5-clique-quad@8/64")
+                    "9:triangle,diamond@5, 14:triangle@4, "
+                    "9:triangle,4-clique,4-clique-tri@5 and "
+                    "8:4-clique,5-clique,5-clique-quad@5/64")
     ap.add_argument("--update-batch", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
@@ -5109,6 +5367,11 @@ def main() -> int:
                     help="only run the --verify cells in this process and "
                     "print their launch counts (the main run starts one "
                     "such process per verify cell, all together)")
+    ap.add_argument("--dryrun-meta", action="store_true",
+                    help="only count the dry run phase's card cells on meta "
+                    "tensors (no card needed) and print them as one JSON "
+                    "line (the main run starts one such process beside "
+                    "the verify cells)")
     ap.add_argument("--graph-check", action="store_true",
                     help="only capture fused extend and merge ranks in a "
                     "CUDA graph and hold the replay to eager calls (the "
@@ -5122,11 +5385,14 @@ def main() -> int:
                            (20, ["triangle"], 8, None),
                            (14, ["triangle", "4-clique-tri"], 7, None)]
     checks = args.verify or [
-        (9, ["triangle", "diamond"], 8, None), (14, ["triangle"], 6, None),
-        (9, ["triangle", "4-clique", "4-clique-tri"], 8, None),
-        (8, ["4-clique", "5-clique", "5-clique-quad"], 8, 64)]
+        (9, ["triangle", "diamond"], 5, None), (14, ["triangle"], 4, None),
+        (9, ["triangle", "4-clique", "4-clique-tri"], 5, None),
+        (8, ["4-clique", "5-clique", "5-clique-quad"], 5, 64)]
 
     import torch
+    if args.dryrun_meta:
+        print(json.dumps({"dryrun_meta": dryrun_meta_counts()}), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5143,6 +5409,10 @@ def main() -> int:
     from repro_torch.kernels import VARIANTS, _build
     from repro_torch.data.synthetic import rmat_graph
 
+    # the dry run's children need no card: they run beside the build and
+    # the first phases
+    root = os.path.dirname(os.path.abspath(__file__))
+    dry = start_dryrun(root)
     # the graphs are made on the host beside the build (numpy frees the
     # GIL): the serve cells' and the mesh stream's
     scales = sorted({c[0] for c in cells} | {REAL_SCALE})
@@ -5175,6 +5445,26 @@ def main() -> int:
             log(f"  {name}: " + " | ".join(entries))
         log(f"  built {sorted(logs)} in {time.time() - t:.2f} s")
 
+    # every session and training run below starts its kernel counts at 0
+    # and reads them after; the table's launches sum them over these runs
+    launches = {name: 0 for name in VARIANTS}
+    # the phases that need no graph run while the graphs are made: the
+    # training and LM checks and the dry run's card cells
+    for label, run in (
+            ("train driver", lambda: train_driver_phase(args.seed)),
+            ("train archs", lambda: train_archs_phase(args.seed)),
+            ("train recsys", lambda: train_recsys_phase(args.seed)),
+            ("lm verify", lambda: lm_verify_phase(args.seed)),
+            ("lm train verify", lambda: lm_train_verify_phase(args.seed)),
+            ("lm train mixtral-8x7b", lambda: lm_train_phase(args.seed)),
+            ("dryrun", lambda: dryrun_card_phase(args.seed, dry))):
+        with phase(label):
+            counts = run()
+            for name in VARIANTS:
+                launches[name] += counts.get(name, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     graphs = {}
     built = {}  # n-ary relation -> (graph, rows, seconds), see relation_rows
     with phase("graph"):
@@ -5191,24 +5481,22 @@ def main() -> int:
     if tri_edges is None:
         tri_edges = rmat_graph(TRI_SCALE, 16, seed=args.seed)
 
-    # every session and training run below starts its kernel counts at 0
-    # and reads them after; the table's launches sum them over these runs
-    launches = {name: 0 for name in VARIANTS}
     with phase("verify"):
         # the kernel-coverage gate and the mesh's harnesses and drivers
         # run beside the cells, processes too, and this process enumerates
         # the composite rows' ``tri`` relation on the card meanwhile (its
         # seconds share the host with the cells)
         coverage = start_coverage()
-        mesh_children = start_children(
-            os.path.dirname(os.path.abspath(__file__)), MESH_CHILDREN)
+        mesh_children = start_children(root, MESH_CHILDREN)
+        dry.update(start_children(root, WCOJ_CHILDREN))
         counts = verify_cells(
             checks, args.update_batch, args.seed,
             meanwhile=lambda: relation_rows(tri_edges, "tri", built))
         finish_coverage(coverage)
         finish_children(mesh_children, MESH_CHILDREN, "mesh")
+        wcoj = finish_dryrun(root, dry)
         for name in VARIANTS:
-            launches[name] += counts[name]
+            launches[name] += counts[name] + wcoj[name]
 
     with phase("kernels composite"):
         tri, secs = relation_rows(tri_edges, "tri", built)
@@ -5284,17 +5572,11 @@ def main() -> int:
         for name in VARIANTS:
             launches[name] += counts.get(name, 0)
 
-    # the GNN training path, segment_sum's kernel rows from the full-width
-    # phase at the trainer's shape; then the LM serving path
+    # the GNN training path at full width, segment_sum's kernel rows at the
+    # trainer's shape; then the LM serving path
     for label, run in (
-            ("train driver", lambda: train_driver_phase(args.seed)),
             ("train full", lambda: train_full_phase(table, args.reps,
                                                     args.seed)),
-            ("train archs", lambda: train_archs_phase(args.seed)),
-            ("train recsys", lambda: train_recsys_phase(args.seed)),
-            ("lm verify", lambda: lm_verify_phase(args.seed)),
-            ("lm train verify", lambda: lm_train_verify_phase(args.seed)),
-            ("lm train mixtral-8x7b", lambda: lm_train_phase(args.seed)),
             ("lm serve gemma2-2b", lambda: lm_serve_phase(args.seed)),
             ("lm serve mixtral-8x7b", lambda: lm_serve_phase(
                 args.seed, "mixtral-8x7b", LM_SERVE_MOE_LAYERS,

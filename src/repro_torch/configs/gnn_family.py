@@ -4,6 +4,10 @@ Shapes span three execution regimes: full-batch small (cora), sampled
 minibatch (reddit-scale: the neighbor-sampler blocks flattened to one padded
 union graph), full-batch large (ogbn-products), and batched small graphs
 (molecule).  One padded-graph convention serves all (models/gnn.py).
+
+Each shape is a dry-run train cell: the full update step on ``meta``
+(``launch.dryrun``), node and edge counts padded to multiples of 512 so
+that the production mesh's axes divide them, probed at depths 1 and 2.
 """
 from __future__ import annotations
 
@@ -13,10 +17,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import ArchSpec, Cell
 from repro_torch.core.csr import resolve_device
 from repro_torch.models import gnn as G
 from repro_torch.optim import adamw_init, adamw_update, cosine_decay
+from repro_torch.optim.adamw import AdamWState
 
 # (name, dict) — node/edge counts from the assignment; d_feat/classes from
 # the public datasets these shapes correspond to (cora / reddit / products).
@@ -67,6 +72,54 @@ def make_train_step(cfg: G.GNNConfig, schedule=None):
     return train_step
 
 
+def _abstract_batch(cfg: G.GNNConfig, shape: Dict):
+    """The shape's batch on ``meta`` and its logical axes.  Node and edge
+    counts are padded to multiples of 512 (the 2x16x16 mesh's size); the
+    assignment's exact counts ride in the masks.  Without the padding,
+    odd counts (2,449,029 nodes) defeat every sharding rule and the graph
+    is replicated on every device."""
+    N = -(-shape["n_nodes"] // 512) * 512
+    E = -(-shape["n_edges"] // 512) * 512
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    batch = {
+        "feats": meta((N, shape["d_feat"]), torch.float32),
+        "edge_src": meta((E,), torch.int32),
+        "edge_dst": meta((E,), torch.int32),
+        "edge_mask": meta((E,), torch.bool),
+        "label_mask": meta((N,), torch.bool),
+    }
+    axes = {
+        "feats": ("nodes", None), "edge_src": ("edges",),
+        "edge_dst": ("edges",), "edge_mask": ("edges",),
+        "label_mask": ("nodes",),
+    }
+    if cfg.arch == "egnn":
+        batch["coords"] = meta((N, 3), torch.float32)
+        axes["coords"] = ("nodes", None)
+    if cfg.arch in ("gatedgcn", "graphcast"):
+        batch["edge_feats"] = meta((E, 1), torch.float32)
+        axes["edge_feats"] = ("edges", None)
+    if cfg.task == "graph_reg":
+        batch["graph_id"] = meta((N,), torch.int32)
+        batch["labels"] = meta((shape["n_graphs"], 1), torch.float32)
+        axes["graph_id"] = ("nodes",)
+        axes["labels"] = ("batch", None)
+    elif cfg.task == "node_class":
+        batch["labels"] = meta((N,), torch.int32)
+        axes["labels"] = ("nodes",)
+    else:
+        batch["labels"] = meta((N, cfg.d_out), torch.float32)
+        axes["labels"] = ("nodes", None)
+    return batch, axes
+
+
+def _param_axes_like(model) -> Dict:
+    """Every parameter replicated, by dotted name."""
+    return {k: (None,) * p.dim() for k, p in model.named_parameters()}
+
+
 def smoke_batch(cfg: G.GNNConfig, device=None):
     """The smoke run's config (d_in 8) and its random 40-node, 160-edge
     batch (numpy seed 0) on ``device``."""
@@ -97,6 +150,24 @@ def smoke_batch(cfg: G.GNNConfig, device=None):
 
 def gnn_arch(arch_id: str, describe: str, base: G.GNNConfig,
              smoke: G.GNNConfig) -> ArchSpec:
+    cells: Dict[str, Cell] = {}
+    for name, shape in SHAPES.items():
+        def build(mesh=None, shape=shape, cfg=None):
+            cfg = cfg or _shape_cfg(base, shape)
+            model = G.abstract_params(cfg)
+            opt = adamw_init(model)
+            batch, baxes = _abstract_batch(cfg, shape)
+            p_ax = _param_axes_like(model)
+            axes = (p_ax, AdamWState((), p_ax, p_ax), baxes)
+            return make_train_step(cfg), (model, opt, batch), axes, (0, 1)
+
+        def probe(mesh, depth, shape=shape, build=build):
+            return build(mesh, cfg=dataclasses.replace(
+                _shape_cfg(base, shape), n_layers=depth))
+
+        cells[name] = Cell(name, "train", build, None, probe, (1, 2),
+                           base.n_layers)
+
     def smoke_run(cfg=None, device=None):
         cfg, batch = smoke_batch(cfg or smoke, device)
         model = G.GNN(cfg, seed=0, device=device)
@@ -124,8 +195,8 @@ def gnn_arch(arch_id: str, describe: str, base: G.GNNConfig,
                     + N * d * cfg.d_out)
         return 6.0 * per_step  # fwd+bwd
 
-    return ArchSpec(arch_id, "gnn", describe, base, smoke, smoke_run,
-                    model_flops)
+    return ArchSpec(arch_id, "gnn", describe, base, smoke, cells,
+                    smoke_run, model_flops)
 
 
 EGNN = gnn_arch(

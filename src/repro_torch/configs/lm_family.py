@@ -1,21 +1,31 @@
 """LM-family ArchSpec: the serving and training shapes of the assigned
-LM archs, their training step with gradient accumulation, the smoke run
-and the analytic model FLOPs.
+LM archs as dry-run cells, their training step with gradient
+accumulation, the smoke run and the analytic model FLOPs.
 
-The JAX package's abstract dry-run cells (lowering a step over a fake
-device mesh) are not carried over (``configs/base.py``).
+A train cell is the full update step (forward, backward, AdamW; the
+model and optimizer state donated), a prefill cell the prefill, a decode
+cell one decode step against the cache (donated), each built on ``meta``
+by :func:`train_cell`, :func:`prefill_cell` and :func:`decode_cell`,
+which take a real device too (the card's check of the dry run's counts).
+Dense archs train pure data-parallel (``batch_dp3``, one microbatch), MoE
+archs keep their microbatches, as the JAX package's cells do.  The depth
+probes keep each cell's microbatches: the port's meta run counts every
+one, where XLA's cost analysis counted a scan body once.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import ArchSpec, Cell
 from repro_torch.core.csr import resolve_device
+from repro_torch.distributed.sharding import dotted_axes
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw_init, adamw_update, cosine_decay
+from repro_torch.optim.adamw import AdamWState
 
 SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256, microbatches=8),
@@ -23,6 +33,87 @@ SHAPES = {
     "decode_32k": dict(kind="decode", seq=32768, batch=128),
     "long_500k": dict(kind="decode", seq=524288, batch=1, shard_seq=True),
 }
+
+
+LONG_SKIP = ("pure full-attention architecture: 524k dense attention "
+             "is out of assignment scope (see DESIGN.md §4)")
+
+
+def _batch_axes(pure_dp=False):
+    name = "batch_dp3" if pure_dp else "batch"
+    return {"tokens": (name, None), "labels": (name, None)}
+
+
+def _opt_axes(params_axes):
+    """The optimizer state's axes: its moments by dotted parameter name."""
+    flat = dotted_axes(params_axes)
+    return AdamWState((), flat, flat)
+
+
+def _model(cfg: T.TransformerConfig, device, seed: int):
+    device = torch.device(device)
+    if device.type == "meta":
+        return T.abstract_params(cfg)
+    return T.Transformer(cfg, seed=seed, device=device)
+
+
+def _tokens(shape, vocab: int, device, seed: int) -> torch.Tensor:
+    """int32 token ids of ``shape``: empty on meta, else uniform from
+    numpy ``seed``."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.int32, device=device)
+    ids = np.random.default_rng(seed).integers(0, vocab, shape)
+    return torch.from_numpy(ids.astype(np.int32)).to(device)
+
+
+def train_cell(cfg: T.TransformerConfig, shape: Dict, device="meta",
+               seed: int = 0):
+    """(step, (model, opt, batch), axes, donate) of a train cell: dense
+    archs one microbatch over ``batch_dp3``, MoE archs
+    ``shape["microbatches"]`` over ``batch``."""
+    pure = not cfg.is_moe
+    M = 1 if pure else shape.get("microbatches", 1)
+    model = _model(cfg, device, seed)
+    opt = adamw_init(model)
+    B, S = shape["batch"], shape["seq"]
+    batch = {"tokens": _tokens((B, S), cfg.vocab, device, seed),
+             "labels": _tokens((B, S), cfg.vocab, device, seed + 1)}
+    p_ax = T.logical_axes(cfg)
+    axes = (p_ax, _opt_axes(p_ax), _batch_axes(pure))
+    return make_train_step(cfg, microbatches=M), (model, opt, batch), \
+        axes, (0, 1)
+
+
+def prefill_cell(cfg: T.TransformerConfig, shape: Dict, device="meta",
+                 seed: int = 0):
+    """(step, (model, tokens), axes, donate) of a prefill cell."""
+    model = _model(cfg, device, seed)
+    tokens = _tokens((shape["batch"], shape["seq"]), cfg.vocab, device,
+                     seed)
+    return T.prefill, (model, tokens), \
+        (T.logical_axes(cfg), ("batch", None)), ()
+
+
+def decode_cell(cfg: T.TransformerConfig, shape: Dict, device="meta",
+                seed: int = 0):
+    """(step, (model, cache, tokens, pos), axes, donate) of a decode
+    cell: one step at the last position of a full cache (``pos`` = seq -
+    1, an int; the JAX cell's is an abstract int32), the cache donated."""
+    model = _model(cfg, device, seed)
+    B, S = shape["batch"], shape["seq"]
+    if torch.device(device).type == "meta":
+        cache = T.abstract_cache(cfg, B, S)
+    else:
+        cache = T.make_cache(cfg, B, S, device=device)
+    tokens = _tokens((B, 1), cfg.vocab, device, seed)
+    axes = (T.logical_axes(cfg), T.cache_logical_axes(cfg),
+            ("batch", None), ())
+    return T.decode_step, (model, cache, tokens, S - 1), axes, (1,)
+
+
+CELL_OF = {"train": train_cell, "prefill": prefill_cell,
+           "decode": decode_cell}
 
 
 def make_train_step(cfg: T.TransformerConfig, schedule=None,
@@ -81,6 +172,23 @@ def token_batch(b: np.ndarray, device) -> Dict[str, torch.Tensor]:
 
 def lm_arch(arch_id: str, describe: str, full: T.TransformerConfig,
             smoke: T.TransformerConfig) -> ArchSpec:
+    cells: Dict[str, Cell] = {}
+    period = max(full.local_global_period, 1)
+    for name, shape in SHAPES.items():
+        kind = shape["kind"]
+        skip = LONG_SKIP if name == "long_500k" and \
+            not full.sub_quadratic else None
+        make = CELL_OF[kind]
+
+        def build(mesh=None, make=make, shape=shape):
+            return make(full, shape)
+
+        def probe(mesh, depth, make=make, shape=shape):
+            return make(dataclasses.replace(full, num_layers=depth), shape)
+
+        cells[name] = Cell(name, kind, build, skip, probe,
+                           (period, 2 * period), full.num_layers)
+
     def smoke_run(cfg=None, device=None):
         """Two train steps of ``cfg`` (the smoke config) on ``TokenStream``
         batches, then a decode step's shape check."""
@@ -114,5 +222,5 @@ def lm_arch(arch_id: str, describe: str, full: T.TransformerConfig,
         factor = 6.0 if shape["kind"] == "train" else 2.0
         return factor * n_active * tokens
 
-    return ArchSpec(arch_id, "lm", describe, full, smoke, smoke_run,
-                    model_flops)
+    return ArchSpec(arch_id, "lm", describe, full, smoke, cells,
+                    smoke_run, model_flops)

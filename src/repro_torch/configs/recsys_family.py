@@ -1,20 +1,23 @@
-"""Two-tower recsys ArchSpec: the train / online / bulk / retrieval shapes.
+"""Two-tower recsys ArchSpec: train / online / bulk / retrieval cells.
 
-``SHAPES`` keeps the JAX package's four cells as plain descriptions of the
-shapes; its abstract ``build_*`` cells (a step lowered over a fake device
-mesh) have no meaning on one card and are not carried over.
+Each is a dry-run cell on ``meta`` (``launch.dryrun``): the full update
+step, with parameters and optimizer state donated, or the serving and
+retrieval passes (no autograd).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import ArchSpec, Cell
 from repro_torch.core.csr import resolve_device
+from repro_torch.distributed.sharding import dotted_axes
 from repro_torch.models import recsys as R
 from repro_torch.optim import adamw_init, adamw_update, cosine_decay
+from repro_torch.optim.adamw import AdamWState
 
 SHAPES = {
     "train_batch": dict(kind="train", batch=65_536),
@@ -23,6 +26,18 @@ SHAPES = {
     "retrieval_cand": dict(kind="retrieval", batch=1,
                            n_candidates=1_000_000),
 }
+
+
+def _feat_specs(cfg: R.TwoTowerConfig, B: int):
+    feats = {name: torch.empty((B, cfg.multi_hot), dtype=torch.int32,
+                               device="meta")
+             for name, _ in cfg.user_tables}
+    axes = {name: ("batch", None) for name, _ in cfg.user_tables}
+    return feats, axes
+
+
+def _ids(n: int) -> torch.Tensor:
+    return torch.empty((n,), dtype=torch.int32, device="meta")
 
 
 def make_train_step(cfg: R.TwoTowerConfig, schedule=None):
@@ -63,6 +78,45 @@ def event_batch(cfg: R.TwoTowerConfig, batch: int, step: int, device,
 
 def recsys_arch(arch_id: str, describe: str, full: R.TwoTowerConfig,
                 smoke: R.TwoTowerConfig) -> ArchSpec:
+    def build_train(mesh=None):
+        cfg = full
+        params = R.abstract_params(cfg)
+        opt = adamw_init(params)
+        B = SHAPES["train_batch"]["batch"]
+        feats, faxes = _feat_specs(cfg, B)
+        batch = {"feats": feats, "item_ids": _ids(B)}
+        baxes = {"feats": faxes, "item_ids": ("batch",)}
+        p_ax = R.logical_axes(cfg)
+        flat = dotted_axes(p_ax)
+        axes = (p_ax, AdamWState((), flat, flat), baxes)
+        return make_train_step(cfg), (params, opt, batch), axes, (0, 1)
+
+    def build_serve(B):
+        def build(mesh=None):
+            cfg = full
+            feats, faxes = _feat_specs(cfg, B)
+            axes = (R.logical_axes(cfg), faxes, ("batch",))
+            step = torch.no_grad()(functools.partial(R.serve_scores,
+                                                     cfg=cfg))
+            return step, (R.abstract_params(cfg), feats, _ids(B)), axes, ()
+        return build
+
+    def build_retrieval(mesh=None):
+        cfg = full
+        C = SHAPES["retrieval_cand"]["n_candidates"]
+        feats, faxes = _feat_specs(cfg, 1)
+        axes = (R.logical_axes(cfg), faxes, ("candidates",))
+        step = torch.no_grad()(functools.partial(R.retrieval_topk, cfg=cfg))
+        return step, (R.abstract_params(cfg), feats, _ids(C)), axes, ()
+
+    cells = {
+        "train_batch": Cell("train_batch", "train", build_train),
+        "serve_p99": Cell("serve_p99", "serve", build_serve(512)),
+        "serve_bulk": Cell("serve_bulk", "serve", build_serve(262_144)),
+        "retrieval_cand": Cell("retrieval_cand", "retrieval",
+                               build_retrieval),
+    }
+
     def smoke_run(cfg=None, device=None):
         cfg = cfg or smoke
         device = resolve_device(device)
@@ -104,8 +158,8 @@ def recsys_arch(arch_id: str, describe: str, full: R.TwoTowerConfig,
         B = shape["batch"]
         return 2.0 * B * (mlp_u + mlp_i + cfg.tower_mlp[-1])
 
-    return ArchSpec(arch_id, "recsys", describe, full, smoke, smoke_run,
-                    model_flops)
+    return ArchSpec(arch_id, "recsys", describe, full, smoke, cells,
+                    smoke_run, model_flops)
 
 
 TWO_TOWER = recsys_arch(

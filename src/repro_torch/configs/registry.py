@@ -1,7 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution over the archs the
-port trains: the five LM archs, the GNN family and the two-tower recsys
-model.  The JAX package's ``wcoj-subgraph`` (its dry-run cells) is not
-ported."""
+"""Architecture registry: ``--arch <id>`` resolution over the JAX
+package's archs: the five LM archs, the GNN family, the two-tower recsys
+model and ``wcoj-subgraph``, the paper's own workload."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -14,8 +13,10 @@ def _all() -> Dict[str, ArchSpec]:
     from repro_torch.configs.gnn_family import (EGNN, GAT_CORA, GATEDGCN,
                                                 GRAPHCAST)
     from repro_torch.configs.recsys_family import TWO_TOWER
+    from repro_torch.configs.wcoj import WCOJ
     specs = [lm.LLAMA4_SCOUT, lm.MIXTRAL_8X7B, lm.YI_34B, lm.GEMMA_7B,
-             lm.GEMMA2_2B, EGNN, GRAPHCAST, GATEDGCN, GAT_CORA, TWO_TOWER]
+             lm.GEMMA2_2B, EGNN, GRAPHCAST, GATEDGCN, GAT_CORA, TWO_TOWER,
+             WCOJ]
     return {s.arch_id: s for s in specs}
 
 

@@ -14,6 +14,12 @@ one counts under the kernel's ``_lex`` name.  The commit fold's worker axis
 (one launch over every shard of the mesh's store) counts under
 ``commit_fold_w`` and ``commit_fold_lex_w``.  ``segment_sum`` and
 ``flash_attention`` have one variant each, their own name.
+
+On ``meta`` tensors (``launch.dryrun``: shapes, no memory) the wrappers of
+``flash_attention`` and ``segment_sum`` launch nothing: they return empty
+outputs of the kernel's shapes, with the scratch the kernel allocates,
+and add the kernel's operation count (each module's ``kernel_ops``, the
+count ``chip_smoke.py``'s bound column uses) to :data:`META_OPS`.
 """
 from __future__ import annotations
 
@@ -47,3 +53,16 @@ def launches() -> Dict[str, int]:
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+# kernel operations of the calls made on meta tensors, by kernel
+META_OPS: Dict[str, int] = {"flash_attention": 0, "segment_sum": 0}
+
+
+def reset_meta_ops() -> None:
+    for name in META_OPS:
+        META_OPS[name] = 0
+
+
+def count_meta_ops(name: str, ops: int) -> None:
+    META_OPS[name] += int(ops)

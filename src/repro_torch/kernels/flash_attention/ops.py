@@ -15,14 +15,20 @@ Neither kernel has a backward, as the TPU kernel has none: a CUDA call
 whose inputs require grad raises.  Training attends as the JAX package's
 does, through ``models.transformer._attend``, which autograd
 differentiates; only prefill and decode run this kernel.
+
+On ``meta`` tensors (the dry run) a call takes the kernel's path up to
+the launch: its checks and route, its output and the decode split's
+partials, empty; then it adds :func:`kernel_ops` to
+``kernels.META_OPS``.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, count_meta_ops
 from repro_torch.kernels.flash_attention.ref import (DECODE_ROWS,
                                                      attention_ref, mha_ref,
                                                      split_plan)
@@ -44,7 +50,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention takes q [H, Sq, Dh] and k, v "
                          f"[H, Sk, Dh], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale,
                              q_offset=q_offset)
@@ -68,11 +74,31 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"[B, Sk, Hkv, Dh] with Hkv dividing Hq, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return mha_ref(q, k, v, causal=causal, window=window,
                        softcap=softcap, q_offset=q_offset)
     return _launch(q, k, v, causal, window, softcap,
                    1.0 / (q.shape[3] ** 0.5), q_offset)
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window: int,
+               q_offset: int) -> int:
+    """Live (query, key) pairs of one head: ``sq`` query rows at
+    positions q_offset.. over ``sk`` keys, causal or not, with a window
+    (0: none) that keeps keys after position - window."""
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(p, sk - 1) if causal else np.full_like(p, sk - 1)
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros_like(p)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def kernel_ops(q_shape, sk: int, causal: bool = True, window: int = 0,
+               q_offset: int = 0) -> int:
+    """Operations of one call on q [B, Sq, Hq, Dh] over ``sk`` keys: two
+    (multiply, add) pairs a live pair and head dimension, for q·k and
+    p·v."""
+    B, Sq, Hq, Dh = q_shape
+    return 4 * Dh * B * Hq * live_pairs(Sq, sk, causal, window, q_offset)
 
 
 def route(dtype: torch.dtype, rows: int, head_dim: int) -> str:
@@ -113,19 +139,35 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset, plan=None):
         raise ValueError(f"the flash-attention kernel takes q, k, v of one "
                          f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _build.require_cuda(q, k, v)
+    meta = q.is_meta
+    if meta:
+        if not (k.is_meta and v.is_meta):
+            raise ValueError("mixed meta and other operands to the "
+                             "flash-attention kernel")
+    else:
+        _build.require_cuda(q, k, v)
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if Sk < 1 or q_offset < 0 or window < 0 or softcap < 0:
         raise ValueError(f"Sk {Sk}, q_offset {q_offset}, window {window}, "
                          f"softcap {softcap}: the kernel takes Sk >= 1 and "
                          f"no negative offset, window or softcap")
-    for t in (q, k, v):
+    for t in () if meta else (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("the kernel takes 16-byte aligned tensors")
     way = route(q.dtype, Hq // Hkv * Sq, Dh)
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    if way == "decode":
+        kb, ke, chunk, splits = plan or split_plan(
+            Sq, Sk, causal, window, q_offset, B * Hkv)
+        rows = B * Hkv * splits * (Hq // Hkv) * Sq
+        ws = torch.empty(rows * (Dh + 2), dtype=torch.float32,
+                         device=q.device)
+    if meta:
+        count_meta_ops("flash_attention", kernel_ops(
+            tuple(q.shape), Sk, causal, window, q_offset))
         return out
     lib = _build.lib("flash_attention")
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -133,11 +175,6 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset, plan=None):
             int(bool(causal)), int(window), ctypes.c_float(softcap),
             ctypes.c_float(scale), int(q_offset))
     if way == "decode":
-        kb, ke, chunk, splits = plan or split_plan(
-            Sq, Sk, causal, window, q_offset, B * Hkv)
-        rows = B * Hkv * splits * (Hq // Hkv) * Sq
-        ws = torch.empty(rows * (Dh + 2), dtype=torch.float32,
-                         device=q.device)
         rc = lib.repro_flash_decode(
             *head, kb, ke, chunk, splits, ws.data_ptr(),
             ws.data_ptr() + 4 * rows, ws.data_ptr() + 8 * rows,

@@ -10,6 +10,11 @@ atomics, so two calls on one input give the same bits; it is bound by the
 bytes it moves (see the source note there).
 ``ref.segment_sum_ref`` is its plain version.
 
+On ``meta`` tensors (the dry run) a call takes the kernel's path up to
+the launch: the sort of unsorted ids, the cast, the scratch
+(:func:`scratch_words`) and the output, empty; then it adds
+:func:`kernel_ops` to ``kernels.META_OPS``.
+
 The op carries a gradient (:class:`_SegmentSum`): the backward of a
 segment sum is the gather ``grad_out[seg]`` (0 for dropped rows), plain
 PyTorch indexing, as the JAX package has no backward kernel for it.
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, count_meta_ops
 from repro_torch.kernels.segment_ops.ref import segment_sum_ref
 
 
@@ -29,7 +34,8 @@ def segment_sum(data: torch.Tensor, seg_ids: torch.Tensor,
     empty segments are 0 and ids outside [0, NS) are dropped (``NS`` is
     the padding sentinel).  ``is_sorted`` promises nondecreasing ids;
     otherwise a stable sort runs here, outside the kernel.  A CPU tensor
-    takes the plain version, a CUDA tensor the kernel."""
+    takes the plain version, a CUDA tensor the kernel, a meta tensor the
+    kernel's shapes and operation count."""
     if data.dim() != 2 or seg_ids.dim() != 1 \
             or seg_ids.shape[0] != data.shape[0]:
         raise ValueError(f"segment_sum takes data [E, D] and ids [E], got "
@@ -44,7 +50,7 @@ class _SegmentSum(torch.autograd.Function):
         ctx.save_for_backward(seg_ids)
         ctx.num_segments = num_segments
         ctx.dtype = data.dtype
-        if not data.is_cuda:
+        if not (data.is_cuda or data.is_meta):
             return segment_sum_ref(data, seg_ids, num_segments)
         seg = seg_ids.to(torch.int32)
         if not is_sorted:
@@ -72,16 +78,45 @@ def kernel_launches(E: int) -> int:
     return _build.lib("segment_sum").repro_segment_sum_launches(E)
 
 
+def kernel_ops(E: int, D: int) -> int:
+    """Operations of one call over ``E`` rows of width ``D``: an add an
+    element."""
+    return E * D
+
+
+def scratch_words(E: int, D: int) -> int:
+    """4-byte words of scratch a call over E rows of width D takes: D
+    floats and an int2 a slot, two slots a tile of 32 rows (at least
+    one tile) and two a group of 16 of those (``csrc/segment_sum.cu``'s
+    ``repro_segment_sum_scratch``, which the card's check holds equal)."""
+    m0 = 2 * max(-(-E // 32), 1)
+    m1 = 2 * -(-m0 // 16)
+    return (m0 + m1) * (D + 2)
+
+
 def _launch(data: torch.Tensor, seg: torch.Tensor, num_segments: int
             ) -> torch.Tensor:
     if data.dtype not in (torch.float32, torch.float16):
         data = data.to(torch.float32)
     data, seg = data.contiguous(), seg.contiguous()
-    _build.require_cuda(data, seg)
+    meta = data.is_meta
+    if meta:
+        if not seg.is_meta:
+            raise ValueError("mixed meta and other operands to the "
+                             "segment_sum kernel")
+    else:
+        _build.require_cuda(data, seg)
     E, D = data.shape
     if num_segments == 0 or D == 0:  # nothing to launch
         return torch.zeros((num_segments, D), dtype=torch.float32,
                            device=data.device)
+    if meta:
+        scratch = torch.empty(scratch_words(E, D), dtype=torch.int32,
+                              device=data.device)
+        out = torch.empty((num_segments, D), dtype=torch.float32,
+                          device=data.device)
+        count_meta_ops("segment_sum", kernel_ops(E, D))
+        return out
     lib = _build.lib("segment_sum")
     scratch = torch.empty(lib.repro_segment_sum_scratch(E, D),
                           dtype=torch.int32, device=data.device)

@@ -5,7 +5,10 @@ The JAX package's ``launch/train.py`` on the card.  The LM family
 (:func:`train_lm`) trains the smoke config (``--full``: the assigned
 one) on ``TokenStream`` batches with checkpoint/restart, logging tok/s.
 A recsys arch (``two-tower-retrieval``) runs its smoke config's
-``smoke_run`` (three steps and a retrieval), as the JAX package does.
+``smoke_run`` (three steps and a retrieval), as the JAX package does, and
+so does ``wcoj-subgraph`` (the distributed triangle count of an R-MAT
+scale-9 graph on one worker, held to Generic Join's); the driver prints
+the smoke run's metrics and the kernel launches it made.
 The GNN family:
   * motif features — per-vertex triangle counts from the port's BiGJoin
     (on the card), appended to the node features;
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import tempfile
 import time
@@ -194,7 +198,11 @@ def main(argv=None, device=None):
     elif spec.family == "gnn":
         loss = train_gnn(spec, args, device)
     else:
+        from repro_torch import kernels
+        kernels.reset_launches()
         m = spec.smoke_run(spec.smoke_config, device=device)
+        print(f"smoke {json.dumps(m)} launches "
+              f"{json.dumps(kernels.launches())}", flush=True)
         loss = m.get("loss_last", 0.0)
     print(f"final loss {loss:.4f}")
     return loss

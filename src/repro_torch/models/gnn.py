@@ -132,17 +132,27 @@ def _leaves(tree):
     return [x for v in tree.values() for x in _leaves(v)]
 
 
+def abstract_params(cfg: GNNConfig) -> "GNN":
+    """The model of ``cfg`` on ``meta``: shapes and dtypes, no memory."""
+    return GNN(cfg, device="meta")
+
+
 class GNN(nn.Module):
     """One GNN of :class:`GNNConfig` on ``device`` (``None``: the card; see
-    ``csr.resolve_device``), parameters drawn from ``seed``."""
+    ``csr.resolve_device``), parameters drawn from ``seed`` (on ``meta``:
+    shapes and dtypes, nothing drawn)."""
 
     def __init__(self, cfg: GNNConfig, *, seed: int = 0, device=None):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
-        for name, tree in init(torch.Generator().manual_seed(seed),
-                               cfg).items():
-            self.add_module(name, L.ParamTree(tree))
+        if device.type == "meta":  # shapes only: nothing is drawn
+            with torch.device("meta"):
+                tree = init(torch.Generator(), cfg)
+        else:
+            tree = init(torch.Generator().manual_seed(seed), cfg)
+        for name, sub in tree.items():
+            self.add_module(name, L.ParamTree(sub))
         self.to(device)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -65,9 +65,23 @@ class TwoTowerConfig:
 
 def init(cfg: TwoTowerConfig, seed: int = 0, device=None) -> Params:
     """The parameters of ``cfg`` on ``device`` (``None``: the card, see
-    ``csr.resolve_device``), drawn there from ``seed``."""
+    ``csr.resolve_device``), drawn there from ``seed`` (on ``meta``:
+    shapes and dtypes, nothing drawn)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    if device.type == "meta":
+        with torch.device("meta"):
+            return _tree(cfg, torch.Generator(), device)
+    return _tree(cfg, torch.Generator(device=device).manual_seed(seed),
+                 device)
+
+
+def abstract_params(cfg: TwoTowerConfig) -> Params:
+    """The parameters of ``cfg`` on ``meta``: shapes and dtypes, no
+    memory."""
+    return init(cfg, device="meta")
+
+
+def _tree(cfg: TwoTowerConfig, gen: torch.Generator, device) -> Params:
     pd = cfg.param_dtype
 
     def mlp(din):
@@ -86,6 +100,19 @@ def init(cfg: TwoTowerConfig, seed: int = 0, device=None) -> Params:
     tree["user_mlp"] = mlp(cfg.embed_dim * len(cfg.user_tables))
     tree["item_mlp"] = mlp(cfg.embed_dim)
     return L.ParamTree(tree)
+
+
+def logical_axes(cfg: TwoTowerConfig) -> Dict:
+    """Each parameter's logical axis names, by the parameter tree's names
+    (the JAX package's table: the embedding tables row-sharded, the towers'
+    hidden dims over ``mlp``)."""
+    ax: Dict = {"tables": {name: ("table_rows", None)
+                           for name, _ in cfg.user_tables},
+                "item_table": ("table_rows", None)}
+    for tower in ("user_mlp", "item_mlp"):
+        ax[tower] = {str(i): {"w": (None, "mlp"), "b": ("mlp",)}
+                     for i in range(len(cfg.tower_mlp))}
+    return ax
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,11 @@ wo, w_in, w_out}`` and, for MoE, ``router`` with experts' ``w_in``
 ``[L, E, d, 2ff]`` and ``w_out`` ``[L, E, ff, d]``); the layer stack is a
 Python loop with each layer's window from ``cfg.layer_windows()``.
 ``logical_axes`` and ``cache_logical_axes`` are the JAX package's
-sharding metadata as plain data (``distributed.sharding`` maps them).
+sharding metadata as plain data (``distributed.sharding`` maps them);
+``abstract_params`` and ``abstract_cache`` are the model and cache on
+``meta`` that the dry run's cells take.  The JAX package's
+``gather_fsdp`` is not ported: it only places ``with_sharding_constraint``
+hints for XLA, and eager PyTorch in one process has nothing to hint.
 """
 from __future__ import annotations
 
@@ -75,6 +79,14 @@ class TransformerConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if no layer attends over unbounded context with full
+        attention alone (a window, or local layers between global ones):
+        the long_500k cell runs only for these."""
+        return bool(self.window > 0 and self.local_global_period == 0) or \
+            self.local_global_period > 0
+
     def layer_windows(self) -> np.ndarray:
         """Per-layer attention window (0 = full attention)."""
         if self.local_global_period > 0:
@@ -108,11 +120,13 @@ class TransformerConfig:
 # ---------------------------------------------------------------------------
 
 def init(gen: torch.Generator, cfg: TransformerConfig) -> Params:
-    """The parameter tree, drawn from ``gen`` on its device."""
+    """The parameter tree, drawn from ``gen`` on its device (a host
+    generator's on the current default device, as ``layers.he_init``
+    draws: under ``torch.device("meta")``, shapes only)."""
     Lr, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim
     H, K, ff, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab
     pd = cfg.param_dtype
-    dev = gen.device
+    dev = gen.device if gen.device.type != "cpu" else None
 
     def li(shape, fan_in):
         return L.he_init(gen, (Lr,) + shape, pd, fan_in)
@@ -179,18 +193,29 @@ def cache_logical_axes(cfg: TransformerConfig, shard_seq: bool = True):
     return {"k": ax, "v": ax}
 
 
+def abstract_params(cfg: TransformerConfig) -> "Transformer":
+    """The model of ``cfg`` on ``meta``: every parameter's shape and dtype,
+    no memory (the JAX package's ``eval_shape`` of ``init``)."""
+    return Transformer(cfg, device="meta")
+
+
 class Transformer(nn.Module):
     """One transformer of :class:`TransformerConfig` on ``device``
     (``None``: the card; see ``csr.resolve_device``), parameters drawn on
-    that device from ``seed``.  The passes below read the model's own
-    ``cfg``."""
+    that device from ``seed`` (on ``meta``: shapes and dtypes, nothing
+    drawn).  The passes below read the model's own ``cfg``."""
 
     def __init__(self, cfg: TransformerConfig, seed: int = 0, device=None):
         super().__init__()
         self.cfg = cfg
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(seed)
-        tree = init(gen, cfg)
+        device = resolve_device(device)
+        if device.type == "meta":
+            with torch.device("meta"):
+                tree = init(torch.Generator(), cfg)
+        else:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            tree = init(gen, cfg)
         self.register_parameter("embed", nn.Parameter(tree["embed"]))
         self.register_parameter("final_norm",
                                 nn.Parameter(tree["final_norm"]))
@@ -317,9 +342,12 @@ def _moe_mlp(x2d: torch.Tensor, lp, cfg: TransformerConfig):
     contrib = torch.where(kept[:, None], contrib, 0.0)
     out = x2d.new_zeros((T, d)).index_add(
         0, src, contrib * r["wts"][order][:, None].to(x2d.dtype))
-    # load-balance aux loss (Switch-style)
-    frac = torch.bincount(r["ids"], minlength=E).to(torch.float32) \
-        / (T * k)
+    # load-balance aux loss (Switch-style); each expert's assignments
+    # counted by a scatter-add (``bincount``'s, with a shape that does not
+    # depend on the ids, so it runs on meta)
+    ids = r["ids"]
+    counts = ids.new_zeros(E).scatter_add_(0, ids, torch.ones_like(ids))
+    frac = counts.to(torch.float32) / (T * k)
     aux = E * torch.sum(frac * r["probs"].mean(0))
     return out, aux
 
@@ -443,6 +471,12 @@ def make_cache(cfg: TransformerConfig, batch: int, max_seq: int,
     dtype = dtype or cfg.act_dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def abstract_cache(cfg: TransformerConfig, batch: int, max_seq: int
+                   ) -> Dict[str, torch.Tensor]:
+    """:func:`make_cache`'s k/v on ``meta``: shapes and dtypes only."""
+    return make_cache(cfg, batch, max_seq, device="meta")
 
 
 @torch.no_grad()

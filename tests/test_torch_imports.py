@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.recsys",
             "repro_torch.configs.recsys_family",
             "repro_torch.distributed.sharding",
-            "repro_torch.distributed.collectives"} <= set(MODULES)
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.dryrun",
+            "repro_torch.configs.wcoj"} <= set(MODULES)
     code = (
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}:\n"
