@@ -4,7 +4,7 @@
 Phases, each printed with its result and seconds.  They run in this
 order: 1 and 2; then 11, 13-17 and phase 20's card cells, which need no
 graph, while the R-MAT graphs are made on the host (``graph`` waits for
-what is left); then 3-10, 12, 18 and 19:
+what is left); then 3-10, 12, 18 and 19 (21 only with ``--ranks-only``):
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
 2. build    — compile the CUDA kernels from ``src/repro_torch/csrc`` (the
@@ -59,7 +59,17 @@ what is left); then 3-10, 12, 18 and 19:
               --verify``, ``_serve_check --workers 4 --chaos`` with
               ``dist.program`` faults), and phase 20's wcoj smoke run,
               each a process that must exit 0
-              with its exact line: each epoch's
+              with its exact line; the mesh across processes at a small
+              size (a uniform graph of 16,384 edges, w = 4, B' 1,024):
+              ``_dist_check`` plain and ``--balance`` and
+              ``_delta_dist_check`` (4 epochs) as one process and as R =
+              2 and R = 4 ranks (see 21), a case at a time in a thread,
+              each ranked run held field for field to the one process
+              (count, counters, steps, loads, the tuples in worker order,
+              each epoch's signed delta), each rank's device bytes 1/R of
+              its, each rank's launches of the case's kernels, a ``mesh
+              ranks:`` line a run (bytes and exchange ms a step, not
+              compared: they share the host with the cells); each epoch's
               signed delta equal to the numpy oracle (full
               recomputation), compaction included.  A cell
               naming an n-ary query (``4-clique-tri``, ``5-clique-quad``)
@@ -206,12 +216,34 @@ what is left); then 3-10, 12, 18 and 19:
               counter's, the allocator's peak beyond the arguments within
               64 MiB + 2 % of the meta peak; and segment_sum's scratch
               size against the library's.
+21. mesh ranks (``--ranks-only``: the build, then this phase; not in the
+              default run, whose limit has no room for its 220-330 s) —
+              the mesh across processes, each run alone on the card and
+              the host: ``_dist_check`` (the triangle join of the
+              mesh phase's scale-14 graph at its B' of 65,536 a worker,
+              its 4,506,715 tuples collected) and ``_delta_dist_check``
+              (4 epochs of 2,048 updates on that graph, B' 512) at w = 4,
+              as one process on the card, then as R = 2 and R = 4 ranks
+              of ``torch.distributed`` under ``torch.distributed.run``
+              (gloo, every rank on the card; NCCL, one rank a card, where
+              the machine has two cards or more); the one process's count
+              and tuples held to Generic Join's, each ranked run field for
+              field to it (count, counters, steps, loads, the tuples in
+              worker order, each epoch's signed delta), each rank's device
+              bytes of index and store 1/R of its, each rank's launches of
+              the case's kernels; a ``mesh ranks:`` line a run gives the
+              bytes a rank sends and the exchange's ms a step (an epoch),
+              the seconds to the count (of the epochs) against one process
+              and the exchange's share of them, every exchange timed
+              between two device synchronisations in every run, one
+              process's included.
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  Needs one CUDA device; run from the
-repository root: ``python3 chip_smoke.py [--serve 16:triangle,diamond@10]``.
+repository root: ``python3 chip_smoke.py [--serve 16:triangle,diamond@10]``;
+``--ranks-only`` runs the build and phase 21 alone, and no result line.
 """
 from __future__ import annotations
 
@@ -221,6 +253,7 @@ import contextlib
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -2461,10 +2494,14 @@ def require_apply_thread(by_thread: dict) -> None:
 
 
 def start_children(root: str, children=POOL_CHILDREN, **env_vars) -> dict:
+    """Start ``python -m module args`` for every child, each in a session
+    of its own, so that :func:`finish_children` ends the processes a
+    child starts (``torch.distributed.run``'s ranks) with it."""
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), **env_vars)
     return {label: (time.time(), subprocess.Popen(
         [sys.executable, "-m", module] + args, env=env, cwd=root,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True))
         for label, module, args, _ in children}
 
 
@@ -2500,9 +2537,9 @@ def finish_children(procs: dict, children=POOL_CHILDREN,
                 log(f"    stderr: {err[-2000:]}")
     finally:
         for _, p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
     if bad:
         raise AssertionError(f"{what} children failed: {bad}")
     return secs
@@ -3630,6 +3667,189 @@ MESH_CHILDREN = (
       "--faults", "dist.program@3,dist.program@11,store.commit.fold@6"],
      '"oracle_exact": true'),
 )
+
+
+# the mesh across processes: each harness as one process on the card and as
+# R ranks of torch.distributed on the card (python -m torch.distributed.run);
+# (case, module, arguments, what a passing run prints).  RANK_PARITY runs
+# beside the verify cells at a small size, a case at a time, and its times
+# are not compared.  RANK_TIMED is phase 21 (``--ranks-only``): each run
+# alone at the mesh phase's count size and the mesh stream's update batch;
+# the one process's count and tuples are held to Generic Join's, and the
+# ranked runs skip that oracle and are held to the one process's line, as
+# are the delta's (an epoch's full recomputation on the host takes ~10 s
+# at this size).  It takes 220-330 s, which the default run's 1,200 s
+# limit has no room for on a slow host.
+RANK_W = 4
+RANK_SMALL = ["--workers", str(RANK_W), "--nv", "2048", "--ne", "16384",
+              "--batch", "1024"]
+RANK_PARITY = (
+    ("dist", "repro_torch.core._dist_check",
+     RANK_SMALL + ["--route-capacity", "1024"], '"dist_count"'),
+    ("dist balance", "repro_torch.core._dist_check",
+     RANK_SMALL + ["--route-capacity", "1024", "--balance"],
+     '"dist_count"'),
+    ("delta", "repro_torch.core._delta_dist_check",
+     RANK_SMALL + ["--batches", "4", "--batch-size", "1024"], '"epochs"'),
+)
+RANK_TIMED = (
+    ("dist", "repro_torch.core._dist_check",
+     ["--workers", str(RANK_W), "--rmat-scale", str(MESH_SCALE), "--batch",
+      str(MESH_BATCH), "--route-capacity",
+      str(max(4 * MESH_BATCH // RANK_W, 64)), "--out-capacity",
+      str(1 << 22)], '"dist_count"'),
+    ("delta", "repro_torch.core._delta_dist_check",
+     ["--workers", str(RANK_W), "--rmat-scale", str(MESH_SCALE),
+      "--batches", "4", "--batch-size", str(REAL_BATCH), "--batch", "512",
+      "--no-check"], '"epochs"'),
+)
+
+
+def rank_children(cases, cards: int):
+    """The runs of ``cases`` in order, each a child of
+    :func:`start_children` with its (case, ranks, backend): every case as
+    one process, then as R = 2 and R = 4 gloo ranks; NCCL (one rank a
+    card) where there are two cards or more."""
+    meshes = [(2, "gloo"), (4, "gloo")] + [
+        (r, "nccl") for r in (2, 4) if cards >= r]
+    out = []
+    for case, module, args, mark in cases:
+        out.append(((f"{case} one process", module, args, mark),
+                    (case, 1, None)))
+        extra = [] if "--no-check" in args else ["--no-check"]
+        for ranks, backend in meshes:
+            out.append(((f"{case} R={ranks} {backend}",
+                         "torch.distributed.run",
+                         ["--standalone", "--nproc-per-node", str(ranks),
+                          "-m", module] + args + extra
+                         + ["--backend", backend], mark),
+                        (case, ranks, backend)))
+    return out
+
+
+def start_ranks(root: str, runs) -> dict:
+    # one host thread a process, as torch.distributed.run gives a rank
+    return start_children(root, [child for child, _ in runs],
+                          OMP_NUM_THREADS="1")
+
+
+def finish_rank_runs(procs: dict, runs) -> dict:
+    """Wait for ``runs`` (started by :func:`start_ranks`): label -> (case,
+    ranks, backend, rank 0's line, seconds)."""
+    outs = {}
+    secs = finish_children(procs, [child for child, _ in runs],
+                           "mesh ranks", outs)
+    got = {}
+    for (label, *_), meta in runs:
+        lines = [ln for ln in outs[label].splitlines() if ln.startswith("{")]
+        if len(lines) != 1:
+            raise AssertionError(f"mesh ranks: {label} printed "
+                                 f"{len(lines)} lines, not one")
+        got[label] = meta + (json.loads(lines[0]), secs[label])
+    return got
+
+
+DIST_FIELDS = ("dist_count", "proposals", "intersections", "steps",
+               "max_load", "mean_load", "worker_rows", "tuples_sha")
+# the kernels each case must launch on every rank: the services'
+# membership kernel, and the store's commit fold over the worker axis
+RANK_KERNELS = {"dist": ("signed_member",),
+                "dist balance": ("signed_member",),
+                "delta": ("signed_member", "commit_fold_w")}
+
+
+def parity_runs(root: str, cards: int) -> dict:
+    """``RANK_PARITY``'s runs, a case at a time: its one process and its
+    ranks at once."""
+    runs = {}
+    for case in RANK_PARITY:
+        group = rank_children((case,), cards)
+        runs.update(finish_rank_runs(start_ranks(root, group), group))
+    return runs
+
+
+def ranks_only() -> int:
+    """``--ranks-only``: the build, then phase 21."""
+    import torch
+    from repro_torch.kernels import _build
+    with phase("build"):
+        _build.build(force=True)
+    with phase("mesh ranks"):
+        ranks_phase(os.path.dirname(os.path.abspath(__file__)),
+                    torch.cuda.device_count())
+    return 0
+
+
+def ranks_phase(root: str, cards: int) -> dict:
+    """Every run of ``RANK_TIMED``, one at a time with nothing beside
+    it, held by :func:`finish_ranks`."""
+    runs = {}
+    for run in rank_children(RANK_TIMED, cards):
+        runs.update(finish_rank_runs(start_ranks(root, [run]), [run]))
+    return finish_ranks(runs, cards, timed=True)
+
+
+def finish_ranks(runs: dict, cards: int, timed: bool) -> dict:
+    """Hold every rank run to its one-process run on the card and print
+    a ``mesh ranks:`` line for each, the card's name and power limit
+    beside its numbers (the times only when the runs were ``timed``:
+    alone).  Every rank of a run must have launched its case's kernels
+    (``RANK_KERNELS``, counted in the harnesses' measured runs).  Returns
+    the launches of every run, summed over its ranks."""
+    smi = nvidia_smi_line()
+    total = {}
+    for label, (case, ranks, _b, rec, _s) in runs.items():
+        got = rec["launches"]
+        if any(len(got.get(k, [])) != ranks or min(got[k]) < 1
+               for k in RANK_KERNELS[case]):
+            raise AssertionError(f"mesh ranks: {label} launched {got}, not "
+                                 f"{RANK_KERNELS[case]} on every rank")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + sum(v)
+    for label, (case, ranks, backend, rec, secs) in runs.items():
+        one = runs[f"{case} one process"][3]
+        if case == "delta":
+            got = [(e["count_delta"], e["sha"]) for e in rec["epochs"]]
+            want = [(e["count_delta"], e["sha"]) for e in one["epochs"]]
+            unit, per, nbytes, what, n = "epoch", "an epoch", \
+                "store_bytes", "store", len(rec["epochs"])
+            t, t1 = (sum(e["elapsed_s"] for e in r["epochs"])
+                     for r in (rec, one))
+        else:
+            got = [rec[f] for f in DIST_FIELDS]
+            want = [one[f] for f in DIST_FIELDS]
+            unit, per, nbytes, what, n = "step", "a step", "index_bytes", \
+                "index", max(rec["steps"], 1)
+            t, t1 = rec["warm_s"], one["warm_s"]
+        if got != want:
+            raise AssertionError(f"mesh ranks: {label} differs from one "
+                                 f"process: {got} against {want}")
+        one_total = one[nbytes][0]
+        if any(b * ranks != one_total for b in rec[nbytes]):
+            raise AssertionError(f"mesh ranks: {label} {what} bytes "
+                                 f"{rec[nbytes]} are not 1/{ranks} of one "
+                                 f"process's {one_total}")
+        ms = rec[f"exchange_ms_per_{unit}"]
+        line = (f"  mesh ranks: R={ranks} w={rec['workers']} "
+                f"{backend or 'one process'} {case}: "
+                f"{'' if ranks == 1 else 'equal to one process; '}"
+                f"exchange bytes a rank {per} "
+                f"{rec[f'exchange_bytes_per_{unit}']}, exchange ms {per} "
+                f"{[round(x, 3) for x in ms]}, {what} bytes a rank "
+                f"{rec[nbytes]} of {one_total}, launches a rank "
+                f"{rec['launches']}")
+        if timed:
+            line += (f", {'epochs' if unit == 'epoch' else 'count'} in "
+                     f"{t:.3f} s against {t1:.3f} s in one process, the "
+                     f"exchange's share {max(ms) * n / 1e3 / t:.3f} "
+                     f"(slowest rank); {secs:.2f} s of process")
+        else:
+            line += " (beside the verify cells: times not compared)"
+        log(f"{line}; {smi}")
+    if cards < 2:
+        log(f"  mesh ranks: NCCL not run: this machine has {cards} card, "
+            f"and NCCL puts at most one rank on a card; {smi}")
+    return total
 
 
 def folds_of(store, res) -> int:
@@ -5372,6 +5592,10 @@ def main() -> int:
                     "tensors (no card needed) and print them as one JSON "
                     "line (the main run starts one such process beside "
                     "the verify cells)")
+    ap.add_argument("--ranks-only", action="store_true",
+                    help="only build the kernels and run phase 21, the mesh "
+                    "across processes at size, each run alone (no result "
+                    "line; ~5 min)")
     ap.add_argument("--graph-check", action="store_true",
                     help="only capture fused extend and merge ranks in a "
                     "CUDA graph and hold the replay to eager calls (the "
@@ -5401,6 +5625,8 @@ def main() -> int:
         return graph_check(args.seed)
     if args.verify_only:
         return verify_only(checks, args.update_batch, args.seed)
+    if args.ranks_only:
+        return ranks_only()
     # f32 matmuls in full f32 (the defaults, stated): the train phases
     # hold the card's steps to the host's
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5488,12 +5714,19 @@ def main() -> int:
         # seconds share the host with the cells)
         coverage = start_coverage()
         mesh_children = start_children(root, MESH_CHILDREN)
+        parity = ThreadPoolExecutor(1)
+        cards = torch.cuda.device_count()
+        ranked = parity.submit(parity_runs, root, cards)
         dry.update(start_children(root, WCOJ_CHILDREN))
         counts = verify_cells(
             checks, args.update_batch, args.seed,
             meanwhile=lambda: relation_rows(tri_edges, "tri", built))
         finish_coverage(coverage)
         finish_children(mesh_children, MESH_CHILDREN, "mesh")
+        parity.shutdown()
+        for name, n in finish_ranks(ranked.result(), cards,
+                                    timed=False).items():
+            launches[name] += n
         wcoj = finish_dryrun(root, dry)
         for name in VARIANTS:
             launches[name] += counts[name] + wcoj[name]

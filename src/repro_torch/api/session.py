@@ -12,7 +12,11 @@ caller asks for the CPU, where every kernel wrapper takes its plain
 version.  A session is local (one device's engine) or a mesh session: w
 workers as a leading tensor axis on the session's device, every region
 hash-sharded over them and every query a
-:class:`~repro_torch.core.distributed.DistDeltaBigJoin`.  An update is a
+:class:`~repro_torch.core.distributed.DistDeltaBigJoin`.  A mesh of R
+ranks (``launch.mesh.init_rank_mesh``) spreads the w workers over R
+processes: each rank builds the session with the same arguments and
+makes the same calls, holds its workers' shards, and reads the whole
+mesh's answer from ``count()`` and ``update()``.  An update is a
 transaction (a failure rolls the store back to the epoch boundary), and
 :meth:`GraphSession.snapshot` / :meth:`GraphSession.restore` carry a
 session's state in the JAX package's snapshot format, either way.
@@ -219,7 +223,7 @@ class GraphSession:
         self.update_batch = update_batch
         self.store = _delta.RegionStore(
             initial_edges, shard_w=0 if self.local else self.w,
-            compact_ratio=compact_ratio, device=self.device)
+            compact_ratio=compact_ratio, device=self.device, mesh=self.mesh)
         self.handles: Dict[str, QueryHandle] = {}
         self.epoch = 0
         self._static_plans: Dict[Query, Plan] = {}
@@ -397,7 +401,8 @@ class GraphSession:
         epoch counter, the mesh width ``w`` and ``local``, and every handle
         (its DSL pattern and ``net_change``) — the JAX session's format.
         Save it with ``repro_torch.checkpoint.save_pytree(leaves, ...,
-        extra=meta)``."""
+        extra=meta)``.  A session on a mesh of ranks raises
+        ``NotImplementedError``."""
         leaves, meta = self.store.snapshot()
         meta["session"] = {
             "epoch": int(self.epoch),
@@ -415,7 +420,9 @@ class GraphSession:
         same mesh width and mode) in place: the store's regions and
         ratchet marks, then the epoch and every handle, re-registered from
         its pattern with its ``net_change``.  A handle already registered
-        under the same name keeps its object and subscribers."""
+        under the same name keeps its object and subscribers.  A session
+        on a mesh of ranks raises ``NotImplementedError``."""
+        self.store._one_process("restore")
         sess = meta.get("session", {})
         w = int(sess.get("w", self.w))
         if w != self.w:

@@ -26,6 +26,7 @@ from repro_torch.core.dataflow_index import VersionedIndex
 from repro_torch.core.distributed import DistConfig, build_per_worker
 from repro_torch.core.plan import make_delta_plan, make_plan
 from repro_torch.core.query import delta_queries
+from repro_torch.launch.mesh import WorkerMesh
 
 SHAPES = {
     # IN = edge count; B' = per-worker proposal budget
@@ -89,7 +90,8 @@ def _build_cell(shape: Dict):
         # signed seed weights: all ones for static joins, ±1 for dR seeds
         args = (indices, _meta(w, S, 2), _meta(w), _meta(w, S))
         axes = (("workers",),) * 4
-        return build_per_worker(plan, dcfg), args, axes, ()
+        return build_per_worker(plan, dcfg, mesh=WorkerMesh(w, "meta")), \
+            args, axes, ()
     return build
 
 

@@ -13,11 +13,17 @@ signed triangle delta to ``tri``; the 4-clique-tri output delta must
 equal the edge-only 4-clique delta BIT FOR BIT (signed tuple sets, not
 counts).  Prints one JSON line: per-epoch wall times, exactness, the
 shards' live entries; exits 0 only when every epoch is exact.
+
+With ``--backend gloo|nccl`` it is one rank of a mesh of R processes
+(under ``python -m torch.distributed.run --nproc-per-node R``): rank 0
+prints the line, and every rank exits non-zero on a mismatch.
 """
 import sys
 
 if __name__ == "__main__":
     import argparse
+
+    from repro_torch.launch.mesh import BACKENDS
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--workers", type=int, default=4)
@@ -33,7 +39,12 @@ if __name__ == "__main__":
     ap.add_argument("--device", default=None,
                     help="device of the workers (default: the card; cpu: "
                     "the plain versions)")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="run as one rank of a mesh over torch.distributed "
+                    "(under python -m torch.distributed.run)")
     args = ap.parse_args()
+    if args.backend and args.local:
+        ap.error("--local is one process: it takes no --backend")
 
     import json
     import time
@@ -42,16 +53,23 @@ if __name__ == "__main__":
 
     from repro_torch.api import (GraphSession, canon_signed as canon,
                                  oracle_count)
+    from repro_torch.core.exchange import per_rank
     from repro_torch.data.synthetic import EdgeUpdateStream, uniform_graph
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import (close_rank_mesh, init_rank_mesh,
+                                         make_host_mesh)
 
     e = uniform_graph(args.nv, args.ne, args.seed)
+    mesh = None
+    if args.backend:
+        mesh = init_rank_mesh(args.workers, args.backend, args.device)
+    elif not args.local:
+        mesh = make_host_mesh(args.workers, args.device)
     session = GraphSession(
-        e, device=args.device,
-        mesh=None if args.local else make_host_mesh(args.workers,
-                                                    args.device),
+        e, device=args.device, mesh=mesh,
         batch=args.batch, out_capacity=1 << 18,
         update_batch=args.batch_size)
+    # the local session's one process, for the per-rank readings below
+    mesh = session.mesh or make_host_mesh(1, session.device)
     tri = session.register("triangle")
     c4 = session.register("4-clique")
     tri0, _ = tri.enumerate()
@@ -89,9 +107,10 @@ if __name__ == "__main__":
                  oracle_count("4-clique", session.edges)
                  - oracle_count("4-clique", e))
     all_exact = all_exact and bool(net_exact)
-    shard_entries = sum(
+    shard_entries = sum(per_rank(sum(
         reg.versioned("new").live_entries()
-        for reg in session.store.projections.values() if not reg.derived)
+        for reg in session.store.projections.values() if not reg.derived),
+        mesh))
     out = {
         "workers": args.workers, "device": str(session.device),
         "mode": "local" if args.local else "dist",
@@ -107,5 +126,7 @@ if __name__ == "__main__":
                                   1e-9), 2) if len(epochs) > 2 else None,
         "epochs": epochs,
     }
-    print(json.dumps(out))
+    if mesh.rank == 0:
+        print(json.dumps(out))
+    close_rank_mesh()
     sys.exit(0 if all_exact else 1)

@@ -20,8 +20,9 @@ before prefixes), which bounds the piece queue at one round's worth:
 w · (B'//w + 2).  Signed seed weights travel inside each quadruple, so
 the same machinery serves signed delta seeds.
 
-As in ``core.distributed``, the workers are the leading [w] axis of every
-tensor, and the exchange of the pieces is ``distributed.all_to_all``.
+As in ``core.distributed``, a rank's workers are the leading [wl] axis of
+every tensor, chunk j names global worker j, and the exchange of the
+pieces is ``exchange.all_to_all`` over the mesh.
 """
 from __future__ import annotations
 
@@ -35,23 +36,24 @@ from repro_torch.core.distributed import (DistConfig, DistState, _append,
                                           _budget, _clip, _emit, _expand,
                                           _propose_intersect,
                                           _remote_counts, _retire, _rows,
-                                          _segment_min, _window, INF,
-                                          all_to_all)
+                                          _segment_min, _window, INF)
+from repro_torch.core.exchange import all_to_all
 from repro_torch.core.plan import Plan
 from repro_torch.errors import OVF_PIECE
+from repro_torch.launch.mesh import WorkerMesh
 
 
 @dataclasses.dataclass
 class PieceQueue:
     """(p, min-i, [kcur, kend), weight) quadruples of one level, every
-    field with a leading [w] worker axis."""
+    field with a leading [wl] axis of the rank's workers."""
 
-    prefix: torch.Tensor  # [w, cap, width] int32
-    mini: torch.Tensor  # [w, cap] int32
-    kcur: torch.Tensor  # [w, cap] int32
-    kend: torch.Tensor  # [w, cap] int32
-    weight: torch.Tensor  # [w, cap] int32
-    size: torch.Tensor  # [w] int32
+    prefix: torch.Tensor  # [wl, cap, width] int32
+    mini: torch.Tensor  # [wl, cap] int32
+    kcur: torch.Tensor  # [wl, cap] int32
+    kend: torch.Tensor  # [wl, cap] int32
+    weight: torch.Tensor  # [wl, cap] int32
+    size: torch.Tensor  # [wl] int32
 
 
 def piece_caps(dcfg: DistConfig) -> Tuple[int, int]:
@@ -61,13 +63,13 @@ def piece_caps(dcfg: DistConfig) -> Tuple[int, int]:
     return cap_pair, 2 * w * cap_pair
 
 
-def make_piece_queues(plan: Plan, dcfg: DistConfig, device
+def make_piece_queues(plan: Plan, dcfg: DistConfig, device, wl: int
                       ) -> Tuple[PieceQueue, ...]:
+    """Empty piece queues of ``wl`` workers (a rank's)."""
     _, qcap = piece_caps(dcfg)
-    w = dcfg.num_workers
 
     def zeros(*shape):
-        return torch.zeros((w,) + shape, dtype=torch.int32, device=device)
+        return torch.zeros((wl,) + shape, dtype=torch.int32, device=device)
 
     return tuple(
         PieceQueue(zeros(qcap, len(lv.bound_attrs)), zeros(qcap),
@@ -75,18 +77,20 @@ def make_piece_queues(plan: Plan, dcfg: DistConfig, device
         for lv in plan.levels)
 
 
-def _exchange(x: torch.Tensor) -> torch.Tensor:
-    """[w_src, w_dst, cap_pair, ...] pieces -> [w_dst, w_src, cap_pair,
-    ...] received ones, through ``distributed.all_to_all``."""
-    w = x.shape[0]
-    return all_to_all(x.reshape((w, -1) + x.shape[3:])).reshape(x.shape)
+def _exchange(x: torch.Tensor, mesh: WorkerMesh) -> torch.Tensor:
+    """[wl_src, w_dst, cap_pair, ...] pieces -> [wl_dst, w_src, cap_pair,
+    ...] received ones, through ``exchange.all_to_all``."""
+    wl = x.shape[0]
+    return all_to_all(x.reshape((wl, -1) + x.shape[3:]), mesh) \
+        .reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
 # prefix branch with Balance (replaces proposal/intersect by piece routing)
 # ---------------------------------------------------------------------------
 
-def _build_balance_prefix_branch(plan: Plan, dcfg: DistConfig, li: int):
+def _build_balance_prefix_branch(plan: Plan, dcfg: DistConfig, li: int,
+                                 mesh: WorkerMesh):
     lv = plan.levels[li]
     w, B = dcfg.num_workers, dcfg.base.batch
     cap_pair, _ = piece_caps(dcfg)
@@ -96,20 +100,22 @@ def _build_balance_prefix_branch(plan: Plan, dcfg: DistConfig, li: int):
         state, pieces = carry
         qu = state.queues[li]
         dev = qu.prefix.device
+        wl = qu.prefix.shape[0]
         W, (wprefix, wk, wweight), valid = _window(
             [qu.prefix, qu.k, qu.weight], qu.size, B)
 
         # remote count minimization (identical to the unbalanced branch)
         _, min_i, min_c, count_ok, recv_load = _remote_counts(
-            lv, dcfg, indices, wprefix, valid, state.recv_load)
+            lv, dcfg, indices, wprefix, valid, state.recv_load, mesh)
         remaining = torch.where(valid & count_ok,
                                 torch.clamp(min_c - wk, min=0), 0)
         allowed, aacum = _budget(remaining, B)  # end offsets
         loff = aacum - allowed  # start offsets
-        T_l = aacum[:, -1:]  # [w, 1]
+        T_l = aacum[:, -1:]  # [wl, 1]
         C = (T_l + w - 1) // w  # my chunk size (work per receiver)
 
-        # ---- Balance (§3.4.2): chunk j of my work goes to worker j ------
+        # ---- Balance (§3.4.2): chunk j of my work goes to (global)
+        # worker j ----------------------------------------------------------
         # A chunk of C units covers at most C + 1 rows WITH work; rows
         # without any (no extension, deferred counts) may lie between
         # them, so the chunk's rows are found among the rows with work,
@@ -118,7 +124,7 @@ def _build_balance_prefix_branch(plan: Plan, dcfg: DistConfig, li: int):
         # cap_pair rows loses the rest of its work (ROADMAP Queue 3); where
         # no chunk does, both send the same pieces in the same order.
         has = allowed > 0
-        n_work = has.sum(1, dtype=torch.int32)[:, None, None]  # [w, 1, 1]
+        n_work = has.sum(1, dtype=torch.int32)[:, None, None]  # [wl, 1, 1]
         work_rows = torch.argsort((~has).to(torch.int32), dim=1,
                                   stable=True).to(torch.int32)
         acc_w = torch.where(has, aacum, T_l)  # nondecreasing once sorted
@@ -126,11 +132,11 @@ def _build_balance_prefix_branch(plan: Plan, dcfg: DistConfig, li: int):
         j = torch.arange(w, dtype=torch.int32, device=dev)[None, :, None]
         p = torch.arange(cap_pair, dtype=torch.int32,
                          device=dev)[None, None, :]
-        chunk_lo = j * C[:, :, None]  # [w, w, 1]
+        chunk_lo = j * C[:, :, None]  # [wl, w, 1]
         chunk_hi = torch.minimum(chunk_lo + C[:, :, None], T_l[:, :, None])
         rfirst = torch.searchsorted(acc_w, chunk_lo[..., 0].contiguous(),
                                     side="right").to(torch.int32)[..., None]
-        slot = rfirst + p  # [w, w, cap_pair]: the chunk's rows with work
+        slot = rfirst + p  # [wl, w, cap_pair]: the chunk's rows with work
         row = _rows(work_rows, torch.clamp(slot, 0, W - 1))
         lrow, arow = _rows(loff, row), _rows(aacum, row)
         pstart = torch.maximum(lrow, chunk_lo)
@@ -140,20 +146,21 @@ def _build_balance_prefix_branch(plan: Plan, dcfg: DistConfig, li: int):
         kstart = _rows(wk, row) + (pstart - lrow)
         kend = kstart + (pend - pstart)
 
-        r_prefix = _exchange(_rows(wprefix, row))  # [w, w, cap_pair, width]
-        r_mini = _exchange(_rows(min_i, row))
-        r_kcur = _exchange(torch.where(pvalid, kstart, 0))
-        r_kend = _exchange(torch.where(pvalid, kend, 0))
-        r_weight = _exchange(_rows(wweight, row))
-        r_valid = _exchange(pvalid.to(torch.int32)) > 0
+        # [wl, w, cap_pair, width]
+        r_prefix = _exchange(_rows(wprefix, row), mesh)
+        r_mini = _exchange(_rows(min_i, row), mesh)
+        r_kcur = _exchange(torch.where(pvalid, kstart, 0), mesh)
+        r_kend = _exchange(torch.where(pvalid, kend, 0), mesh)
+        r_weight = _exchange(_rows(wweight, row), mesh)
+        r_valid = _exchange(pvalid.to(torch.int32), mesh) > 0
 
         # append the received pieces to my piece queue of this level
         pq = pieces[li]
         (npfx, nmini, nkcur, nkend, nwt), n_new, ovf = _append(
             [pq.prefix, pq.mini, pq.kcur, pq.kend, pq.weight], pq.size,
-            [r_prefix.reshape(w, -1, width), r_mini.reshape(w, -1),
-             r_kcur.reshape(w, -1), r_kend.reshape(w, -1),
-             r_weight.reshape(w, -1)], r_valid.reshape(w, -1))
+            [r_prefix.reshape(wl, -1, width), r_mini.reshape(wl, -1),
+             r_kcur.reshape(wl, -1), r_kend.reshape(wl, -1),
+             r_weight.reshape(wl, -1)], r_valid.reshape(wl, -1))
         pieces = list(pieces)
         pieces[li] = PieceQueue(
             npfx, nmini, nkcur, nkend, nwt,
@@ -180,7 +187,8 @@ def _build_balance_prefix_branch(plan: Plan, dcfg: DistConfig, li: int):
 # piece-draining branch: Extension-Resolve + Intersect on balanced ranges
 # ---------------------------------------------------------------------------
 
-def _build_piece_branch(plan: Plan, dcfg: DistConfig, li: int):
+def _build_piece_branch(plan: Plan, dcfg: DistConfig, li: int,
+                        mesh: WorkerMesh):
     lv = plan.levels[li]
     B = dcfg.base.batch
 
@@ -196,7 +204,7 @@ def _build_piece_branch(plan: Plan, dcfg: DistConfig, li: int):
 
         new_prefix, alive, incomplete, n_isect, recv_load = \
             _propose_intersect(lv, dcfg, indices, wprefix, wmini, r, k_off,
-                               pvalid, state.recv_load)
+                               pvalid, state.recv_load, None, mesh)
         weight = _rows(wweight, r)
 
         inc_off = torch.where(incomplete, k_off, INF)
@@ -225,17 +233,18 @@ def _build_piece_branch(plan: Plan, dcfg: DistConfig, li: int):
     return branch
 
 
-def build_balanced_step(plan: Plan, dcfg: DistConfig):
+def build_balanced_step(plan: Plan, dcfg: DistConfig,
+                        mesh: WorkerMesh):
     """Priority: deepest level first; within a level pieces before
     prefixes.  Branch order: [piece_{L-1}, prefix_{L-1}, ..., piece_0,
-    prefix_0]; the step takes the first whose size, summed over the
-    workers, is non-zero."""
+    prefix_0]; the step takes the first whose size, summed over every
+    worker of the mesh, is non-zero."""
     L = len(plan.levels)
     branches, order = [], []
     for li in reversed(range(L)):
-        branches.append(_build_piece_branch(plan, dcfg, li))
+        branches.append(_build_piece_branch(plan, dcfg, li, mesh))
         order.append(("piece", li))
-        branches.append(_build_balance_prefix_branch(plan, dcfg, li))
+        branches.append(_build_balance_prefix_branch(plan, dcfg, li, mesh))
         order.append(("prefix", li))
 
     def step(carry, indices, qsizes, psizes):

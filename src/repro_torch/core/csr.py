@@ -263,7 +263,9 @@ def build_sharded_index(tuples: np.ndarray, key_pos: Tuple[int, ...],
                         ext_pos: int, num_shards: int,
                         capacity: int | None = None,
                         narrow: bool | None = None,
-                        device=None) -> IndexData:
+                        device=None,
+                        workers: Tuple[int, int] | None = None
+                        ) -> IndexData:
     """Hash-partition one extension index over ``num_shards`` workers.
 
     Returns an IndexData whose tensors carry a leading [w] worker axis
@@ -274,7 +276,11 @@ def build_sharded_index(tuples: np.ndarray, key_pos: Tuple[int, ...],
     §3.2).  The per-shard capacity is uniform, the SEG-aligned power of two
     of the largest shard (``capacity`` is a per-shard floor); the key
     width is decided once for every shard.  Built on the host, uploaded
-    once to ``device`` (see :func:`resolve_device`)."""
+    once to ``device`` (see :func:`resolve_device`).  ``workers=(lo,
+    hi)`` uploads the shards of workers lo..hi-1 only (a rank's,
+    ``launch.mesh.WorkerMesh.span``): the partition, the capacity and the
+    key width are still decided over every shard, so they are those rows
+    of the whole partition."""
     device = resolve_device(device)
     tuples = np.asarray(tuples)
     if tuples.ndim != 2:
@@ -298,24 +304,28 @@ def build_sharded_index(tuples: np.ndarray, key_pos: Tuple[int, ...],
                                                    or key.max() < SENTINEL32)
     narrow = narrow and single_word_hi(len(key_pos))
     kdt, sent = (np.int32, SENTINEL32) if narrow else (np.int64, SENTINEL)
-    out_k = np.full((w, cap), sent, kdt)
-    out_v = np.zeros((w, cap), np.int32)
-    out_lo = None if klo is None else np.full((w, cap), SENTINEL, np.int64)
+    first, last = (0, w) if workers is None else workers
+    if not 0 <= first < last <= w:
+        raise ValueError(f"workers {workers} are not a range of the {w}")
+    out_k = np.full((last - first, cap), sent, kdt)
+    out_v = np.zeros((last - first, cap), np.int32)
+    out_lo = None if klo is None else \
+        np.full((last - first, cap), SENTINEL, np.int64)
     # rows are lex-sorted by (key[, lo], val); a stable sort by owner
     # keeps each shard's rows sorted, the IndexData invariant
     order = np.argsort(own, kind="stable")
     sk, sv = key[order].astype(kdt), val[order]
     sl = klo[order] if klo is not None else None
     offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    for i in range(w):
+    for i in range(first, last):
         lo, hi = offs[i], offs[i + 1]
-        out_k[i, :hi - lo] = sk[lo:hi]
-        out_v[i, :hi - lo] = sv[lo:hi]
+        out_k[i - first, :hi - lo] = sk[lo:hi]
+        out_v[i - first, :hi - lo] = sv[lo:hi]
         if out_lo is not None:
-            out_lo[i, :hi - lo] = sl[lo:hi]
+            out_lo[i - first, :hi - lo] = sl[lo:hi]
     return IndexData(
         torch.from_numpy(out_k).to(device), torch.from_numpy(out_v).to(device),
-        torch.from_numpy(counts.astype(np.int32)).to(device),
+        torch.from_numpy(counts[first:last].astype(np.int32)).to(device),
         None if out_lo is None else torch.from_numpy(out_lo).to(device))
 
 

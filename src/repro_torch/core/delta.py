@@ -49,6 +49,15 @@ worker holds O(|R|) of a relation.  The folds stay shard-local: the
 commit is ONE launch of the fold kernel's worker axis a relation and
 projection; normalize, the re-insertion probe and compaction run the
 membership and rank kernels one worker's shard at a time.
+
+On a mesh of R ranks (``mesh=``) a rank's store holds its wl = w / R
+shards, ``[wl, cap]``, and every rank is fed the same batches.  The host
+counts stay the whole mesh's [w] vectors: each count read off the device
+is gathered over the ranks (``exchange.worker_counts``), and each
+existence or membership bit OR-ed over them (``exchange.any_worker``),
+so every rank sizes its regions as the one-process store does (its
+regions are that store's rows of its workers, padding included) and
+takes every branch that calls a collective together with the others.
 """
 from __future__ import annotations
 
@@ -65,12 +74,14 @@ from repro_torch.core.bigjoin import (BigJoinConfig, Indices, JoinResult,
 from repro_torch.core.capacity import Ratchet
 from repro_torch.core.csr import IndexData, build_index
 from repro_torch.core.dataflow_index import VersionedIndex
+from repro_torch.core.exchange import any_worker, gather_rows, worker_counts
 from repro_torch.core.plan import Plan, make_delta_plan
 from repro_torch.core.query import EDGE, Query, delta_queries
 from repro_torch.errors import (CapacityOverflow, ESCALATES_BATCH,
                                 ESCALATES_OUT, SnapshotError)
 from repro_torch.kernels.intersect.ops import member
 from repro_torch.kernels.merge.fold import commit_fold
+from repro_torch.launch.mesh import make_host_mesh
 
 Projection = Tuple[str, Tuple[int, ...], int]  # (rel, key_pos, ext_pos)
 
@@ -165,11 +176,12 @@ def _maxn(n) -> int:
     return int(np.max(n)) if np.ndim(np.asarray(n)) else int(n)
 
 
-def _count_of(d: IndexData):
-    """Exact live count(s) of a device region: an int for one region, a
-    [w] int64 vector for a sharded one (one pull either way)."""
+def _count_of(d: IndexData, mesh=None):
+    """Exact live count(s) of a device region: an int for one region, the
+    [w] int64 vector of the whole mesh for a sharded one (one pull either
+    way; one gather over the ranks of ``mesh``)."""
     if d.n.dim():
-        return d.n.cpu().numpy().astype(np.int64)
+        return worker_counts(d.n, mesh)
     return int(d.n)
 
 
@@ -178,8 +190,7 @@ def _count_of(d: IndexData):
 # ---------------------------------------------------------------------------
 
 def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
-                    w: torch.Tensor, live: VersionedIndex,
-                    shard_w: int = 0):
+                    w: torch.Tensor, live: VersionedIndex, mesh=None):
     """Net one padded update batch against the live set:
     (ins_hi, ins_lo, n_ins, del_hi, del_lo, n_dels) as sentinel-padded
     sorted lex word pairs.
@@ -189,9 +200,10 @@ def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
     packed LSM as the "old" versioned index (base, cins | cdel), composite
     (hi, lo) for arity > 2.  Existence is its signed membership — one kernel
     call for all three regions; under the commit invariants it equals
-    (base ∧ ¬cdel) ∨ cins.  With ``shard_w`` the regions carry a leading
-    [w] axis and a row lives on exactly one shard, so existence is the OR
-    over the workers' shards, one membership call each."""
+    (base ∧ ¬cdel) ∨ cins.  With a ``mesh`` the regions carry a leading
+    [wl] axis (this rank's shards of the mesh's workers) and a row lives
+    on exactly one shard, so existence is the OR over the shards, one
+    membership call each, and over the ranks."""
     SENT = csr.SENTINEL
     dev = p_hi.device
     N = p_hi.shape[0]
@@ -212,10 +224,11 @@ def _normalize_core(p_hi: torch.Tensor, p_lo: torch.Tensor,
     zeros = torch.zeros(N, dtype=torch.int32, device=dev)
     composite = live.pos[0].lo is not None
     qkey = (uniq_h, uniq_l) if composite else uniq_h
-    if shard_w:
+    if mesh is not None:
         exists = live.worker_shard(0).member(qkey, zeros)
-        for k in range(1, shard_w):
+        for k in range(1, mesh.local_workers):
             exists = exists | live.worker_shard(k).member(qkey, zeros)
+        exists = any_worker(exists, mesh)
     else:
         exists = live.member(qkey, zeros)
     alive = uniq_h < SENT
@@ -254,43 +267,45 @@ def _commit_fold(base: IndexData, cins: IndexData, cdel: IndexData,
 
 
 def _compact_fold(base: IndexData, cins: IndexData, cdel: IndexData, *,
-                  out_cap: int, shard_w: int = 0) -> IndexData:
+                  out_cap: int, mesh=None) -> IndexData:
     """base' = (base \\ cdel) ∪ cins — the amortized O(|base|) merge
-    (merge ranks through the rank kernel); with ``shard_w`` each worker's
-    shard apart, stacked (three rank launches a shard)."""
-    if shard_w:
+    (merge ranks through the rank kernel); with a ``mesh`` each of this
+    rank's shards apart, stacked (three rank launches a shard)."""
+    if mesh is not None:
         sv = csr.shard_view
         return csr.stack_shards(
             _compact_fold(sv(base, k), sv(cins, k), sv(cdel, k),
                           out_cap=out_cap)
-            for k in range(shard_w))
+            for k in range(mesh.local_workers))
     kept = csr._select_core(base, cdel, base.capacity, False)
     return csr._merge_core(kept, cins, out_cap)
 
 
-def _any_member(idx: IndexData, qk, qv: torch.Tensor,
-                shard_w: int = 0) -> bool:
+def _any_member(idx: IndexData, qk, qv: torch.Tensor, mesh=None) -> bool:
     """any((qk, qv) ∈ idx) — the eager re-insertion probe (delta-sized),
-    through the single-region membership kernel (a call a worker's shard
-    with ``shard_w``, one host read)."""
+    through the single-region membership kernel (with a ``mesh``, a call
+    for each of this rank's shards and the OR over the ranks; one host
+    read)."""
     qh, ql = qk if isinstance(qk, tuple) else (qk, None)
-    if shard_w:
+    if mesh is not None:
         hits = [member(d.key, d.val, d.n, qh, qv, los=d.lo, ql=ql).any()
-                for d in (csr.shard_view(idx, k) for k in range(shard_w))]
-        return bool(torch.stack(hits).any())
+                for d in (csr.shard_view(idx, k)
+                          for k in range(mesh.local_workers))]
+        return bool(any_worker(torch.stack(hits).any(), mesh))
     return bool(member(idx.key, idx.val, idx.n, qh, qv, los=idx.lo,
                        ql=ql).any())
 
 
 def _packed_index(rows: np.ndarray, device, arity: int = 2,
                   capacity: Optional[int] = None,
-                  shard_w: int = 0) -> IndexData:
+                  shard_w: int = 0, workers=None) -> IndexData:
     """Packed full-row IndexData (key = the row's lex word pair — u<<32|v
     for edges, the wide (hi, lo) pair for arity 3-4 — val ≡ 0) from host
     rows, built at ``max(capacity, pow2(rows))``.  With ``shard_w`` it is
     hash-partitioned by ``csr.build_sharded_index`` (``capacity`` a
-    per-shard floor): the projections' ownership code, so a live-set row
-    and its projections' entries share their owner."""
+    per-shard floor; ``workers`` the shards kept): the projections'
+    ownership code, so a live-set row and its projections' entries share
+    their owner."""
     rows = np.asarray(rows, np.int32).reshape(-1, arity)
     rows_ext = np.concatenate(
         [rows, np.zeros((rows.shape[0], 1), np.int32)], axis=1)
@@ -298,7 +313,7 @@ def _packed_index(rows: np.ndarray, device, arity: int = 2,
     if shard_w:
         return csr.build_sharded_index(rows_ext, key_pos, arity, shard_w,
                                        capacity=capacity, narrow=False,
-                                       device=device)
+                                       device=device, workers=workers)
     return build_index(
         rows_ext, key_pos, arity,
         capacity=max(int(capacity or 0), _pow2(rows_ext.shape[0])),
@@ -352,6 +367,9 @@ class _Regions:
     axis and each (key, val) entry is held by exactly one worker
     (``csr.build_sharded_index``); the counts are [w] vectors.
 
+    On a mesh of ranks the tensors hold the rank's shards, ``[wl, cap]``,
+    and the counts stay the whole mesh's [w] vectors.
+
     ``derived=True`` marks a projection whose (key, ext) columns do NOT
     cover the relation's full row (only for arity > 2, e.g. the a1->a3
     index of ``tri`` that ignores a2).  It is a lossy many-to-one image, so
@@ -403,7 +421,7 @@ class _Regions:
             idx = csr.build_sharded_index(
                 rows, self.key_pos, self.ext_pos, self.shard_w,
                 capacity=ratchet.capacity(key, per), narrow=self.narrow,
-                device=store.device)
+                device=store.device, workers=store.mesh.span)
         else:
             cap = ratchet.capacity(key, rows.shape[0])
             idx = build_index(rows, self.key_pos, self.ext_pos, capacity=cap,
@@ -441,7 +459,7 @@ class _Regions:
     def _materialize(self, d: IndexData) -> np.ndarray:
         """Host tuple rows from the device (key[, lo], val) arrays (the
         shards' live rows in worker order), in canonical row-lex order."""
-        key, val, lo = _live_parts(d)
+        key, val, lo = _live_parts(d, self._store.mesh)
         key = key.astype(np.int64)
         rows = np.zeros((key.shape[0], self.arity), np.int32)
         nk = len(self.key_pos)
@@ -477,7 +495,7 @@ class _Regions:
                                            ins.shape[0])
         qk, qv = _pad_probe(key, ins[:, self.ext_pos].astype(np.int32),
                             sent, self.device, cap=cap)
-        return _any_member(self.d_cdel, qk, qv, self.shard_w)
+        return _any_member(self.d_cdel, qk, qv, self._store.mesh)
 
     def versioned(self, version: str) -> VersionedIndex:
         if self.derived:
@@ -512,16 +530,14 @@ class _Regions:
         return VersionedIndex((idx,), ())
 
 
-def _live_parts(d: IndexData):
+def _live_parts(d: IndexData, mesh=None):
     """(key, val, lo or None) host arrays of a region's live entries; a
-    sharded region's are its shards' in worker order."""
+    sharded region's are its shards' in worker order, every rank's of
+    ``mesh``."""
     if d.n.dim():
-        ns = d.n.cpu().numpy()
-
-        def cat(t):
-            a = t.cpu().numpy()
-            return np.concatenate([a[k][:ns[k]] for k in range(ns.shape[0])])
-        return cat(d.key), cat(d.val), None if d.lo is None else cat(d.lo)
+        parts = (d.key, d.val) + (() if d.lo is None else (d.lo,))
+        _, got = gather_rows(d.n, parts, mesh)
+        return got[0], got[1], None if d.lo is None else got[2]
     n = int(d.n)
     return (d.key[:n].cpu().numpy(), d.val[:n].cpu().numpy(),
             None if d.lo is None else d.lo[:n].cpu().numpy())
@@ -607,12 +623,25 @@ class RegionStore:
     ``shard_w > 0`` hash-partitions every device region over that many
     mesh workers (the distributed engine's layout, n-ary regions
     included): ownership is by the row's packed key, so the commit folds
-    stay owner-local and no worker holds O(|R|) of a relation."""
+    stay owner-local and no worker holds O(|R|) of a relation.  With a
+    ``mesh`` of R ranks (a ``launch.mesh.WorkerMesh`` of ``shard_w``
+    workers) this rank's store holds its workers' shards only; every
+    rank must make the same calls with the same batches."""
 
     def __init__(self, initial, shard_w: int = 0,
-                 compact_ratio: float = 0.5, device=None):
+                 compact_ratio: float = 0.5, device=None, mesh=None):
         self.device = csr.resolve_device(device)
         self.shard_w = int(shard_w)
+        # the mesh of a sharded store (one process's when none is given):
+        # this process holds the shards of its workers, ``mesh.span``
+        if not self.shard_w:
+            mesh = None
+        elif mesh is None:
+            mesh = make_host_mesh(self.shard_w, self.device)
+        elif mesh.num_workers != self.shard_w:
+            raise ValueError(f"a store of {shard_w} shards on a mesh of "
+                             f"{mesh.num_workers} workers")
+        self.mesh = mesh
         self.compact_ratio = compact_ratio
         self.projections: Dict[Projection, _Regions] = {}
         self.stats = StoreStats()
@@ -636,6 +665,17 @@ class RegionStore:
     def _per_shard(self, n: int) -> int:
         return -(-max(int(n), 1) // self.shard_w) if self.shard_w \
             else max(int(n), 1)
+
+    def _packed(self, rows: np.ndarray, arity: int,
+                capacity: Optional[int]) -> IndexData:
+        """``_packed_index`` of host rows in this store's layout."""
+        return _packed_index(rows, self.device, arity, capacity=capacity,
+                             shard_w=self.shard_w,
+                             workers=self.mesh and self.mesh.span)
+
+    def _empty(self, arity: int) -> IndexData:
+        return _empty_packed(self.device, arity,
+                             self.mesh.local_workers if self.mesh else 0)
 
     def _base_cap(self, rel: str, n: int) -> int:
         return self.base_ratchet.capacity(("base", rel), self._per_shard(n))
@@ -687,14 +727,13 @@ class RegionStore:
         st = _RelLive(arity=ar)
         # the live set shards like the projections (ownership by packed
         # key), so a worker's live memory stays O(|R|/w)
-        st.lb = _packed_index(rows, self.device, ar,
-                              capacity=self._base_cap(rel, rows.shape[0]),
-                              shard_w=self.shard_w)
+        st.lb = self._packed(rows, ar, self._base_cap(rel, rows.shape[0]))
         self.base_ratchet.observe(("base", rel), st.lb.key.shape[-1])
-        st.lc_ins = _empty_packed(self.device, ar, self.shard_w)
-        st.lc_del = _empty_packed(self.device, ar, self.shard_w)
+        st.lc_ins = self._empty(ar)
+        st.lc_del = self._empty(ar)
         zero = np.zeros(self.shard_w, np.int64) if self.shard_w else 0
-        nb = _count_of(st.lb) if self.shard_w else rows.shape[0]
+        nb = _count_of(st.lb, self.mesh) if self.shard_w \
+            else rows.shape[0]
         st.n_live = [nb, zero, zero]  # base, cins, cdel
         st.mirror = rows
         self._rels[rel] = st
@@ -730,8 +769,8 @@ class RegionStore:
             live = _compact_fold(
                 st.lb, st.lc_ins, st.lc_del,
                 out_cap=_pow2(_maxn(np.asarray(nb) + np.asarray(nci))),
-                shard_w=self.shard_w)
-            hi, _, lo = _live_parts(live)
+                mesh=self.mesh)
+            hi, _, lo = _live_parts(live, self.mesh)
             if lo is None:
                 lo = np.zeros(hi.shape[0], np.int64)
             order = np.lexsort((lo, hi))
@@ -799,7 +838,7 @@ class RegionStore:
         reg.d_base = reg._build(rows)
         reg.d_cins = reg._build(empty, kind="committed")
         reg.d_cdel = reg._build(empty, kind="committed")
-        reg.n_base = _count_of(reg.d_base) if self.shard_w \
+        reg.n_base = _count_of(reg.d_base, self.mesh) if self.shard_w \
             else rows.shape[0]
         reg.n_cins = reg.n_cdel = np.zeros(self.shard_w, np.int64) \
             if self.shard_w else 0
@@ -865,9 +904,8 @@ class RegionStore:
         out = {}
         for rel, st in self._rels.items():
             cc = int(st.lc_ins.key.shape[-1])  # current committed rung
-            empty = _packed_index(np.zeros((0, st.arity), np.int32),
-                                  self.device, st.arity, capacity=P,
-                                  shard_w=self.shard_w)
+            empty = self._packed(np.zeros((0, st.arity), np.int32),
+                                 st.arity, P)
             before = sum(kernels.LAUNCHES.values())
             _commit_fold(st.lb, st.lc_ins, st.lc_del, empty, empty,
                          cins_cap=cc, cdel_cap=cc, sharded=sharded)
@@ -977,8 +1015,7 @@ class RegionStore:
         ar = self._rel(rel).arity
         oih, oil, ni, odh, odl, nd = _normalize_core(
             torch.from_numpy(ph).to(dev), torch.from_numpy(pl).to(dev),
-            torch.from_numpy(pw).to(dev), self._live_index(rel),
-            self.shard_w)
+            torch.from_numpy(pw).to(dev), self._live_index(rel), self.mesh)
         ni, nd = int(ni), int(nd)
         ins = _unpack_rows(oih[:ni].cpu().numpy(), oil[:ni].cpu().numpy(),
                            ar)
@@ -988,6 +1025,8 @@ class RegionStore:
 
     # ------------------------------------------------------------------
     def _maybe_compact(self, force: bool = False):
+        # every test below reads the whole mesh's counts: all ranks
+        # compact together
         w = self.shard_w
         zero = np.zeros(w, np.int64) if w else 0
         for rel, st in self._rels.items():
@@ -999,9 +1038,9 @@ class RegionStore:
                 out_cap = self.base_ratchet.capacity(("base", rel),
                                                      _maxn(new_nb))
                 st.lb = _compact_fold(st.lb, st.lc_ins, st.lc_del,
-                                      out_cap=out_cap, shard_w=w)
-                st.lc_ins = _empty_packed(self.device, st.arity, w)
-                st.lc_del = _empty_packed(self.device, st.arity, w)
+                                      out_cap=out_cap, mesh=self.mesh)
+                st.lc_ins = self._empty(st.arity)
+                st.lc_del = self._empty(st.arity)
                 st.n_live = [new_nb if w else int(new_nb), zero, zero]
                 self.stats.live_compactions += 1
                 self.stats.composite_compactions += st.lb.lo is not None
@@ -1010,7 +1049,8 @@ class RegionStore:
                 self.ratchet.reset(("committed", rel))
                 # cdel ⊆ base and cins ∩ base = ∅ make the compacted size
                 # exact arithmetic — a mismatch means corruption
-                assert (np.asarray(_count_of(st.lb)) == new_nb).all()
+                got = _count_of(st.lb, self.mesh)
+                assert (np.asarray(got) == new_nb).all()
         for reg in self.projections.values():
             if reg.derived:
                 continue  # rebuilt from the relation rows on demand
@@ -1025,8 +1065,8 @@ class RegionStore:
                                                      _maxn(new_n))
                 reg.d_base = _compact_fold(reg.d_base, reg.d_cins,
                                            reg.d_cdel, out_cap=out_cap,
-                                           shard_w=w)
-                got = _count_of(reg.d_base)
+                                           mesh=self.mesh)
+                got = _count_of(reg.d_base, self.mesh)
                 assert (np.asarray(got) == new_n).all()
                 reg.n_base = got
                 self.ratchet.reset(("committed", reg.rel))
@@ -1080,12 +1120,13 @@ class RegionStore:
                                     np.int64(csr.SENTINEL), self.device,
                                     cap=self._probe_cap(rel,
                                                         r_ins.shape[0]))
-                need = need or _any_member(st.lc_del, qk, qv, self.shard_w)
+                need = need or _any_member(st.lc_del, qk, qv, self.mesh)
             if not need:
                 need = any(reg.probe_cdel(r_ins)
                            for reg in self.projections.values()
                            if reg.rel == rel and not reg.derived
                            and _total(reg.n_cdel))
+            # every rank holds the same batch: a global test
             if int(r_ins.max()) >= csr.SENTINEL32 and \
                     any(reg.narrow for reg in self.projections.values()
                         if reg.rel == rel):
@@ -1130,24 +1171,23 @@ class RegionStore:
                 continue
             st = self._rel(rel)
             faults.fire("store.commit.fold")
-            li = _packed_index(r_ins, self.device, st.arity,
-                               capacity=self._delta_cap(rel, r_ins.shape[0]),
-                               shard_w=w)
+            li = self._packed(r_ins, st.arity,
+                              self._delta_cap(rel, r_ins.shape[0]))
             self.ratchet.observe(("delta", rel), li.key.shape[-1])
-            ld = _packed_index(r_dels, self.device, st.arity,
-                               capacity=self._delta_cap(rel,
-                                                        r_dels.shape[0]),
-                               shard_w=w)
+            ld = self._packed(r_dels, st.arity,
+                              self._delta_cap(rel, r_dels.shape[0]))
             self.ratchet.observe(("delta", rel), ld.key.shape[-1])
             nb, nci, ncd = st.n_live
-            need = max(_maxn(np.asarray(nci) + np.asarray(_count_of(li))),
-                       _maxn(np.asarray(ncd) + np.asarray(_count_of(ld))))
+            need = max(
+                _maxn(np.asarray(nci) + np.asarray(_count_of(li, self.mesh))),
+                _maxn(np.asarray(ncd) + np.asarray(_count_of(ld, self.mesh))))
             cc = self._committed_cap(rel, need)
             new_ci, new_cd = _commit_fold(st.lb, st.lc_ins, st.lc_del, li,
                                           ld, cins_cap=cc, cdel_cap=cc,
                                           sharded=sharded)
             staged_rels.append((st, new_ci, new_cd,
-                                [nb, _count_of(new_ci), _count_of(new_cd)]))
+                                [nb, _count_of(new_ci, self.mesh),
+                                 _count_of(new_cd, self.mesh)]))
         staged_projs = []  # (reg, d_cins, d_cdel, empty_ins, empty_dels)
         derived_dirty = []
         for reg in self.projections.values():
@@ -1162,9 +1202,9 @@ class RegionStore:
             faults.fire("store.commit.fold")
             need = max(
                 _maxn(np.asarray(reg.n_cins)
-                      + np.asarray(_count_of(reg.d_uins))),
+                      + np.asarray(_count_of(reg.d_uins, self.mesh))),
                 _maxn(np.asarray(reg.n_cdel)
-                      + np.asarray(_count_of(reg.d_udel))))
+                      + np.asarray(_count_of(reg.d_udel, self.mesh))))
             cc = self._committed_cap(reg.rel, need)
             d_cins, d_cdel = _commit_fold(
                 reg.d_base, reg.d_cins, reg.d_cdel, reg.d_uins, reg.d_udel,
@@ -1181,8 +1221,8 @@ class RegionStore:
             reg._derived_cache.clear()
         for reg, d_cins, d_cdel, e_ins, e_dels in staged_projs:
             reg.d_cins, reg.d_cdel = d_cins, d_cdel
-            reg.n_cins = _count_of(d_cins)
-            reg.n_cdel = _count_of(d_cdel)
+            reg.n_cins = _count_of(d_cins, self.mesh)
+            reg.n_cdel = _count_of(d_cdel, self.mesh)
             reg.set_uncommitted(e_ins, e_dels)
             reg._mirror.pop("cins", None)
             reg._mirror.pop("cdel", None)
@@ -1204,6 +1244,25 @@ class RegionStore:
     # -- durability: the JAX store's snapshot format ----------------------
     SNAPSHOT_FORMAT = 1
 
+    def device_bytes(self) -> int:
+        """Bytes of every device region this process holds (the live
+        sets' and the non-derived projections')."""
+        idx = [r for st in self._rels.values()
+               for r in (st.lb, st.lc_ins, st.lc_del)]
+        idx += [getattr(reg, "d_" + nm) for reg in self.projections.values()
+                if not reg.derived
+                for nm in ("base", "cins", "cdel", "uins", "udel")]
+        return sum(t.nbytes for d in idx if d is not None
+                   for _, t in self._index_parts(d))
+
+    def _one_process(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.ranks > 1:
+            raise NotImplementedError(
+                f"{what} of a store held by {self.mesh.ranks} ranks: each "
+                "rank holds only its workers' shards, and a snapshot is "
+                "the whole store's; snapshots across ranks are not ported "
+                "yet")
+
     @staticmethod
     def _index_parts(idx: IndexData):
         parts = [("key", idx.key), ("val", idx.val), ("n", idx.n)]
@@ -1224,6 +1283,7 @@ class RegionStore:
         ``proj/<i>/{d_base,d_cins,d_cdel}.*`` and its counts; both ratchets'
         marks and the epoch counters.  Only at an epoch boundary: the
         staged batch is transient."""
+        self._one_process("snapshot")
         if self._staged is not None:
             raise SnapshotError(
                 "snapshot mid-epoch: commit (or rollback) the staged batch "
@@ -1288,6 +1348,7 @@ class RegionStore:
         package), in place, every tensor on ``self.device``.  Engines
         resolve their regions through :meth:`indices_for` each run, so
         they read the restored state without a rebuild."""
+        self._one_process("restore")
         if meta.get("format") != self.SNAPSHOT_FORMAT:
             raise ValueError(
                 f"unknown snapshot format {meta.get('format')!r}")

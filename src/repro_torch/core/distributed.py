@@ -1,4 +1,4 @@
-"""Distributed BiGJoin over a mesh of w workers (§3.2 / §3.4), on one card.
+"""Distributed BiGJoin over a mesh of w workers (§3.2 / §3.4).
 
 Every extension index is hash-partitioned by its packed key
 (``owner_of``), so the cluster-wide memory is O(IN): each index entry is
@@ -19,20 +19,22 @@ and retries (backpressure, not failure).  With BiGJoin-S aggregation
 (``aggregate=True``, one request per distinct key) the balls-into-bins
 bound of Thm 3.4 makes overflow improbable at capacity O(B'/w · polylog).
 
-**The workers are a leading [w] axis on one device.**  NCCL does not put
-two ranks on one GPU, so every tensor of the dataflow carries the workers
-as its dim 0 inside one process, as the JAX package's mesh of host
-devices computes.  The three exchanges of the dataflow are in one place,
-:func:`all_to_all`, :func:`psum` and :func:`pmax`: a transpose of the
-``[w_src, w_dst, cap, ...]`` send buffer and a sum or max over dim 0 (a
-multi-card backend is a change to those three).  Per-worker arithmetic
-(queue compaction, cumsums, argsorts, searches) is batched over the
-worker axis; the owners answer their requests one owner at a time from
-their shard (``VersionedIndex.worker_shard``), so a member service is w
-calls of the membership kernel on the card.  The host reads one stack of
-global queue sizes a step to pick the level, as ``bigjoin.run_bigjoin``
-does.  Outputs stay on the producing worker; counts and counters are
-summed over the workers at the end.
+**The workers are a leading [wl] axis of each rank.**  The mesh's w
+workers run on R ``torch.distributed`` ranks (``launch.mesh``), each rank
+holding ``wl = w / R`` of them as dim 0 of every tensor of the dataflow;
+R = 1 is one process holding all w.  The three exchanges of the dataflow
+are in ``core.exchange``: :func:`all_to_all`, :func:`psum` and
+:func:`pmax`, local transposes and reductions inside a rank and one
+collective each between ranks.  Per-worker arithmetic (queue compaction,
+cumsums, argsorts, searches) is batched over the rank's workers; routing
+(``owner_of``) names global workers, and a rank's owners answer their
+requests one owner at a time from their shard
+(``VersionedIndex.worker_shard``), so a member service is wl calls of the
+membership kernel on the card.  The host reads one stack of queue sizes
+a step, summed over every worker of the mesh, to pick the level, so every
+rank takes the same branch and stops on the same step.  Outputs stay on
+the producing worker until the end; counts and counters are summed over
+the mesh, and collected rows gathered in worker order on every rank.
 
 The streaming half (§4) rides the same dataflow: :class:`DistDeltaBigJoin`
 keeps its regions in a worker-sharded ``RegionStore`` (``shard_w = w``),
@@ -58,6 +60,7 @@ from repro_torch.core import delta as _delta
 from repro_torch.core.bigjoin import (BigJoinConfig, Indices, JoinResult,
                                       LevelQueue, seed_tuples_for)
 from repro_torch.core.dataflow_index import VersionedIndex
+from repro_torch.core.exchange import all_to_all, gather_rows, pmax, psum
 from repro_torch.core.plan import Plan
 from repro_torch.errors import (CapacityOverflow, ESCALATES_BATCH,
                                 ESCALATES_OUT, ESCALATES_ROUTE, OVF_OUT,
@@ -66,30 +69,6 @@ from repro_torch.launch.mesh import (DEFAULT_WORKERS, WorkerMesh,
                                      make_host_mesh)
 
 INF = int(np.iinfo(np.int32).max)
-
-
-# ---------------------------------------------------------------------------
-# the exchanges between workers (the only code that moves data across the
-# worker axis)
-# ---------------------------------------------------------------------------
-
-def all_to_all(x: torch.Tensor) -> torch.Tensor:
-    """[w_src, w·cap, ...] send buffers -> [w_dst, w·cap, ...] received
-    ones: block j of worker i's buffer arrives as block i of worker j's
-    (``jax.lax.all_to_all`` with split and concat axis 0)."""
-    w = x.shape[0]
-    return x.reshape((w, w, -1) + x.shape[2:]).transpose(0, 1) \
-        .reshape(x.shape)
-
-
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the workers (dim 0)."""
-    return x.sum(0)
-
-
-def pmax(x: torch.Tensor) -> torch.Tensor:
-    """Max over the workers (dim 0)."""
-    return x.amax(0)
 
 
 # ---------------------------------------------------------------------------
@@ -117,24 +96,32 @@ VERSION_REGIONS = {
 
 def partition_indices(plan: Plan, relations: Dict[str, np.ndarray],
                       w: int, region_tuples: Optional[Dict] = None,
-                      device=None) -> Dict[str, VersionedIndex]:
+                      device=None, mesh: Optional[WorkerMesh] = None
+                      ) -> Dict[str, VersionedIndex]:
     """Hash-partition every index the plan needs over ``w`` workers, on
-    ``device`` (see ``csr.resolve_device``).
+    ``device`` (see ``csr.resolve_device``), keeping the shards of the
+    workers ``mesh``'s rank holds (every shard without a mesh).
 
     Static versions partition ``relations[rel]`` directly.  Delta versions
     ("old"/"new") partition each region of the projection:
     ``region_tuples[(rel, key_pos, ext_pos)]`` maps the region names
     (base/cins/cdel/uins/udel) to host tuple arrays.  Every region entry
     is owned by exactly one worker per projection: sharding never
-    replicates, it only splits.  The indices' tensors carry a leading [w]
-    axis."""
+    replicates, it only splits.  The indices' tensors carry a leading [wl]
+    axis: each rank builds the whole partition on the host from the same
+    relations and uploads its workers' rows of it."""
     device = csr.resolve_device(device)
+    if mesh is None:
+        mesh = make_host_mesh(w, device)
+    elif mesh.num_workers != w:
+        raise ValueError(f"{w} workers on a mesh of {mesh.num_workers}")
+    span = mesh.span
     out: Dict[str, VersionedIndex] = {}
     for index_id, rel, key_pos, ext_pos, version in plan.index_ids():
         if version == "static":
             base = csr.build_sharded_index(np.asarray(relations[rel]),
                                            key_pos, ext_pos, w,
-                                           device=device)
+                                           device=device, workers=span)
             out[index_id] = VersionedIndex((base,), ())
             continue
         if region_tuples is None:
@@ -150,7 +137,7 @@ def partition_indices(plan: Plan, relations: Dict[str, np.ndarray],
             if rows.ndim != 2:  # flat arrays: minimal covering arity
                 rows = rows.reshape(-1, arity)
             return csr.build_sharded_index(rows, key_pos, ext_pos, w,
-                                           device=device)
+                                           device=device, workers=span)
 
         out[index_id] = VersionedIndex(
             tuple(shard(nm) for nm in pos_names),
@@ -158,8 +145,14 @@ def partition_indices(plan: Plan, relations: Dict[str, np.ndarray],
     return out
 
 
+def index_bytes(indices: Dict[str, VersionedIndex]) -> int:
+    """Device bytes of the regions of ``indices`` this process holds."""
+    return sum(t.nbytes for vi in indices.values() for d in vi.pos + vi.neg
+               for t in (d.key, d.val, d.n, d.lo) if t is not None)
+
+
 # ---------------------------------------------------------------------------
-# per-worker helpers over the leading [w] axis
+# per-worker helpers over the leading [wl] axis
 # ---------------------------------------------------------------------------
 
 def _ar(idx: torch.Tensor) -> torch.Tensor:
@@ -277,16 +270,18 @@ def _clip(x: torch.Tensor, lo, hi: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def remote_service(queries, dest: torch.Tensor, valid: torch.Tensor,
-                   reply_fn, w: int, cap: int):
-    """Route each worker's ``queries`` (a tuple of [w, B] tensors) to the
-    ``dest`` workers, apply ``reply_fn(owner, queries [w·cap]) -> tuple
-    of [w·cap]`` at every owner (to every slot of its receive buffer, the
-    empty ones included, as the JAX package does), and return (replies
-    [w, B] each, ok [w, B], recv_load [w] int64: the requests each worker
-    served).  ok=False rows overflowed their per-peer capacity and got no
-    reply."""
+                   reply_fn, w: int, cap: int,
+                   mesh: WorkerMesh):
+    """Route each of the rank's workers' ``queries`` (a tuple of [wl, B]
+    tensors) to the ``dest`` workers (global ids in [0, w)), apply
+    ``reply_fn(owner, queries [w·cap]) -> tuple of [w·cap]`` at each of
+    the rank's owners (``owner`` its local index; to every slot of its
+    receive buffer, the empty ones included, as the JAX package does), and
+    return (replies [wl, B] each, ok [wl, B], recv_load [wl] int64: the
+    requests each worker served).  ok=False rows overflowed their
+    per-peer capacity and got no reply."""
     dev = dest.device
-    B = dest.shape[1]
+    wl, B = dest.shape
     dest_eff = torch.where(valid, dest, w)
     order = torch.argsort(dest_eff, dim=1, stable=True)
     sdest = dest_eff.gather(1, order)
@@ -296,20 +291,20 @@ def remote_service(queries, dest: torch.Tensor, valid: torch.Tensor,
     flat = torch.where(ok_sorted, sdest * cap + slot, w * cap)
 
     def scatter(x):
-        buf = torch.zeros((w, w * cap), dtype=x.dtype, device=dev)
+        buf = torch.zeros((wl, w * cap), dtype=x.dtype, device=dev)
         return _put(buf, flat, x.gather(1, order))
 
     send = [scatter(q) for q in queries]
-    sent_mask = scatter(torch.ones((w, B), dtype=torch.int32, device=dev))
-    recv = [all_to_all(x) for x in send]
-    recv_mask = all_to_all(sent_mask) > 0
-    at_owner = [reply_fn(o, tuple(x[o] for x in recv)) for o in range(w)]
-    back = [all_to_all(torch.stack(col)) for col in zip(*at_owner)]
+    sent_mask = scatter(torch.ones((wl, B), dtype=torch.int32, device=dev))
+    recv = [all_to_all(x, mesh) for x in send]
+    recv_mask = all_to_all(sent_mask, mesh) > 0
+    at_owner = [reply_fn(o, tuple(x[o] for x in recv)) for o in range(wl)]
+    back = [all_to_all(torch.stack(col), mesh) for col in zip(*at_owner)]
 
     # row i's reply sits at (dest[i], slot of row i)
-    slot_of_row = torch.zeros((w, B), dtype=torch.int32, device=dev) \
+    slot_of_row = torch.zeros((wl, B), dtype=torch.int32, device=dev) \
         .scatter(1, order, slot)
-    ok = torch.zeros((w, B), dtype=torch.bool, device=dev) \
+    ok = torch.zeros((wl, B), dtype=torch.bool, device=dev) \
         .scatter(1, order, ok_sorted) & valid
     gidx = torch.clamp(dest * cap + slot_of_row, 0, w * cap - 1).long()
     replies = tuple(x.gather(1, gidx) for x in back)
@@ -370,32 +365,36 @@ class DistConfig:
     max_steps: int = 1 << 30
 
 
-def _request(queries, dest, valid, reply, w, cap, dedup_key=None):
+def _request(queries, dest, valid, reply, w, cap, dedup_key,
+             mesh: WorkerMesh):
     """One service call: ``remote_service`` of the valid rows, or with
     BiGJoin-S aggregation when ``dedup_key`` is given (one request per
     distinct key, each row reading its representative's reply).  Returns
-    (reply [w, B], ok [w, B], recv_load [w]); invalid rows count as ok."""
+    (reply [wl, B], ok [wl, B], recv_load [wl]); invalid rows count as
+    ok."""
     if dedup_key is None:
         (out,), ok, load = remote_service(queries, dest, valid, reply, w,
-                                          cap)
+                                          cap, mesh)
         return out, ok | ~valid, load
     rep_idx, is_rep = dedup_requests(dedup_key, valid)
-    (out,), ok, load = remote_service(queries, dest, is_rep, reply, w, cap)
+    (out,), ok, load = remote_service(queries, dest, is_rep, reply, w, cap,
+                                      mesh)
     return _rows(out, rep_idx), _rows(ok, rep_idx) | ~valid, load
 
 
 def _remote_count(idx: VersionedIndex, qkey, dest, valid, w, cap,
-                  aggregate):
+                  aggregate, mesh: WorkerMesh):
     composite = isinstance(qkey, tuple)
 
     def reply(o, q):
         return (idx.worker_shard(o).count(_unwords(q, composite)),)
 
     return _request(_words(qkey), dest, valid, reply, w, cap,
-                    qkey if aggregate else None)
+                    qkey if aggregate else None, mesh)
 
 
-def _remote_resolve(idx: VersionedIndex, qkey, k, dest, valid, w, cap):
+def _remote_resolve(idx: VersionedIndex, qkey, k, dest, valid, w, cap,
+                    mesh: WorkerMesh):
     composite = isinstance(qkey, tuple)
 
     def reply(o, q):
@@ -403,11 +402,12 @@ def _remote_resolve(idx: VersionedIndex, qkey, k, dest, valid, w, cap):
         starts, counts = shard.ranges(_unwords(q[:-1], composite))
         return (shard.gather(starts, counts, q[-1]),)
 
-    return _request(_words(qkey) + (k,), dest, valid, reply, w, cap)
+    return _request(_words(qkey) + (k,), dest, valid, reply, w, cap,
+                    None, mesh)
 
 
 def _remote_member(idx: VersionedIndex, qkey, qval, dest, valid, w, cap,
-                   aggregate):
+                   aggregate, mesh: WorkerMesh):
     composite = isinstance(qkey, tuple)
 
     def reply(o, q):
@@ -427,33 +427,35 @@ def _remote_member(idx: VersionedIndex, qkey, qval, dest, valid, w, cap,
     else:
         pair = None
     bits, ok, load = _request(_words(qkey) + (qval,), dest, valid, reply, w,
-                              cap, pair if aggregate else None)
+                              cap, pair if aggregate else None, mesh)
     return (bits & 1) > 0, (bits & 2) > 0, ok, load
 
 
 # ---------------------------------------------------------------------------
-# the dataflow state, every field with a leading [w] worker axis
+# the dataflow state, every field with a leading [wl] axis of the rank's
+# workers
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class DistState:
-    queues: Tuple[LevelQueue, ...]  # prefix [w, cap, width], size [w]
-    out_buf: torch.Tensor  # [w, Ocap, m] int32 (Ocap 1 in count mode)
-    out_weight: torch.Tensor  # [w, Ocap] int32
-    out_n: torch.Tensor  # [w] int32
-    out_count: torch.Tensor  # [w] int64 weighted output count
-    overflow: torch.Tensor  # [w] int32 OVF_* bitmask
-    proposals: torch.Tensor  # [w] int64
-    intersections: torch.Tensor  # [w] int64
-    recv_load: torch.Tensor  # [w] int64 requests served
+    queues: Tuple[LevelQueue, ...]  # prefix [wl, cap, width], size [wl]
+    out_buf: torch.Tensor  # [wl, Ocap, m] int32 (Ocap 1 in count mode)
+    out_weight: torch.Tensor  # [wl, Ocap] int32
+    out_n: torch.Tensor  # [wl] int32
+    out_count: torch.Tensor  # [wl] int64 weighted output count
+    overflow: torch.Tensor  # [wl] int32 OVF_* bitmask
+    proposals: torch.Tensor  # [wl] int64
+    intersections: torch.Tensor  # [wl] int64
+    recv_load: torch.Tensor  # [wl] int64 requests served
 
 
-def make_state(plan: Plan, cfg: BigJoinConfig, w: int, device,
+def make_state(plan: Plan, cfg: BigJoinConfig, wl: int, device,
                seed_capacity: int) -> DistState:
+    """Empty queues and outputs of ``wl`` workers (a rank's)."""
     m = plan.query.num_attrs
 
     def zeros(*shape, dtype=torch.int32):
-        return torch.zeros((w,) + shape, dtype=dtype, device=device)
+        return torch.zeros((wl,) + shape, dtype=dtype, device=device)
 
     queues = []
     for width in range(plan.seed_width, m):
@@ -500,38 +502,40 @@ def _emit(plan: Plan, cfg: BigJoinConfig, li: int, state: DistState,
 
 
 def _propose_intersect(lv, dcfg: DistConfig, indices, wprefix, wmini, r,
-                       k_off, pvalid, recv_load, qks=None):
+                       k_off, pvalid, recv_load, qks, mesh: WorkerMesh):
     """Extension-Resolve and Intersect (Fig 3) of the proposals ``t`` of
     each worker: prefix row ``r``, extension offset ``k_off``, proposing
     binding ``wmini[r]``.  Returns (new_prefix, alive, incomplete,
     n_isect, recv_load)."""
     w, cap, B = dcfg.num_workers, dcfg.route_capacity, dcfg.base.batch
+    wl = r.shape[0]
     new_bound = lv.bound_attrs + (lv.ext_attr,)
     dev = r.device
     if qks is None:
         qks = [_binding_key(wprefix, lv.bound_attrs, b.key_attrs,
                             indices[b.index_id]) for b in lv.bindings]
     mini_r = _rows(wmini, r)
-    cand = torch.zeros((w, B), dtype=torch.int32, device=dev)
-    incomplete = torch.zeros((w, B), dtype=torch.bool, device=dev)
+    cand = torch.zeros((wl, B), dtype=torch.int32, device=dev)
+    incomplete = torch.zeros((wl, B), dtype=torch.bool, device=dev)
     for bi, b in enumerate(lv.bindings):
         idx = indices[b.index_id]
         qk_r = _rows(qks[bi], r)
         mask = pvalid & (mini_r == bi)
         val, ok, load = _remote_resolve(idx, qk_r, k_off, owner_of(qk_r, w),
-                                        mask, w, cap)
+                                        mask, w, cap, mesh)
         cand = torch.where(mask, val, cand)
         incomplete = incomplete | (mask & ~ok)
         recv_load = recv_load + load
     new_prefix = torch.cat([_rows(wprefix, r), cand[..., None]], -1)
     alive = pvalid
-    n_isect = torch.zeros(w, dtype=torch.int64, device=dev)
+    n_isect = torch.zeros(wl, dtype=torch.int64, device=dev)
     for bi, b in enumerate(lv.bindings):
         idx = indices[b.index_id]
         pos = [list(new_bound).index(a) for a in b.key_attrs]
         qk = _key_w(new_prefix, pos, idx.pos[0].key.dtype)
         mem, dele, ok, load = _remote_member(
-            idx, qk, cand, owner_of(qk, w), pvalid, w, cap, dcfg.aggregate)
+            idx, qk, cand, owner_of(qk, w), pvalid, w, cap, dcfg.aggregate,
+            mesh)
         recv_load = recv_load + load
         is_min = mini_r == bi
         keep = torch.where(is_min, ~dele, mem)
@@ -566,7 +570,7 @@ def _expand(aacum, allowed, cursor, B: int):
 
 
 def _remote_counts(lv, dcfg: DistConfig, indices, wprefix, valid,
-                   recv_load):
+                   recv_load, mesh: WorkerMesh):
     """Remote count minimization: (qks, min_i, min_c, count_ok,
     recv_load)."""
     w, cap = dcfg.num_workers, dcfg.route_capacity
@@ -575,7 +579,7 @@ def _remote_counts(lv, dcfg: DistConfig, indices, wprefix, valid,
         idx = indices[b.index_id]
         qk = _binding_key(wprefix, lv.bound_attrs, b.key_attrs, idx)
         cnt, ok, load = _remote_count(idx, qk, owner_of(qk, w), valid, w,
-                                      cap, dcfg.aggregate)
+                                      cap, dcfg.aggregate, mesh)
         qks.append(qk)
         cnts.append(cnt)
         count_ok = count_ok & ok
@@ -591,7 +595,8 @@ def _remote_counts(lv, dcfg: DistConfig, indices, wprefix, valid,
 # and rem-ext deferral backpressure)
 # ---------------------------------------------------------------------------
 
-def _build_dist_level(plan: Plan, dcfg: DistConfig, li: int):
+def _build_dist_level(plan: Plan, dcfg: DistConfig, li: int,
+                      mesh: WorkerMesh):
     lv = plan.levels[li]
     B = dcfg.base.batch
 
@@ -601,7 +606,7 @@ def _build_dist_level(plan: Plan, dcfg: DistConfig, li: int):
             [qu.prefix, qu.k, qu.weight], qu.size, B)
 
         qks, min_i, min_c, count_ok, recv_load = _remote_counts(
-            lv, dcfg, indices, wprefix, valid, state.recv_load)
+            lv, dcfg, indices, wprefix, valid, state.recv_load, mesh)
         remaining = torch.where(valid & count_ok,
                                 torch.clamp(min_c - wk, min=0), 0)
         allowed, aacum = _budget(remaining, B)
@@ -609,7 +614,7 @@ def _build_dist_level(plan: Plan, dcfg: DistConfig, li: int):
 
         new_prefix, alive, incomplete, n_isect, recv_load = \
             _propose_intersect(lv, dcfg, indices, wprefix, min_i, r, k_off,
-                               pvalid, recv_load, qks)
+                               pvalid, recv_load, qks, mesh)
         weight = _rows(wweight, r)
 
         # rem-ext deferral: advance each prefix past its last complete
@@ -637,16 +642,17 @@ def _build_dist_level(plan: Plan, dcfg: DistConfig, li: int):
     return branch
 
 
-def build_dist_step(plan: Plan, dcfg: DistConfig):
+def build_dist_step(plan: Plan, dcfg: DistConfig,
+                    mesh: WorkerMesh):
     """``step((state, pieces), indices, qsizes, psizes)``: one lock-step
     dataflow step.  Workers must agree on the branch (they all take part
     in its exchanges), so it is chosen from the queue sizes summed over
-    the workers (``qsizes``; ``psizes`` the piece queues' under balance):
-    the globally deepest non-empty level."""
+    every worker of the mesh (``qsizes``; ``psizes`` the piece queues'
+    under balance): the globally deepest non-empty level."""
     if dcfg.balance:
         from repro_torch.core.balance import build_balanced_step
-        return build_balanced_step(plan, dcfg)
-    branches = [_build_dist_level(plan, dcfg, li)
+        return build_balanced_step(plan, dcfg, mesh)
+    branches = [_build_dist_level(plan, dcfg, li, mesh)
                 for li in range(len(plan.levels))]
 
     def step(carry, indices, qsizes, psizes):
@@ -662,15 +668,17 @@ def build_dist_step(plan: Plan, dcfg: DistConfig):
 # the whole join: seed -> drain -> sum over the workers
 # ---------------------------------------------------------------------------
 
-def build_per_worker(plan: Plan, dcfg: DistConfig, step_hook=None):
-    """The dataflow of every worker: ``fn(indices, seed [w,S,width],
-    seed_n [w], seed_w [w,S])`` -> (count, proposals, intersections,
-    steps, overflow, max_load, sum_load[, out_buf, out_weight, out_n]) as
-    host numbers (the per-worker output rows as tensors).  ``seed_w``
-    carries signed seed weights (+1/-1).  ``step_hook(i, run)``, when
-    given, makes step ``i`` by calling ``run()`` and returning its result
-    (a profiler's window around one step)."""
-    step = build_dist_step(plan, dcfg)
+def build_per_worker(plan: Plan, dcfg: DistConfig, step_hook=None, *,
+                     mesh: WorkerMesh):
+    """The dataflow of the workers ``mesh``'s rank holds: ``fn(indices,
+    seed [wl,S,width], seed_n [wl], seed_w [wl,S])`` -> (count,
+    proposals, intersections, steps, overflow, max_load, sum_load[,
+    out_buf, out_weight, out_n]), the numbers host ints over the whole
+    mesh, the same on every rank (the rank's output rows as tensors).  ``seed_w`` carries signed seed
+    weights (+1/-1).  ``step_hook(i, run)``, when given, makes step ``i``
+    by calling ``run()`` and returning its result (a profiler's window
+    around one step)."""
+    step = build_dist_step(plan, dcfg, mesh)
     w, cap = dcfg.num_workers, dcfg.route_capacity
     collect = dcfg.base.mode == "collect"
     perm = list(np.argsort(np.asarray(plan.attr_order)))
@@ -678,21 +686,21 @@ def build_per_worker(plan: Plan, dcfg: DistConfig, step_hook=None):
     def per_worker(indices: Indices, seed: torch.Tensor,
                    seed_n: torch.Tensor, seed_w: torch.Tensor):
         dev = seed.device
-        S = seed.shape[1]
-        state = make_state(plan, dcfg.base, w, dev, seed_capacity=S)
+        wl, S = seed.shape[:2]
+        state = make_state(plan, dcfg.base, wl, dev, seed_capacity=S)
 
         # seed enqueue behind the remote seed filters
         alive = torch.arange(S, dtype=torch.int32, device=dev) < \
             seed_n[:, None]
         bound = tuple(plan.attr_order[:plan.seed_width])
-        route_ovf = torch.zeros(w, dtype=torch.int32, device=dev)
+        route_ovf = torch.zeros(wl, dtype=torch.int32, device=dev)
         for b in plan.seed_filters:
             idx = indices[b.index_id]
             qk = _binding_key(seed, bound, b.key_attrs, idx)
             qv = seed[..., bound.index(b.ext_attr)]
             mem, _, ok, _ld = _remote_member(
                 idx, qk, qv, owner_of(qk, w), alive, w,
-                max(cap, S // max(w // 2, 1) + 1), dcfg.aggregate)
+                max(cap, S // max(w // 2, 1) + 1), dcfg.aggregate, mesh)
             # a seed whose route slot overflowed got NO reply; dropping it
             # would silently undercount, so flag OVF_ROUTE and escalate
             route_ovf = route_ovf | torch.where(
@@ -729,16 +737,17 @@ def build_per_worker(plan: Plan, dcfg: DistConfig, step_hook=None):
                 ovf, OVF_SEED, 0)).to(torch.int32)
             if dcfg.balance:
                 from repro_torch.core.balance import make_piece_queues
-                pieces = make_piece_queues(plan, dcfg, dev)
+                pieces = make_piece_queues(plan, dcfg, dev, wl)
             carry = (state, pieces)
             L = len(plan.levels)
             while steps < dcfg.max_steps:
                 st, pcs = carry
                 # ONE host read a step: every queue's size summed over
-                # the workers (the piece queues' after them)
+                # the mesh's workers (the piece queues' after them), the
+                # same on every rank
                 sizes = torch.stack([q.size for q in st.queues]
                                     + [p.size for p in pcs])
-                g = psum(sizes.T).tolist()
+                g = psum(sizes.T, mesh).tolist()
                 if not any(s > 0 for s in g):
                     break
                 if step_hook is None:
@@ -749,16 +758,18 @@ def build_per_worker(plan: Plan, dcfg: DistConfig, step_hook=None):
                 steps += 1
             state, pieces = carry
 
-        count = psum(state.out_count)
-        props = psum(state.proposals)
-        isect = psum(state.intersections)
+        # the counters and the overflow kinds in one sum over the mesh;
         # per-bit sums, so distinct workers' overflow kinds OR (not add)
         shifts = torch.arange(len(_KIND_BITS), dtype=torch.int32,
                               device=dev)
-        bits = psum((state.overflow[:, None] >> shifts) & 1)
-        ovf = int(torch.where(bits > 0, 1 << shifts, 0).sum())
-        outs = (int(count), int(props), int(isect), steps, ovf,
-                int(pmax(state.recv_load)), int(psum(state.recv_load)))
+        tot = psum(torch.cat([
+            torch.stack([state.out_count, state.proposals,
+                         state.intersections, state.recv_load], 1),
+            ((state.overflow[:, None] >> shifts) & 1).to(torch.int64)], 1),
+            mesh).tolist()
+        ovf = sum(1 << i for i, b in enumerate(tot[4:]) if b > 0)
+        outs = (tot[0], tot[1], tot[2], steps, ovf,
+                int(pmax(state.recv_load, mesh)), tot[3])
         if collect:
             outs = outs + (state.out_buf, state.out_weight, state.out_n)
         return outs
@@ -789,8 +800,11 @@ def distributed_join(plan: Plan, relations: Dict[str, np.ndarray],
     without a config, on ``device``; ``None``: the card, see
     ``csr.resolve_device``).  The seeds are dealt to the workers in
     contiguous blocks.  ``indices`` reuses a :func:`partition_indices`
-    of the same relations; ``step_hook`` is ``build_per_worker``'s.
-    Raises ``CapacityOverflow`` when a buffer overflowed anywhere."""
+    of the same relations and mesh; ``step_hook`` is
+    ``build_per_worker``'s.  On a mesh of R ranks every rank calls it
+    with the same relations, runs its workers' blocks and returns the
+    same result: the whole mesh's numbers and rows.  Raises
+    ``CapacityOverflow`` when a buffer overflowed anywhere."""
     if mesh is None:
         mesh = make_host_mesh(cfg.num_workers if cfg is not None else 1,
                               device)
@@ -807,7 +821,8 @@ def distributed_join(plan: Plan, relations: Dict[str, np.ndarray],
         raise ValueError(f"config for {cfg.num_workers} workers on a mesh "
                          f"of {w}")
     if indices is None:
-        indices = partition_indices(plan, relations, w, device=dev)
+        indices = partition_indices(plan, relations, w, device=dev,
+                                    mesh=mesh)
     seed = seed_tuples_for(plan, relations)
     sw = plan.seed_width
     n = seed.shape[0]
@@ -818,20 +833,18 @@ def distributed_join(plan: Plan, relations: Dict[str, np.ndarray],
     # ``per - pad``, which with fewer than w² seeds counts padding rows of
     # the block before it as seeds (ROADMAP Queue 3); equal otherwise
     seed_n = np.clip(n - per * np.arange(w), 0, per).astype(np.int32)
-    out = build_per_worker(plan, cfg, step_hook)(
-        indices, torch.from_numpy(chunks).to(dev),
-        torch.from_numpy(seed_n).to(dev),
-        torch.ones((w, per), dtype=torch.int32, device=dev))
+    lo, hi = mesh.span
+    out = build_per_worker(plan, cfg, step_hook, mesh=mesh)(
+        indices, torch.from_numpy(chunks[lo:hi]).to(dev),
+        torch.from_numpy(seed_n[lo:hi]).to(dev),
+        torch.ones((hi - lo, per), dtype=torch.int32, device=dev))
     if out[4]:
         raise CapacityOverflow(out[4], where="distributed static join")
     res = DistJoinResult(out[0], out[1], out[2], out[3], out[5],
                          float(out[6]) / w)
     if cfg.base.mode == "collect":
-        bufs, wts, ns = (out[7].cpu().numpy(), out[8].cpu().numpy(),
-                         out[9].cpu().numpy())
-        res.tuples = np.concatenate([bufs[i, :ns[i]] for i in range(w)])
-        res.weights = np.concatenate([wts[i, :ns[i]] for i in range(w)])
-        res.worker_rows = ns.astype(np.int64)
+        res.worker_rows, (res.tuples, res.weights) = gather_rows(
+            out[9], (out[7], out[8]), mesh)
     return res
 
 
@@ -840,10 +853,11 @@ def distributed_join(plan: Plan, relations: Dict[str, np.ndarray],
 # ---------------------------------------------------------------------------
 
 class DistributedProgram:
-    """One whole-join dataflow of every worker for one (plan, config,
-    mesh): ``program(indices, seed [w,S,width], seed_n [w], seed_w [w,S])``
-    -> (count, proposals, intersections, steps, overflow, max_load,
-    sum_load[, out_buf, out_weight, out_n]), ``build_per_worker``'s.  The
+    """One whole-join dataflow of the rank's workers for one (plan,
+    config, mesh): ``program(indices, seed [wl,S,width], seed_n [wl],
+    seed_w [wl,S])`` -> (count, proposals, intersections, steps, overflow,
+    max_load, sum_load[, out_buf, out_weight, out_n]),
+    ``build_per_worker``'s.  The
     JAX package's program is a jitted ``shard_map`` with an AOT ``warm``;
     here it is the eager dataflow, built once and reused, and nothing is
     compiled per shape, so it has no ``warm``."""
@@ -852,7 +866,7 @@ class DistributedProgram:
         if dcfg.num_workers != mesh.num_workers:
             raise ValueError(f"config for {dcfg.num_workers} workers on a "
                              f"mesh of {mesh.num_workers}")
-        self._per_worker = build_per_worker(plan, dcfg)
+        self._per_worker = build_per_worker(plan, dcfg, mesh=mesh)
         self.mesh = mesh
         self.w = dcfg.num_workers
 
@@ -915,23 +929,25 @@ def run_program(program: DistributedProgram, w: int, collect: bool, indices,
     """Deal the seed, run one program, sum the workers' outputs: the
     ``dist.program`` fault point fires first, a non-zero overflow mask
     raises ``CapacityOverflow``, and the collected tuples are every
-    worker's rows in worker order."""
+    worker's rows in worker order.  On a mesh of R ranks every rank
+    deals the same batch and runs its workers' rows of it; the overflow
+    mask and the rows are the whole mesh's, so every rank returns (or
+    raises) the same."""
     faults.fire("dist.program")
     chunks, seed_n, wchunks = deal_seed(seed, weights, w, width,
                                         floor=seed_floor)
-    dev = torch.device(program.mesh.device)
-    out = program(indices, torch.from_numpy(chunks).to(dev),
-                  torch.from_numpy(seed_n).to(dev),
-                  torch.from_numpy(wchunks).to(dev))
+    mesh = program.mesh
+    lo, hi = mesh.span
+    dev = torch.device(mesh.device)
+    out = program(indices, torch.from_numpy(chunks[lo:hi]).to(dev),
+                  torch.from_numpy(seed_n[lo:hi]).to(dev),
+                  torch.from_numpy(wchunks[lo:hi]).to(dev))
     if out[4]:
         raise CapacityOverflow(out[4], where="distributed join",
                                detail=f"w={w} seed_floor={seed_floor}")
     tuples = wts = None
     if collect:
-        bufs, ws, ns = (out[7].cpu().numpy(), out[8].cpu().numpy(),
-                        out[9].cpu().numpy())
-        tuples = np.concatenate([bufs[i, :ns[i]] for i in range(w)])
-        wts = np.concatenate([ws[i, :ns[i]] for i in range(w)])
+        _, (tuples, wts) = gather_rows(out[9], (out[7], out[8]), mesh)
     return JoinResult(out[0], tuples, wts, out[1], out[2], out[3])
 
 
@@ -1028,6 +1044,10 @@ class DistDeltaBigJoin(_delta.DeltaBigJoin):
             if store.device != torch.device(mesh.device):
                 raise ValueError(f"shared store lives on {store.device}, "
                                  f"the mesh on {mesh.device}")
+            if store.mesh.ranks != mesh.ranks:
+                raise ValueError(
+                    f"shared store is held by {store.mesh.ranks} "
+                    f"ranks, the mesh by {mesh.ranks}")
         self.dcfg = dcfg
         self._programs: Dict[int, DistributedProgram] = {}
         super().__init__(query, initial_edges, cfg=dcfg.base,
@@ -1036,7 +1056,8 @@ class DistDeltaBigJoin(_delta.DeltaBigJoin):
 
     def _new_store(self, edges, compact_ratio, device):
         return _delta.RegionStore(edges, shard_w=self.w,
-                                  compact_ratio=compact_ratio, device=device)
+                                  compact_ratio=compact_ratio, device=device,
+                                  mesh=self.mesh)
 
     def _program(self, pi: int) -> DistributedProgram:
         if pi not in self._programs:

@@ -10,7 +10,10 @@ standing registration, ``serial`` runs the Generic-Join oracle baseline
 on the host.  ``--verify`` holds the delta mode's maintained change to
 the oracle's recount of the graph before and after the stream, and the
 static and distributed counts to the oracle's count.  Sessions run on
-``--device`` (default the card).
+``--device`` (default the card).  ``--mode distributed --backend
+gloo|nccl`` runs as one rank of a mesh of R processes (under ``python -m
+torch.distributed.run --nproc-per-node R``); rank 0 prints, and every
+rank raises on a mismatch.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 
 from repro_torch.api import Graph, GraphSession, QUERY_NAMES, oracle_count
 from repro_torch.data.synthetic import rmat_graph
+from repro_torch.launch.mesh import BACKENDS
 
 
 def main(argv=None):
@@ -47,14 +51,31 @@ def main(argv=None):
                     help="device of the session (cpu: the plain versions)")
     ap.add_argument("--workers", type=int, default=4,
                     help="mesh workers of the distributed mode")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="distributed mode: run as one rank of a mesh over "
+                    "torch.distributed (under python -m "
+                    "torch.distributed.run)")
     args = ap.parse_args(argv)
+    if args.backend and args.mode != "distributed":
+        ap.error("--backend needs --mode distributed")
+    if args.backend:
+        from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+        mesh = init_rank_mesh(args.workers, args.backend, args.device)
+        try:
+            return _run(args, mesh)
+        finally:
+            close_rank_mesh()
+    return _run(args, None)
 
+
+def _run(args, mesh):
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     g = Graph.from_edges(rmat_graph(args.scale, args.edge_factor,
                                     seed=args.seed))
     if args.symmetric:
         g = g.degree_relabel()
-    print(f"graph: {g.num_vertices:,} vertices {g.num_edges:,} edges "
-          f"(max outdeg {np.bincount(g.edges[:, 0]).max():,})")
+    say(f"graph: {g.num_vertices:,} vertices {g.num_edges:,} edges "
+        f"(max outdeg {np.bincount(g.edges[:, 0]).max():,})")
 
     if args.mode == "serial":
         t0 = time.time()
@@ -92,9 +113,9 @@ def main(argv=None):
                   f"recompute diff ✓")
         return handle.net_change
 
-    # static count: one device, or a mesh of --workers on it
-    mesh = None
-    if args.mode == "distributed":
+    # static count: one device, or a mesh of --workers on it (over the
+    # ranks of ``mesh`` when given)
+    if args.mode == "distributed" and mesh is None:
         from repro_torch.launch.mesh import make_host_mesh
         mesh = make_host_mesh(args.workers, args.device)
     session = GraphSession(g.edges, device=args.device, mesh=mesh,
@@ -106,13 +127,15 @@ def main(argv=None):
     count = handle.count()
     where = f"one {session.device.type} device" if session.local else \
         f"w={session.w} mesh on {session.device.type}"
-    print(f"BiGJoin: {count:,} results in {time.time()-t0:.2f}s "
-          f"({where}, register {t_reg:.2f}s)")
+    if mesh is not None and mesh.ranks > 1:
+        where += f" over {mesh.ranks} {mesh.backend} ranks"
+    say(f"BiGJoin: {count:,} results in {time.time()-t0:.2f}s "
+        f"({where}, register {t_reg:.2f}s)")
     if args.verify:
         want = oracle_count(handle.query, g.edges)
         if count != want:
             raise AssertionError(f"count {count:,} != oracle {want:,}")
-        print(f"verified: count {count:,} == serial GJ oracle ✓")
+        say(f"verified: count {count:,} == serial GJ oracle ✓")
     return count
 
 

@@ -177,6 +177,11 @@ class SessionPool:
             elif resolve_device(mesh.device) != self.device:
                 raise ValueError(f"the mesh's device {mesh.device} is not "
                                  f"the pool's {self.device}")
+            if mesh.ranks > 1:
+                raise NotImplementedError(
+                    f"a SessionPool on a mesh of {mesh.ranks} ranks: its "
+                    "threads, WAL and snapshots are one process's; pools "
+                    "across ranks are not ported yet")
         self.mesh = None if self.local else mesh
         self.balance = bool(balance)
         self.update_batch = int(update_batch)

@@ -238,6 +238,12 @@ class Durability:
     def __init__(self, directory: str, session, snapshot_every: int = 8,
                  keep_last: int = 3, fsync: bool = True):
         from repro_torch.checkpoint import CheckpointManager
+        mesh = getattr(session, "mesh", None)
+        if mesh is not None and mesh.ranks > 1:
+            raise NotImplementedError(
+                f"a WAL for a session on a mesh of {mesh.ranks} ranks: its "
+                "snapshots would hold one rank's shards; durability across "
+                "ranks is not ported yet")
         self.directory = directory
         self.session = session
         self.snapshot_every = int(snapshot_every)
