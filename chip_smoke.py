@@ -57,8 +57,12 @@ what is left); then 3-10, 12, 18 and 19 (21 only with ``--ranks-only``):
               drivers at w = 4 (``_delta_dist_check``,
               ``_nary_dist_check``, ``run_query --mode distributed
               --verify``, ``_serve_check --workers 4 --chaos`` with
-              ``dist.program`` faults), and phase 20's wcoj smoke run,
-              each a process that must exit 0
+              ``dist.program`` faults; and ``_serve_check``'s modes A,
+              B (``--supervise``, a job killed right after a WAL append
+              and resumed) and C (``--chaos`` over rank-0 and all-rank
+              fault points) with the pool at w = 4 over R = 2 gloo ranks
+              of ``torch.distributed.run``, every rank on the card), and
+              phase 20's wcoj smoke run, each a process that must exit 0
               with its exact line; the mesh across processes at a small
               size (a uniform graph of 16,384 edges, w = 4, B' 1,024):
               ``_dist_check`` plain and ``--balance`` and
@@ -113,8 +117,9 @@ what is left); then 3-10, 12, 18 and 19 (21 only with ``--ranks-only``):
               queue depth, restore and replay seconds, peak memory and
               the idle share of a profiled window; and, in processes of
               their own, ``_serve_check --supervise`` and ``--chaos``,
-              ``launch.serve`` (stream, concurrent, gemma2-2b) and
-              ``launch.run_query --mode delta``;
+              ``launch.serve`` (stream, concurrent, gemma2-2b, and the
+              stream over 2 gloo ranks with a snapshot every 2 epochs,
+              ``--backend gloo``) and ``launch.run_query --mode delta``;
 8. examples — every ``examples/torch_*.py`` twin in a process of its own
               on the card (the LM twin 40 steps): exit 0 and its "✓"
               lines;
@@ -236,7 +241,17 @@ what is left); then 3-10, 12, 18 and 19 (21 only with ``--ranks-only``):
               the seconds to the count (of the epochs) against one process
               and the exchange's share of them, every exchange timed
               between two device synchronisations in every run, one
-              process's included.
+              process's included; then the durable pool across ranks at
+              size (``ranks_serve_phase``): two tenants of R-MAT scale
+              18 at w = 4, 6 epochs of 2,048 dirty updates and a
+              snapshot every 4, as one process, as R = 2 ranks (gloo;
+              NCCL too with two cards), the R = 2 job killed right after
+              t1's WAL append of epoch 5 and resumed: every epoch's delta
+              and the final state (edges, every leaf of the gathered
+              snapshot) equal to one process's, with snapshot gather,
+              restore scatter and replay seconds, apply ms p50 against
+              one process, the bytes a rank sends for the snapshots and
+              each rank's device bytes (half of one process's).
 
 The second-to-last lines are the kernel table as one JSON object and the
 card's ``name, power.limit``; the last line is
@@ -2451,6 +2466,13 @@ POOL_CHILDREN = (
     ("serve concurrent", "repro_torch.launch.serve",
      ["--concurrent", "2", "--query", "triangle", "--scale", "12",
       "--epochs", "4", "--verify"], "✓"),
+    # the stream across 2 gloo ranks, every rank on the card, durable
+    ("serve stream ranks", "torch.distributed.run",
+     ["--standalone", "--nproc-per-node", "2", "-m",
+      "repro_torch.launch.serve", "--stream", "--workers", "4", "--backend",
+      "gloo", "--query", "triangle", "--scale", "12", "--epochs", "3",
+      "--verify", "--durable-dir", os.path.join("build", "pool_ranks"),
+      "--snapshot-every", "2"], "verified triangle"),
     ("serve gemma2-2b", "repro_torch.launch.serve",
      ["--arch", "gemma2-2b", "--steps", "8"], "decode:"),
     ("run_query delta", "repro_torch.launch.run_query",
@@ -2566,7 +2588,8 @@ def pool_phase(update_batch: int, seed: int) -> dict:
 
     root = os.path.dirname(os.path.abspath(__file__))
     durable = os.path.join(root, "build", "pool")
-    shutil.rmtree(durable, ignore_errors=True)
+    for d in (durable, os.path.join(root, "build", "pool_ranks")):
+        shutil.rmtree(d, ignore_errors=True)  # the stream child's too
     names = [f"t{i}" for i in range(POOL_TENANTS)]
     nv = 1 << POOL_SCALE
     per, size = POOL_BURST
@@ -3666,7 +3689,25 @@ MESH_CHILDREN = (
      ["--chaos", "--tenants", "2", "--workers", "4", "--epochs", "12",
       "--faults", "dist.program@3,dist.program@11,store.commit.fold@6"],
      '"oracle_exact": true'),
-)
+) + tuple(
+    # the serving pool over R = 2 gloo ranks, every rank on the card:
+    # modes A and C as jobs of torch.distributed.run, mode B a process
+    # that starts its jobs (each exits 0 only when its checks held)
+    (f"serve_check ranks {label}", module, head + args, mark)
+    for label, module, head, args, mark in (
+        ("pool", "torch.distributed.run", ["--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.serve._serve_check"],
+         ["--epochs", "8"], '"oracle_exact": true'),
+        ("supervise", "repro_torch.serve._serve_check",
+         ["--supervise", "--ranks", "2"],
+         ["--epochs", "8", "--kill-at", "5"], '"all_exact": true'),
+        ("chaos", "torch.distributed.run", ["--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.serve._serve_check"],
+         ["--chaos", "--epochs", "12", "--faults",
+          "dist.program@3,store.commit.fold@6,pool.apply@4,wal.append@2,"
+          "snapshot.write@1"], '"oracle_exact": true'))
+    for args in [args + ["--backend", "gloo", "--tenants", "2", "--workers",
+                         "4"]])
 
 
 # the mesh across processes: each harness as one process on the card and as
@@ -3772,12 +3813,119 @@ def ranks_only() -> int:
     """``--ranks-only``: the build, then phase 21."""
     import torch
     from repro_torch.kernels import _build
+    root = os.path.dirname(os.path.abspath(__file__))
     with phase("build"):
         _build.build(force=True)
     with phase("mesh ranks"):
-        ranks_phase(os.path.dirname(os.path.abspath(__file__)),
-                    torch.cuda.device_count())
+        ranks_phase(root, torch.cuda.device_count())
+    with phase("mesh ranks serve"):
+        ranks_serve_phase(root, torch.cuda.device_count())
     return 0
+
+
+# phase 21's durable serving across ranks: two tenants of the mesh
+# stream's R-MAT scale-18 graph at w = 4, 6 epochs of 2,048 dirty updates,
+# a snapshot every 4 epochs, each run alone: one process, then R = 2
+# ranks uninterrupted, killed right after tenant t1's WAL append of epoch
+# RANK_KILL_AT, and resumed from that directory
+RANK_SERVE = ["-m", "repro_torch.serve._serve_check", "--workers",
+              str(RANK_W), "--tenants", "2", "--rmat-scale",
+              str(REAL_SCALE), "--epochs", "6", "--batch-size",
+              str(REAL_BATCH), "--update-batch", str(REAL_BATCH),
+              "--snapshot-every", "4", "--no-oracle"]
+RANK_KILL_AT = 5
+
+
+def ranks_serve_phase(root: str, cards: int) -> dict:
+    """The durable pool at size as one process and over R = 2 ranks
+    (gloo, every rank on the card; NCCL, a rank a card, where there are
+    two cards): every epoch's delta and the final state (the live edges
+    and every leaf of each tenant's gathered snapshot) of the ranked run
+    and of the resumed one equal the one process's, the victim's WAL ends
+    at the killed epoch; snapshot gather, restore scatter and replay
+    seconds, apply ms p50 against one process, the bytes a rank sends for
+    the snapshots and each rank's device bytes (1/R of one process's),
+    beside the card's name and power limit."""
+    import shutil
+    from repro_torch.serve import WriteAheadLog
+    smi = nvidia_smi_line()
+    base = os.path.join(root, "build", "ranks_serve")
+    shutil.rmtree(base, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="1")
+
+    def run(label, argv, killed=False):
+        t0 = time.time()
+        p = subprocess.run([sys.executable] + argv, env=env, cwd=root,
+                           capture_output=True, text=True, timeout=900)
+        secs = time.time() - t0
+        log(f"  ranks serve {label}: rc {p.returncode}, {secs:.2f} s")
+        if (p.returncode != 0) != killed:
+            log(f"    stderr: {p.stderr[-3000:]}")
+            raise AssertionError(f"ranks serve: {label} exited "
+                                 f"{p.returncode}")
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+        if killed:
+            return None
+        if len(lines) != 1:
+            raise AssertionError(f"ranks serve: {label} printed "
+                                 f"{len(lines)} lines, not one")
+        return json.loads(lines[0])
+
+    one = run("one process", RANK_SERVE + [
+        "--durable-dir", os.path.join(base, "one")])
+    out = {"one": one["timing"]}
+    for backend in ["gloo"] + (["nccl"] if cards >= 2 else []):
+        job = ["-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2"] + RANK_SERVE + ["--backend",
+                                                        backend]
+        d = os.path.join(base, backend)
+        whole = run(f"R=2 {backend}", job + [
+            "--durable-dir", os.path.join(d, "whole")])
+        run(f"R=2 {backend} killed after t1's WAL append of epoch "
+            f"{RANK_KILL_AT}", job + [
+                "--durable-dir", os.path.join(d, "victim"), "--kill-at",
+                str(RANK_KILL_AT), "--kill-tenant", "t1"], killed=True)
+        wal = WriteAheadLog.verify(os.path.join(d, "victim", "t1",
+                                                "wal.log"))
+        if wal["last_epoch"] != RANK_KILL_AT:
+            raise AssertionError(f"ranks serve: the victim's WAL {wal}")
+        resumed = run(f"R=2 {backend} resumed", job + [
+            "--durable-dir", os.path.join(d, "victim")])
+        for label, rec in (("uninterrupted", whole), ("resumed", resumed)):
+            if rec["final"] != one["final"]:
+                raise AssertionError(f"ranks serve: {backend} {label} final "
+                                     f"{rec['final']} != one process's "
+                                     f"{one['final']}")
+            for n, per in rec["digests"].items():
+                if any(one["digests"][n].get(e) != dg
+                       for e, dg in per.items()):
+                    raise AssertionError(f"ranks serve: {backend} {label} "
+                                         f"{n} deltas differ")
+        if min(resumed["starts"].values()) < RANK_KILL_AT - 1 or \
+                resumed["replayed"] < 1:
+            raise AssertionError(f"ranks serve: no recovery in {resumed}")
+        t, tr, t1 = whole["timing"], resumed["timing"], one["timing"]
+        if any(b * 2 != t1["device_bytes"][0] for b in t["device_bytes"]):
+            raise AssertionError(f"ranks serve: device bytes "
+                                 f"{t['device_bytes']} not half of "
+                                 f"{t1['device_bytes']}")
+        out[backend] = {"whole": t, "resumed": tr}
+        log(f"  ranks serve: R=2 w={RANK_W} {backend}, scale {REAL_SCALE}, "
+            f"2 tenants: every epoch and the final state (edges, every "
+            f"snapshot leaf) equal to one process, uninterrupted and "
+            f"resumed (starts {resumed['starts']}, {resumed['replayed']} "
+            f"WAL epochs replayed); snapshot gather s {t['snapshot_s']}, "
+            f"one process {t1['snapshot_s']}; restore scatter s "
+            f"{tr['restore_s']}; replay s {tr['replay_s']}; apply ms p50 "
+            f"{t['apply_ms_p50']} against {t1['apply_ms_p50']} in one "
+            f"process; snapshot bytes a rank sends {t['snapshot_bytes']} "
+            f"(restore {tr['restore_bytes']}); device bytes a rank "
+            f"{t['device_bytes']} of {t1['device_bytes']}; {smi}")
+    if cards < 2:
+        log(f"  ranks serve: NCCL not run: this machine has {cards} card; "
+            f"{smi}")
+    return out
 
 
 def ranks_phase(root: str, cards: int) -> dict:

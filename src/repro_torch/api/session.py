@@ -16,7 +16,8 @@ hash-sharded over them and every query a
 ranks (``launch.mesh.init_rank_mesh``) spreads the w workers over R
 processes: each rank builds the session with the same arguments and
 makes the same calls, holds its workers' shards, and reads the whole
-mesh's answer from ``count()`` and ``update()``.  An update is a
+mesh's answer from ``count()`` and ``update()``; a snapshot is gathered
+to rank 0 and a restore scattered from it.  An update is a
 transaction (a failure rolls the store back to the epoch boundary), and
 :meth:`GraphSession.snapshot` / :meth:`GraphSession.restore` carry a
 session's state in the JAX package's snapshot format, either way.
@@ -395,16 +396,16 @@ class GraphSession:
                            compile_events=compilestats.since(snap))
 
     # -- durability ---------------------------------------------------------
-    def snapshot(self) -> Tuple[List[np.ndarray], dict]:
+    def snapshot(self) -> Optional[Tuple[List[np.ndarray], dict]]:
         """The session's state as ``(leaves, meta)``: the store's
         (``RegionStore.snapshot``) plus, under ``meta["session"]``, the
         epoch counter, the mesh width ``w`` and ``local``, and every handle
         (its DSL pattern and ``net_change``) — the JAX session's format.
         Save it with ``repro_torch.checkpoint.save_pytree(leaves, ...,
-        extra=meta)``.  A session on a mesh of ranks raises
-        ``NotImplementedError``."""
-        leaves, meta = self.store.snapshot()
-        meta["session"] = {
+        extra=meta)``.  On a mesh of ranks every rank calls it (a
+        collective, the session's meta included in the ranks' digest);
+        rank 0 gets the one-process snapshot and the others ``None``."""
+        return self.store.snapshot(extra={"session": {
             "epoch": int(self.epoch),
             "w": int(self.w),
             "local": bool(self.local),
@@ -412,27 +413,32 @@ class GraphSession:
             "handles": {name: {"pattern": pattern_of(h.query),
                                "net_change": int(h.net_change)}
                         for name, h in self.handles.items()},
-        }
-        return leaves, meta
+        }})
 
-    def restore(self, leaves: List[np.ndarray], meta: dict) -> None:
+    def restore(self, leaves: Optional[List[np.ndarray]],
+                meta: Optional[dict]) -> None:
         """Restore a :meth:`snapshot` (of either package's session of the
         same mesh width and mode) in place: the store's regions and
         ratchet marks, then the epoch and every handle, re-registered from
         its pattern with its ``net_change``.  A handle already registered
-        under the same name keeps its object and subscribers.  A session
-        on a mesh of ranks raises ``NotImplementedError``."""
-        self.store._one_process("restore")
+        under the same name keeps its object and subscribers.  On a mesh
+        of ranks every rank calls it and only rank 0's arguments are read
+        (the others pass ``None``): a snapshot taken at any number of
+        ranks, or by the JAX package, restores at any other."""
+        def check(meta):
+            sess = meta.get("session", {})
+            w = int(sess.get("w", self.w))
+            if w != self.w:
+                raise ValueError(
+                    f"snapshot was taken on a {w}-worker session; this one "
+                    f"has {self.w} workers — failover restores onto the "
+                    "same mesh width")
+            if bool(sess.get("local", self.local)) != self.local:
+                raise ValueError("snapshot engine mode (local/mesh) "
+                                 "mismatch")
+        meta, shapes = self.store.share_snapshot(leaves, meta, check)
         sess = meta.get("session", {})
-        w = int(sess.get("w", self.w))
-        if w != self.w:
-            raise ValueError(
-                f"snapshot was taken on a {w}-worker session; this one has "
-                f"{self.w} workers — failover restores onto the same mesh "
-                "width")
-        if bool(sess.get("local", self.local)) != self.local:
-            raise ValueError("snapshot engine mode (local/mesh) mismatch")
-        self.store.restore(leaves, meta)
+        self.store.restore(leaves, meta, shapes)
         self.epoch = int(sess.get("epoch", 0))
         for name, rec in sess.get("handles", {}).items():
             h = self.register(rec["pattern"], name=name)

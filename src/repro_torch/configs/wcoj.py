@@ -70,29 +70,46 @@ def _abstract_indices(plan, edges: int, w: int, delta: int = 0):
     return out
 
 
+def _parts(shape: Dict, w: int):
+    """(plan, config, abstract index shards, seeds a worker) of a cell on
+    ``w`` workers."""
+    q = Q.PAPER_QUERIES[shape["query"]]()
+    if shape["kind"] == "join":
+        plan = make_plan(q)
+        seed_total = shape["edges"]
+    else:
+        plan = make_delta_plan(delta_queries(q)[0])
+        seed_total = shape["delta"]
+    B = shape["batch"]
+    dcfg = DistConfig(BigJoinConfig(batch=B, mode="count"), w,
+                      route_capacity=max(4 * B // w, 16), aggregate=True)
+    indices = _abstract_indices(plan, shape["edges"], w,
+                                shape.get("delta", 0))
+    return plan, dcfg, indices, int(np.ceil(seed_total / w))
+
+
 def _build_cell(shape: Dict):
     def build(mesh):
         w = int(np.prod(list(mesh.values())))
-        q = Q.PAPER_QUERIES[shape["query"]]()
-        if shape["kind"] == "join":
-            plan = make_plan(q)
-            seed_total = shape["edges"]
-        else:
-            plan = make_delta_plan(delta_queries(q)[0])
-            seed_total = shape["delta"]
-        B = shape["batch"]
-        dcfg = DistConfig(BigJoinConfig(batch=B, mode="count"), w,
-                          route_capacity=max(4 * B // w, 16),
-                          aggregate=True)
-        indices = _abstract_indices(plan, shape["edges"], w,
-                                    shape.get("delta", 0))
-        S = int(np.ceil(seed_total / w))
+        plan, dcfg, indices, S = _parts(shape, w)
         # signed seed weights: all ones for static joins, ±1 for dR seeds
         args = (indices, _meta(w, S, 2), _meta(w), _meta(w, S))
         axes = (("workers",),) * 4
         return build_per_worker(plan, dcfg, mesh=WorkerMesh(w, "meta")), \
             args, axes, ()
     return build
+
+
+def step_exchange_bytes(shape_name: str, w: int) -> int:
+    """The bytes each device sends in one step of a cell on ``w`` devices,
+    every device a worker and a rank of its own: the
+    ``exchange.EXCHANGE_BYTES`` count of a step at the plan's deepest
+    level (the one the drain runs most, every binding's services;
+    ``core.distributed.step_exchange_bytes``), from the route buffers'
+    capacities at the cell's shapes."""
+    from repro_torch.core.distributed import step_exchange_bytes as step
+    plan, dcfg, indices, _ = _parts(SHAPES[shape_name], w)
+    return step(plan, dcfg, indices, len(plan.levels) - 1, ranks=w)
 
 
 def _smoke_run(_cfg=None, device=None):

@@ -62,6 +62,8 @@ takes every branch that calls a collective together with the others.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -74,7 +76,9 @@ from repro_torch.core.bigjoin import (BigJoinConfig, Indices, JoinResult,
 from repro_torch.core.capacity import Ratchet
 from repro_torch.core.csr import IndexData, build_index
 from repro_torch.core.dataflow_index import VersionedIndex
-from repro_torch.core.exchange import any_worker, gather_rows, worker_counts
+from repro_torch.core.exchange import (any_worker, broadcast_object,
+                                       gather_rows, gather_to_root, per_rank,
+                                       scatter_from_root, worker_counts)
 from repro_torch.core.plan import Plan, make_delta_plan
 from repro_torch.core.query import EDGE, Query, delta_queries
 from repro_torch.errors import (CapacityOverflow, ESCALATES_BATCH,
@@ -1255,14 +1259,6 @@ class RegionStore:
         return sum(t.nbytes for d in idx if d is not None
                    for _, t in self._index_parts(d))
 
-    def _one_process(self, what: str) -> None:
-        if self.mesh is not None and self.mesh.ranks > 1:
-            raise NotImplementedError(
-                f"{what} of a store held by {self.mesh.ranks} ranks: each "
-                "rank holds only its workers' shards, and a snapshot is "
-                "the whole store's; snapshots across ranks are not ported "
-                "yet")
-
     @staticmethod
     def _index_parts(idx: IndexData):
         parts = [("key", idx.key), ("val", idx.val), ("n", idx.n)]
@@ -1270,33 +1266,44 @@ class RegionStore:
             parts.append(("lo", idx.lo))
         return parts
 
-    def snapshot(self) -> Tuple[List[np.ndarray], dict]:
+    def _ranked(self) -> bool:
+        return self.mesh is not None and self.mesh.ranks > 1
+
+    def snapshot(self, extra: Optional[dict] = None
+                 ) -> Optional[Tuple[List[np.ndarray], dict]]:
         """The store's state as ``(leaves, meta)``: host numpy leaves in
         ``meta["names"]`` order and a JSON-safe ``meta``, leaf for leaf and
         key for key the JAX store's ``snapshot()``, so either package
         restores the other's.  A sharded store's leaves keep their leading
-        [w] worker axis and its counts are [w] lists.
+        [w] worker axis and its counts are [w] lists.  ``extra`` entries
+        are added to ``meta`` (the session's, under ``"session"``).
 
         Per relation (sorted): the live set's three regions
         ``rel/<rel>/{lb,lc_ins,lc_del}.{key,val,n[,lo]}`` and its counts;
         per non-derived projection (sorted by ``repr`` of its key):
         ``proj/<i>/{d_base,d_cins,d_cdel}.*`` and its counts; both ratchets'
         marks and the epoch counters.  Only at an epoch boundary: the
-        staged batch is transient."""
-        self._one_process("snapshot")
+        staged batch is transient.
+
+        On a mesh of R ranks this is a collective that every rank calls:
+        a digest of each rank's ``meta`` is gathered first (every host
+        decision reads the whole mesh, so they must agree; a disagreement
+        raises :class:`SnapshotError` on every rank), then each leaf's
+        [wl] rows are gathered to rank 0 one leaf at a time, so that rank
+        0's card holds at most one whole leaf.  Rank 0 returns the
+        one-process format, the same names, ``meta`` and [w] leaves; the
+        other ranks return ``None``."""
         if self._staged is not None:
             raise SnapshotError(
                 "snapshot mid-epoch: commit (or rollback) the staged batch "
                 "first — snapshots are epoch-boundary consistent")
-        leaves: List[np.ndarray] = []
+        tensors: List[torch.Tensor] = []
         names: List[str] = []
 
         def emit(prefix, idx):
             for suffix, t in self._index_parts(idx):
                 names.append(f"{prefix}.{suffix}")
-                # a copy even on the host: the leaves share no memory
-                # with the store's tensors
-                leaves.append(t.to("cpu", copy=True).numpy())
+                tensors.append(t)
 
         meta_rels = {}
         for rel in sorted(self._rels):
@@ -1341,35 +1348,102 @@ class RegionStore:
                        "epochs", "live_compactions")},
             "names": names,
         }
+        meta.update(extra or {})
+        if self._ranked():
+            digest = int.from_bytes(hashlib.sha256(json.dumps(
+                meta, sort_keys=True).encode()).digest()[:8], "little",
+                signed=True)
+            got = per_rank(digest, self.mesh)
+            if len(set(got)) != 1:
+                raise SnapshotError(
+                    f"the ranks' snapshot metas differ (digests {got}): "
+                    "their host state diverged")
+        # a copy even on the host: the leaves share no memory with the
+        # store's tensors
+        leaves = []
+        for t in tensors:
+            whole = gather_to_root(t, self.mesh) if self.shard_w else t
+            if whole is not None:
+                leaves.append(whole.to("cpu", copy=True).numpy())
+            del whole
+        if self._ranked() and self.mesh.rank != 0:
+            return None
         return leaves, meta
 
-    def restore(self, leaves: List[np.ndarray], meta: dict) -> None:
+    def share_snapshot(self, leaves: Optional[List[np.ndarray]],
+                       meta: Optional[dict], check=None
+                       ) -> Tuple[dict, list]:
+        """Check a snapshot against this store (after ``check(meta)``, the
+        caller's own check, which raises ``ValueError``) and return its
+        ``meta`` and each leaf's (shape, dtype str) on every rank: rank
+        0's arguments, broadcast on a mesh of ranks (the other ranks' are
+        ignored, and every rank raises what rank 0 found wrong), the
+        arguments themselves in one process."""
+        err, shapes = None, None
+        if not self._ranked() or self.mesh.rank == 0:
+            try:
+                if check is not None:
+                    check(meta)
+                names = meta.get("names", [])
+                if meta.get("format") != self.SNAPSHOT_FORMAT:
+                    raise ValueError(f"unknown snapshot format "
+                                     f"{meta.get('format')!r}")
+                if int(meta["shard_w"]) != int(self.shard_w):
+                    raise ValueError(
+                        f"snapshot was taken on a shard_w={meta['shard_w']}"
+                        f" store; this store has shard_w={self.shard_w} — "
+                        "restore onto the same mesh width")
+                if len(leaves) != len(names) or \
+                        len(set(names)) != len(names):
+                    raise ValueError(
+                        "snapshot leaves do not match meta['names']")
+                shapes = [(tuple(np.shape(a)), np.asarray(a).dtype.str)
+                          for a in leaves]
+            except ValueError as exc:
+                err = str(exc)
+        if self._ranked():
+            err, meta, shapes = broadcast_object((err, meta, shapes),
+                                                 self.mesh)
+        if err is not None:
+            raise ValueError(err)
+        return meta, shapes
+
+    def restore(self, leaves: Optional[List[np.ndarray]],
+                meta: Optional[dict], shapes: Optional[list] = None
+                ) -> None:
         """Replace this store's state by a :meth:`snapshot` (of either
         package), in place, every tensor on ``self.device``.  Engines
         resolve their regions through :meth:`indices_for` each run, so
-        they read the restored state without a rebuild."""
-        self._one_process("restore")
-        if meta.get("format") != self.SNAPSHOT_FORMAT:
-            raise ValueError(
-                f"unknown snapshot format {meta.get('format')!r}")
-        if int(meta["shard_w"]) != int(self.shard_w):
-            raise ValueError(
-                f"snapshot was taken on a shard_w={meta['shard_w']} store; "
-                f"this store has shard_w={self.shard_w} — restore onto the "
-                "same mesh width")
-        by_name = dict(zip(meta["names"], leaves))
-        if len(by_name) != len(meta["names"]) or \
-                len(leaves) != len(meta["names"]):
-            raise ValueError("snapshot leaves do not match meta['names']")
+        they read the restored state without a rebuild.  A snapshot of
+        another format or mesh width raises before anything changes.
+
+        On a mesh of R ranks this is a collective that every rank calls,
+        and only rank 0's ``leaves`` and ``meta`` are read (the other
+        ranks pass ``None``): ``meta`` is broadcast
+        (:meth:`share_snapshot`; a caller that already shared it passes
+        its ``meta`` and the ``shapes`` it returned), then each leaf's
+        [w] rows are scattered, each rank keeping its workers' span, so a
+        snapshot taken at any R restores at any other."""
+        if shapes is None:
+            meta, shapes = self.share_snapshot(leaves, meta)
+        root = not self._ranked() or self.mesh.rank == 0
+        at = {name: i for i, name in enumerate(meta["names"])}
         dev = self.device
 
+        def leaf(name) -> torch.Tensor:
+            i = at[name]
+            host = leaves[i] if root else None
+            if not self.shard_w:
+                return torch.tensor(np.asarray(host), device=dev)
+            shape, dt = shapes[i]
+            return scatter_from_root(
+                host, shape, torch.from_numpy(np.zeros(0, dt)).dtype,
+                self.mesh)
+
         def pull(prefix) -> IndexData:
-            lo = by_name.get(f"{prefix}.lo")
             return IndexData(
-                *(torch.tensor(np.asarray(by_name[f"{prefix}.{part}"]),
-                               device=dev) for part in ("key", "val", "n")),
-                None if lo is None else torch.tensor(np.asarray(lo),
-                                                     device=dev))
+                *(leaf(f"{prefix}.{part}") for part in ("key", "val", "n")),
+                leaf(f"{prefix}.lo") if f"{prefix}.lo" in at else None)
 
         def nval(v):
             arr = np.asarray(v, np.int64)

@@ -312,6 +312,38 @@ def remote_service(queries, dest: torch.Tensor, valid: torch.Tensor,
     return replies, ok, recv_load
 
 
+def service_bytes(slot_bytes: int, w: int, ranks: int, cap: int) -> int:
+    """``exchange.EXCHANGE_BYTES`` of one :func:`remote_service` call on
+    each rank of ``ranks``: every buffer of its all_to_alls is [wl,
+    w·cap] (the request words, the int32 sent mask, the replies), and the
+    (R - 1)/R of it addressed to other ranks' workers leaves the rank:
+    wl·(w - wl)·cap·``slot_bytes``, the slot's words' bytes summed."""
+    wl = w // ranks
+    return wl * (w - wl) * cap * int(slot_bytes)
+
+
+def step_exchange_bytes(plan: Plan, dcfg: "DistConfig", indices: Indices,
+                        li: int, ranks: int) -> int:
+    """``exchange.EXCHANGE_BYTES`` of one plain (no Balance) step at level
+    ``li`` on each rank of ``ranks``, from the buffers' capacities (what
+    the data fills does not change a buffer's size): each binding's count
+    (the key's words, the mask, an int32 count), resolve (the key, an
+    int32 offset, the mask, an int32 value) and membership (the key, an
+    int32 value, the mask, the int32 bits) service calls, and the psum of
+    the plan's queue sizes (int64 sums).  A key of 3-4 columns is two
+    int64 words; any other is one word of its index's key dtype."""
+    if dcfg.balance:
+        raise ValueError("the model counts the plain step, not Balance's")
+    w, cap = dcfg.num_workers, dcfg.route_capacity
+    total = 0
+    for b in plan.levels[li].bindings:
+        key = indices[b.index_id].pos[0].key
+        kb = 16 if len(b.key_attrs) > 2 else key.element_size()
+        total += service_bytes(kb + 8, w, ranks, cap)
+        total += 2 * service_bytes(kb + 12, w, ranks, cap)
+    return total + (ranks - 1) * 8 * len(plan.levels)
+
+
 def dedup_requests(key, valid: torch.Tensor):
     """BiGJoin-S aggregation (§3.4.2): collapse duplicate request keys of
     each worker.

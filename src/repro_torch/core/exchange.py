@@ -15,9 +15,18 @@ gloo takes CUDA tensors in these collectives (torch 2.11 on the H100
 machine; it copies them through host memory itself), so tensors stay on
 their device whatever the backend, and no branch here stages them.
 
+Three more exchanges move whole leaves and host objects between rank 0
+and the others, for snapshots, restores and the serving pool's schedule:
+:func:`gather_to_root` (every rank's ``[wl, ...]`` rows to rank 0 as
+``[w, ...]``), :func:`scatter_from_root` (rank 0's ``[w, ...]`` to each
+rank's span) and :func:`broadcast_object` (a small picklable object from
+rank 0).  With one rank each is the identity and calls no collective.
+
 ``EXCHANGE_BYTES`` counts, per kind, the bytes this rank hands to other
 ranks: the blocks of an ``all_to_all`` addressed to workers of other
-ranks, and a reduced or gathered tensor once for each other rank.  With
+ranks, a reduced or gathered tensor once for each other rank, a rank's
+rows sent to rank 0, and rank 0's spans and broadcast payload once for
+each other rank.  With
 ``TIMING[0]`` set, ``EXCHANGE_SECONDS`` adds the host time of each
 exchange between two device synchronizations: the collective with R
 ranks, the transpose or the reduction with one, so a one-process run
@@ -26,15 +35,17 @@ cost a round trip each).
 """
 from __future__ import annotations
 
+import pickle
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.launch.mesh import WorkerMesh
 
-KINDS = ("all_to_all", "psum", "pmax", "gather")
+KINDS = ("all_to_all", "psum", "pmax", "gather", "gather_root",
+         "scatter_root", "broadcast")
 EXCHANGE_BYTES: Dict[str, int] = dict.fromkeys(KINDS, 0)
 EXCHANGE_SECONDS: Dict[str, float] = dict.fromkeys(KINDS, 0.0)
 TIMING = [False]
@@ -168,3 +179,72 @@ def per_rank(value: int, mesh: WorkerMesh) -> List[int]:
     t = torch.tensor([int(value)], dtype=torch.int64,
                      device=torch.device(mesh.device))
     return [int(v) for v in _all_gather(t, mesh).tolist()]
+
+
+def gather_to_root(x: torch.Tensor, mesh: WorkerMesh
+                   ) -> Optional[torch.Tensor]:
+    """Every rank's [wl, ...] rows of one leaf, stacked in worker order
+    as [w, ...] on rank 0's device; ``None`` on the other ranks (ONE
+    ``gather``).  With one rank, ``x`` itself."""
+    R = mesh.ranks
+    if R == 1:
+        return _timed("gather_root", 0, x, lambda: x)
+    import torch.distributed as dist
+    x = x.contiguous()
+    root = mesh.rank == 0
+    out = x.new_empty((x.shape[0] * R,) + x.shape[1:]) if root else None
+    parts = list(out.split(x.shape[0])) if root else None
+    _timed("gather_root", 0 if root else x.nbytes, x,
+           lambda: dist.gather(x, parts, dst=0))
+    return out
+
+
+def scatter_from_root(leaf, shape: Sequence[int], dtype: torch.dtype,
+                      mesh: WorkerMesh) -> torch.Tensor:
+    """Rank 0's host leaf [w, ...] (``leaf``, read on rank 0 only) put on
+    the device, and each rank's span of its rows, [wl, ...] of ``shape``
+    and ``dtype``, returned on that rank's device (ONE ``scatter``).
+    With one rank, the leaf on the device."""
+    dev = torch.device(mesh.device)
+    R = mesh.ranks
+    if R == 1:
+        t = torch.tensor(np.asarray(leaf), device=dev)
+        return _timed("scatter_root", 0, t, lambda: t)
+    import torch.distributed as dist
+    wl = int(shape[0]) // R
+    out = torch.empty((wl,) + tuple(shape[1:]), dtype=dtype, device=dev)
+    parts = None
+    if mesh.rank == 0:
+        whole = torch.tensor(np.asarray(leaf), device=dev)
+        if tuple(whole.shape) != tuple(shape) or whole.dtype != dtype:
+            raise ValueError(f"leaf of {tuple(whole.shape)} {whole.dtype}, "
+                             f"not {tuple(shape)} {dtype}")
+        parts = list(whole.split(wl))
+    _timed("scatter_root", out.nbytes * (R - 1) if mesh.rank == 0 else 0,
+           out, lambda: dist.scatter(out, parts, src=0))
+    return out
+
+
+def broadcast_object(obj: Any, mesh: WorkerMesh) -> Any:
+    """Rank 0's ``obj`` (picklable, small) on every rank; the other ranks'
+    argument is ignored.  Its size, then its bytes, as int64 and uint8
+    tensors on the mesh's device.  With one rank, ``obj``."""
+    R = mesh.ranks
+    dev = torch.device(mesh.device)
+    if R == 1:
+        return obj
+    import torch.distributed as dist
+    root = mesh.rank == 0
+    blob = pickle.dumps(obj) if root else b""
+    n = torch.tensor([len(blob)], dtype=torch.int64, device=dev)
+
+    def call():
+        dist.broadcast(n, src=0)
+        data = torch.frombuffer(bytearray(blob), dtype=torch.uint8) \
+            .to(dev) if root else \
+            torch.empty(int(n.item()), dtype=torch.uint8, device=dev)
+        dist.broadcast(data, src=0)
+        return data
+    data = _timed("broadcast", (len(blob) + n.nbytes) * (R - 1)
+                  if root else 0, n, call)
+    return obj if root else pickle.loads(data.cpu().numpy().tobytes())

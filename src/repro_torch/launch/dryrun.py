@@ -31,16 +31,21 @@ so cannot run on ``meta``, and whose integer searches no counter counts,
 record the per-round work of ``configs.wcoj._model_flops``),
 ``kernel_ops_per_device``, ``probe`` and ``roofline`` (``compute_s`` =
 FLOPs / the bf16 peak, ``memory_s`` = 2 x (argument + temp bytes) / the
-memory rate).  Every number is a model estimate, not a measurement.
+memory rate; for the wcoj cells ``collective_s``, the bytes a device
+sends in one step, ``configs.wcoj.step_exchange_bytes``, over its
+NVLink and NDR links, ``launch.mesh.link_seconds``, and ``bound_s`` the
+largest of the three).  Every number is a model estimate, not a
+measurement.
 
 Dropped from the JAX dry run, with the reason: ``lower_s`` and
 ``compile_s`` (nothing is compiled); ``hlo_bytes_per_device`` and
 ``memory_s_nofusion`` (XLA's unfused operand count has no counterpart);
 the HLO collective parsing (``parse_collectives``, ``_wire_factor``,
-``_DTYPE_BYTES``, ``_cost_dict``) with ``collectives``, and
-``collective_s`` (null): there is no HLO to read and one process makes
-no collective; the ``XLA_FLAGS`` device-count override; ``output_bytes``
-(null): XLA chose the output layout.
+``_DTYPE_BYTES``, ``_cost_dict``) with ``collectives``: there is no HLO
+to read, so ``collective_s`` of the LM, GNN and recsys cells is null
+(their collectives are the sharding rules' and no counter models them
+yet; ``collective_basis`` says so); the ``XLA_FLAGS`` device-count
+override; ``output_bytes`` (null): XLA chose the output layout.
 
 Run: ``python -m repro_torch.launch.dryrun --mesh both`` (one JSON line
 a cell to ``--out``, default ``build/dryrun_torch.jsonl``; exit 1 if any
@@ -182,7 +187,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
     shape) for the other mesh."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import (BF16_OPS_PER_S, HBM_BYTES_PER_S,
-                                         make_production_mesh)
+                                         link_seconds, make_production_mesh)
 
     spec = get_arch(arch_id)
     cell = spec.cells[shape_name]
@@ -233,13 +238,26 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
         rec["probe"] = c["probe"]
     compute_s = flops_dev / BF16_OPS_PER_S
     memory_s = 2.0 * (arg_b + (temp or 0.0)) / HBM_BYTES_PER_S
-    dominant = "compute" if compute_s >= memory_s else "memory"
+    terms = {"compute": compute_s, "memory": memory_s}
+    if cell.kind in ANALYTIC_KINDS:
+        from repro_torch.configs.wcoj import step_exchange_bytes
+        sent = step_exchange_bytes(shape_name, chips)
+        collective_s = terms["collective"] = link_seconds(sent, chips)
+        basis = ("the bytes a device sends in one step (every device a "
+                 "worker and a rank), over NVLink in its node and NDR "
+                 "between nodes")
+    else:
+        sent = collective_s = None
+        basis = ("not modelled: one process makes no collective, and no "
+                 "counter models the sharding rules' collectives yet")
+    dominant = max(terms, key=terms.get)
     rec["roofline"] = {
         "compute_s": compute_s, "memory_s": memory_s,
-        "collective_s": None, "dominant": dominant,
+        "collective_s": collective_s, "collective_bytes_per_device": sent,
+        "collective_basis": basis, "dominant": dominant,
         "model_flops_total": model_flops,
         "useful_flops_ratio": model_flops / max(flops_dev * chips, 1.0),
-        "bound_s": max(compute_s, memory_s),
+        "bound_s": max(terms.values()),
     }
     if verbose:
         print(f"[{rec['mesh']}] {arch_id}/{shape_name}: args "

@@ -20,7 +20,9 @@ the JAX package's axis names and sizes as a mapping of name to size, read
 as 256 or 512 H100s.  No device stands behind it; ``distributed.sharding``
 turns it into each device's shard shapes.  The roofline constants below
 are the H100's, one source for the dry run and ``chip_smoke.py``'s kernel
-bounds (the JAX package's TPU v5e constants are not carried over).
+bounds (the JAX package's TPU v5e constants are not carried over), and
+:func:`link_seconds` turns a card's sent bytes into the dry run's
+collective time.
 """
 from __future__ import annotations
 
@@ -44,6 +46,14 @@ BACKENDS = ("gloo", "nccl")
 HBM_BYTES_PER_S = 3.35e12  # device memory
 SCALAR_OPS_PER_S = 67e12  # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # bf16 on the tensor cores
+# the links of an H100 SXM card, a direction: fourth-generation NVLink,
+# 900 GB/s both ways to the other cards of its 8-card node (NVIDIA H100
+# Tensor Core GPU data sheet), and between nodes one 400 Gb/s NDR
+# InfiniBand port a card (NVIDIA DGX H100 data sheet: eight ConnectX-7
+# 400 Gb/s ports for eight cards)
+NODE_CARDS = 8
+NVLINK_BYTES_PER_S = 450e9
+NDR_BYTES_PER_S = 50e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,13 +61,15 @@ class WorkerMesh:
     """``num_workers`` workers of the dataflow on ``device`` (a string:
     the mesh is hashable, like the JAX package's, and keys the program
     cache), held by rank ``rank`` of ``ranks`` processes of the default
-    process group (``backend``; ``None`` for one process)."""
+    process group (``backend``; ``None`` for one process), whose
+    collectives fail after ``timeout_s`` seconds (not part of the key)."""
 
     num_workers: int
     device: str
     ranks: int = 1
     rank: int = 0
     backend: Optional[str] = None
+    timeout_s: float = dataclasses.field(default=120.0, compare=False)
 
     def __post_init__(self):
         if int(self.num_workers) < 1:
@@ -143,7 +155,8 @@ def init_rank_mesh(num_workers: int, backend: str, device=None, *,
             backend, init_method=init_method or "env://", rank=rank,
             world_size=ranks,
             timeout=datetime.timedelta(seconds=float(timeout_s)))
-    return WorkerMesh(int(num_workers), str(dev), ranks, rank, backend)
+    return WorkerMesh(int(num_workers), str(dev), ranks, rank, backend,
+                      float(timeout_s))
 
 
 def close_rank_mesh() -> None:
@@ -151,6 +164,17 @@ def close_rank_mesh() -> None:
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+def link_seconds(sent_bytes: float, devices: int) -> float:
+    """The least time one card of ``devices`` (8-card NVLink nodes joined
+    by NDR InfiniBand) takes to send ``sent_bytes`` spread evenly over the
+    other cards: its shares to the 7 cards of its node over NVLink and to
+    the rest over its NDR port, at the same time."""
+    peers = max(int(devices) - 1, 1)
+    near = min(NODE_CARDS, int(devices)) - 1
+    return max(sent_bytes * near / peers / NVLINK_BYTES_PER_S,
+               sent_bytes * (peers - near) / peers / NDR_BYTES_PER_S)
 
 
 def make_production_mesh(multi_pod: bool = False) -> Dict[str, int]:

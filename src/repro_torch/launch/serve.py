@@ -18,6 +18,17 @@ serves both on a mesh of N workers (every region hash-sharded over them,
 ``--balance`` the BiGJoin-S Balance operator); ``--local`` keeps the
 one-device session.  Every mode runs on ``--device`` (default the card;
 ``--device cpu`` runs the plain versions on the host).
+
+``--backend gloo|nccl`` spreads the ``--workers`` workers of the stream
+and concurrent modes over the ranks of ``torch.distributed.run``
+(``launch.mesh.init_rank_mesh``; gloo may put every rank on one card,
+NCCL puts one rank on each): every rank admits the tenants and serves,
+rank 0 takes the stream's batches (the pool's ingress) and prints, and
+``--durable-dir`` is rank 0's::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve --stream --workers 4 --backend gloo \
+        --durable-dir build/serve --concurrent 2
 """
 from __future__ import annotations
 
@@ -28,13 +39,32 @@ import numpy as np
 import torch
 
 
+def _mesh(args):
+    """The mesh of the stream and concurrent modes: None (local), one
+    process's of ``--workers`` workers on ``--device``, or this rank's
+    over ``--backend`` (joined once)."""
+    from repro_torch.launch.mesh import init_rank_mesh, make_host_mesh
+    if args.local or args.workers <= 1:
+        return None
+    if args.backend:
+        if getattr(args, "rank_mesh", None) is None:
+            args.rank_mesh = init_rank_mesh(args.workers, args.backend,
+                                            args.device)
+        return args.rank_mesh
+    return make_host_mesh(args.workers, args.device)
+
+
+def _say(pool):
+    """``print`` on rank 0 (or in one process), nothing elsewhere."""
+    return print if pool.root else (lambda *a, **k: None)
+
+
 def _pool(args, **kw):
     """The pool of the stream and concurrent modes: local, or a mesh of
-    ``--workers`` workers on ``--device``."""
-    from repro_torch.launch.mesh import make_host_mesh
+    ``--workers`` workers on ``--device`` (over ranks with
+    ``--backend``)."""
     from repro_torch.serve import SessionPool
-    mesh = None if args.local or args.workers <= 1 else \
-        make_host_mesh(args.workers, args.device)
+    mesh = _mesh(args)
     return SessionPool(device=args.device, mesh=mesh, balance=args.balance,
                        update_batch=args.batch_size,
                        horizon=args.epochs * args.batch_size,
@@ -45,7 +75,10 @@ def _pool(args, **kw):
 def _where(session) -> str:
     if session.local:
         return f"one {session.device.type} device"
+    ranks = session.mesh.ranks
     return (f"a {session.w}-worker mesh on {session.device.type}"
+            + (f" over {ranks} {session.mesh.backend} ranks"
+               if ranks > 1 else "")
             + (" (balanced)" if session.balance else ""))
 
 
@@ -84,6 +117,7 @@ def serve_stream(args):
         state.update(handles=handles, needs_tri=needs_tri, tri0=tri0)
 
     pool = _pool(args, prewarm=args.prewarm)
+    say = _say(pool)
     t0 = time.time()
     tenant = pool.admit("stream", g.edges, setup=setup, coalesce=1,
                         batch=args.bprime, out_capacity=args.out_capacity)
@@ -94,18 +128,18 @@ def serve_stream(args):
     stream = EdgeUpdateStream(g.num_vertices, args.batch_size,
                               insert_frac=args.insert_frac,
                               skew=args.stream_skew, seed=args.seed + 1)
-    print(f"monitoring {', '.join(names)} over {g.num_edges:,} edges on "
-          f"{_where(session)}; {args.epochs} epochs x "
-          f"{args.batch_size} updates (one shared commit per epoch"
-          + (", tri relation fed by the standing triangle query)"
-             if needs_tri else ")"))
+    say(f"monitoring {', '.join(names)} over {g.num_edges:,} edges on "
+        f"{_where(session)}; {args.epochs} epochs x "
+        f"{args.batch_size} updates (one shared commit per epoch"
+        + (", tri relation fed by the standing triangle query)"
+           if needs_tri else ")"))
     if args.prewarm:
-        print(f"prewarm: admitted in {t_admit:.1f}s "
-              f"({tenant.stats.prewarm_compiles} compile events, kernel "
-              f"libraries in {_build.build_dir()})")
+        say(f"prewarm: admitted in {t_admit:.1f}s "
+            f"({tenant.stats.prewarm_compiles} compile events, kernel "
+            f"libraries in {_build.build_dir()})")
     if args.durable_dir and session.epoch > 0:
-        print(f"recovered epoch {session.epoch} from {args.durable_dir} "
-              f"({tenant.stats.replayed} WAL epochs replayed)")
+        say(f"recovered epoch {session.epoch} from {args.durable_dir} "
+            f"({tenant.stats.replayed} WAL epochs replayed)")
 
     times = []
     compiles = []
@@ -113,9 +147,11 @@ def serve_stream(args):
     updates_sent = 0
     # the stream generator needs the live set to pick deletes; maintain it
     # from each epoch's normalized (ins, dels) instead of pulling
-    # session.edges, an O(|E|) materialization of device state
+    # session.edges, an O(|E|) materialization of device state.  On a
+    # mesh of ranks rank 0 submits; the other ranks serve its records
+    # (pool.drain) until it drains too
     live = session.edges
-    for step in range(args.epochs):
+    for step in range(args.epochs if pool.root else 0):
         upd, wts = stream.batch_at(step, live=live)
         t0 = time.time()
         res = tenant.submit(upd, wts).result()
@@ -149,30 +185,35 @@ def serve_stream(args):
                 d.weights).sum()) for d in ds)
             changes += chg
             parts.append(f"{h.name} {cd:+,}")
-        print(f"  epoch {step}: {'  '.join(parts)} "
-              f"({changes:,} changes) in {dt*1e3:.0f} ms — "
-              f"{upd.shape[0]/dt:,.0f} upd/s, {changes/dt:,.0f} changes/s")
-    warm = times[2:] or times
-    warm_compiles = sum(compiles[2:]) if len(compiles) > 2 else 0
+        say(f"  epoch {step}: {'  '.join(parts)} "
+            f"({changes:,} changes) in {dt*1e3:.0f} ms — "
+            f"{upd.shape[0]/dt:,.0f} upd/s, {changes/dt:,.0f} changes/s")
+    pool.drain()
     st = session.stats
-    p50, p99 = np.percentile(times, [50, 99])
-    print(f"steady state: {np.median(warm)*1e3:.0f} ms/epoch, "
-          f"{args.batch_size/np.median(warm):,.0f} upd/s; net "
-          + " ".join(f"{h.name} {h.net_change:+,}" for h in handles)
-          + f"; {st.commit_calls} commits / {st.normalize_calls} "
-          f"normalizes over {st.epochs} epochs")
-    print(f"latency: p50 {p50*1e3:.1f} ms  p99 {p99*1e3:.1f} ms  max "
-          f"{max(times)*1e3:.1f} ms (p99/p50 {p99/max(p50, 1e-9):.1f}x); "
-          f"compile events: {st.prewarm_compiles} prewarm + "
-          f"{sum(compiles)} streaming ({warm_compiles} after warmup)")
+    if pool.root:
+        warm = times[2:] or times
+        warm_compiles = sum(compiles[2:]) if len(compiles) > 2 else 0
+        p50, p99 = np.percentile(times, [50, 99])
+        print(f"steady state: {np.median(warm)*1e3:.0f} ms/epoch, "
+              f"{args.batch_size/np.median(warm):,.0f} upd/s; net "
+              + " ".join(f"{h.name} {h.net_change:+,}" for h in handles)
+              + f"; {st.commit_calls} commits / {st.normalize_calls} "
+              f"normalizes over {st.epochs} epochs")
+        print(f"latency: p50 {p50*1e3:.1f} ms  p99 {p99*1e3:.1f} ms  max "
+              f"{max(times)*1e3:.1f} ms (p99/p50 "
+              f"{p99/max(p50, 1e-9):.1f}x); compile events: "
+              f"{st.prewarm_compiles} prewarm + {sum(compiles)} streaming "
+              f"({warm_compiles} after warmup)")
 
     if args.verify:
+        # collective reads on a mesh of ranks: every rank makes them, and
+        # rank 0 checks
         rels_now = {"edge": session.edges}
         rels_0 = {"edge": g.edges}
         if needs_tri:
             rels_now["tri"] = session.relation("tri")
             rels_0["tri"] = tri0
-        for h in handles:
+        for h in handles if pool.root else ():
             ref = oracle_count(h.query, rels_now)
             ref0 = oracle_count(h.query, rels_0)
             if h.net_change != ref - ref0:  # not assert: survives python -O
@@ -183,9 +224,9 @@ def serve_stream(args):
                   f"({ref:,} instances now) ✓")
         # one normalize per update, one commit per NON-no-op epoch,
         # regardless of how many standing queries are registered
-        if st.normalize_calls != updates_sent or \
-                st.commit_calls != updates_sent - noops or \
-                st.commit_calls != st.epochs:
+        if pool.root and (st.normalize_calls != updates_sent or
+                          st.commit_calls != updates_sent - noops or
+                          st.commit_calls != st.epochs):
             raise RuntimeError(
                 f"epoch contract violated: {st.commit_calls} commits / "
                 f"{st.normalize_calls} normalizes for {updates_sent} "
@@ -221,11 +262,14 @@ def serve_concurrent(args):
             name, graphs[name], queries=names, coalesce=args.coalesce,
             max_queue=args.max_queue, batch=args.bprime,
             out_capacity=args.out_capacity)
+    say = _say(pool)
     where = f"one {pool.device.type} device" if pool.local else \
-        f"a {pool.mesh.num_workers}-worker mesh on {pool.device.type}"
-    print(f"admitted {len(tenants)} tenants ({', '.join(names)} each) on "
-          f"{where} in {time.time()-t0:.1f}s; "
-          f"{args.epochs} epochs x {args.batch_size} updates per tenant")
+        f"a {pool.mesh.num_workers}-worker mesh on {pool.device.type}" + (
+            f" over {pool.mesh.ranks} {pool.mesh.backend} ranks"
+            if pool.mesh.ranks > 1 else "")
+    say(f"admitted {len(tenants)} tenants ({', '.join(names)} each) on "
+        f"{where} in {time.time()-t0:.1f}s; "
+        f"{args.epochs} epochs x {args.batch_size} updates per tenant")
 
     # materialize each tenant's live mirror + epoch on THIS thread, before
     # any client submits: session.edges runs a device fold, and all device
@@ -249,25 +293,28 @@ def serve_concurrent(args):
                 continue  # shed by backpressure
             live = ticket.result().advance(live)
 
+    # on a mesh of ranks the clients are rank 0's, and the other ranks
+    # serve its records until it drains
     threads = [threading.Thread(target=client, args=(n,), daemon=True)
-               for n in tenants]
+               for n in (tenants if pool.root else ())]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
     pool.drain()
     stats = pool.stats()
-    print(stats.render())
+    say(stats.render())
     if args.verify:
         for name, handle in tenants.items():
-            for h in handle.session.handles.values():
-                ref = oracle_count(h.query, {"edge": handle.session.edges})
+            live = handle.session.edges  # a collective on a mesh of ranks
+            for h in handle.session.handles.values() if pool.root else ():
+                ref = oracle_count(h.query, {"edge": live})
                 ref0 = oracle_count(h.query, {"edge": graphs[name]})
                 if h.net_change != ref - ref0:
                     raise RuntimeError(
                         f"{name}/{h.name}: maintained total "
                         f"{h.net_change} != recompute diff {ref - ref0}")
-            print(f"verified {name}: maintained totals == recompute ✓")
+            say(f"verified {name}: maintained totals == recompute ✓")
         if stats.serve_compiles:
             raise RuntimeError(
                 f"{stats.serve_compiles} serving-path compile events "
@@ -400,12 +447,25 @@ def main(argv=None):
                     "bit-exactly on restart")
     ap.add_argument("--snapshot-every", type=int, default=8,
                     help="snapshot cadence in epochs (with --durable-dir)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="spread the --workers workers of the stream and "
+                    "concurrent modes over the ranks of "
+                    "torch.distributed.run")
     args = ap.parse_args(argv)
+    if args.backend and (args.local or args.workers <= 1 or not (
+            args.stream or args.concurrent)):
+        ap.error("--backend serves the stream or concurrent mode on a "
+                 "mesh: give --workers above 1 and no --local")
 
-    if args.concurrent:
-        return serve_concurrent(args)
-    if args.stream:
-        return serve_stream(args)
+    try:
+        if args.concurrent:
+            return serve_concurrent(args)
+        if args.stream:
+            return serve_stream(args)
+    finally:
+        if args.backend:
+            from repro_torch.launch.mesh import close_rank_mesh
+            close_rank_mesh()
     if not args.arch:
         ap.error("--arch is required unless --stream is given")
     return serve_lm(args)

@@ -29,6 +29,20 @@ schedule then spans all eight fault points, ``dist.program`` (fired by
 each mesh program run) included.  One worker keeps the one-device
 sessions, where nothing fires ``dist.program``.
 
+``--backend gloo|nccl`` spreads the pool's mesh over the ranks of
+``python -m torch.distributed.run`` (``launch.mesh.init_rank_mesh``):
+rank 0 submits and checks, every rank serves, and rank 0 prints the
+line.  The isolated oracles stay one-process sessions (on the same
+number of workers) on rank 0.  Mode B with ``--backend`` is a plain
+process whose three runs are jobs of ``--ranks`` ranks under
+``torch.distributed.run``; the victim job ends when rank 0 exits right
+after its WAL append::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.serve._serve_check --backend gloo --workers 4
+    python -m repro_torch.serve._serve_check --supervise --backend gloo \
+        --ranks 2 --workers 4
+
 Every tenant gets its OWN initial graph and update stream (derived from
 ``--seed`` + tenant index, so a resume child regenerates them exactly);
 batches are drawn with ``insert_frac=0.5`` so the live set stays near its
@@ -45,12 +59,94 @@ CHAOS_POINTS = ("store.commit.fold", "store.normalize", "pool.prep",
 
 
 def _mesh(args):
-    """The mesh of ``--workers`` workers on ``--device``, or None for the
-    one-device sessions (one worker)."""
+    """The pool's mesh: ``--workers`` workers on ``--device``, over the
+    ranks of ``--backend`` when given (joined once, kept on ``args``), or
+    None for the one-device sessions (one worker)."""
+    if args.workers <= 1:
+        return None
+    if args.backend:
+        if getattr(args, "rank_mesh", None) is None:
+            from repro_torch.launch.mesh import init_rank_mesh
+            args.rank_mesh = init_rank_mesh(args.workers, args.backend,
+                                            args.device)
+        return args.rank_mesh
+    return _oracle_mesh(args)
+
+
+def _oracle_mesh(args):
+    """The isolated oracles' mesh: one process's, as many workers."""
     if args.workers <= 1:
         return None
     from repro_torch.launch.mesh import make_host_mesh
     return make_host_mesh(args.workers, args.device)
+
+
+def _is_root(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _leave(mesh) -> None:
+    if mesh is not None and mesh.ranks > 1:
+        from repro_torch.launch.mesh import close_rank_mesh
+        close_rank_mesh()
+
+
+def _graphs(args, names):
+    """Each tenant's initial graph (uniform, or R-MAT of ``--rmat-scale``,
+    edge factor 16) and the vertex count of the streams."""
+    from repro_torch.data.synthetic import rmat_graph, uniform_graph
+    if args.rmat_scale:
+        return {n: rmat_graph(args.rmat_scale, 16, seed=args.seed + i)
+                for i, n in enumerate(names)}, 1 << args.rmat_scale
+    return {n: uniform_graph(args.nv, args.ne, args.seed + i)
+            for i, n in enumerate(names)}, args.nv
+
+
+def _leaves_digest(snap):
+    """A digest of a snapshot's leaves, named (rank 0's; None on the other
+    ranks of a mesh).  Its meta stays out: a recovered session builds its
+    engines at the restored live count, so its ``("sizing",)`` ratchet
+    mark may sit a rung above the uninterrupted run's while every region
+    is the same."""
+    if snap is None:
+        return None
+    import hashlib
+    import numpy as np
+    h = hashlib.sha1()
+    for name, leaf in zip(snap[1]["names"], snap[0]):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(leaf).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _timing(handles, mesh):
+    """Each tenant's apply ms (p50) and the durability's last snapshot
+    gather, restore and replay seconds on rank 0, and a list a rank of
+    the snapshot rows sent to rank 0, the restore spans sent from it and
+    the device bytes of every tenant's store (a collective on a mesh)."""
+    import numpy as np
+    from repro_torch.core import exchange
+
+    def rank_list(v):
+        return exchange.per_rank(int(v), mesh) if mesh is not None \
+            else [int(v)]
+    out = {"apply_ms_p50": {}, "snapshot_s": {}, "restore_s": {},
+           "replay_s": {}}
+    for n, h in handles.items():
+        ms = h.stats.apply_ms
+        out["apply_ms_p50"][n] = float(np.percentile(ms, 50)) if ms \
+            else None
+        d = h.durability
+        if d is not None:
+            out["snapshot_s"][n] = d.snapshot_s
+            out["restore_s"][n] = d.restore_s
+            out["replay_s"][n] = d.replay_s
+    out["snapshot_bytes"] = rank_list(exchange.EXCHANGE_BYTES["gather_root"])
+    out["restore_bytes"] = rank_list(
+        exchange.EXCHANGE_BYTES["scatter_root"])
+    out["device_bytes"] = rank_list(sum(
+        h.session.store.device_bytes() for h in handles.values()))
+    return out
 
 
 def _digest(obj) -> str:
@@ -62,39 +158,44 @@ def worker(args) -> int:
     """One serving run (Mode A, or one leg of Mode B).  Drives every
     tenant synchronously — submit one batch per tenant per step, wait for
     all tickets — so per-epoch deltas are attributable and streams can be
-    re-derived from the live set after recovery."""
+    re-derived from the live set after recovery.  On a mesh of ranks the
+    other ranks serve rank 0's records meanwhile (``pool.drain``)."""
     import json
     import time
 
     import numpy as np
 
     from repro_torch.api import GraphSession, canon_signed as canon
-    from repro_torch.data.synthetic import EdgeUpdateStream, uniform_graph
+    from repro_torch.data.synthetic import EdgeUpdateStream
     from repro_torch.serve import SessionPool
 
     t_start = time.time()
+    mesh = _mesh(args)
+    root = _is_root(mesh)
 
     def note(msg):
         # stage timings on stderr: logs show where a slow run spends its
         # wall clock
-        sys.stderr.write(f"[serve_check +{time.time() - t_start:7.1f}s] "
-                         f"{msg}\n")
-        sys.stderr.flush()
+        if root:
+            sys.stderr.write(f"[serve_check +{time.time() - t_start:7.1f}s]"
+                             f" {msg}\n")
+            sys.stderr.flush()
 
+    from repro_torch.core import exchange
     names = [f"t{i}" for i in range(args.tenants)]
-    graphs = {n: uniform_graph(args.nv, args.ne, args.seed + i)
-              for i, n in enumerate(names)}
-    streams = {n: EdgeUpdateStream(args.nv, args.batch_size,
+    graphs, nv = _graphs(args, names)
+    streams = {n: EdgeUpdateStream(nv, args.batch_size,
                                    insert_frac=0.5, seed=args.seed + 100 + i)
                for i, n in enumerate(names)}
+    exchange.reset_counters()
 
     # In-process oracles FIRST (Mode A only): prewarming them here keeps
     # their kernel-library loads out of the pool's serving compile budget.
     oracles = {}
-    if args.oracle:
+    if args.oracle and root:
         for n in names:
             o = GraphSession(graphs[n], device=args.device,
-                             mesh=_mesh(args),
+                             mesh=_oracle_mesh(args),
                              update_batch=args.update_batch)
             o.register(args.query)
             spent = o.prewarm(horizon=args.update_batch * (args.epochs + 2))
@@ -114,7 +215,7 @@ def worker(args) -> int:
         kill_box[name] = epoch
 
     pool = SessionPool(
-        device=args.device, mesh=_mesh(args),
+        device=args.device, mesh=mesh,
         update_batch=args.update_batch,
         pipeline=not args.pump, durable_dir=args.durable_dir,
         snapshot_every=args.snapshot_every, fsync=not args.no_fsync,
@@ -133,7 +234,7 @@ def worker(args) -> int:
     digests = {n: {} for n in names}
     exact = True
     t0 = time.time()
-    for step in range(args.epochs):
+    for step in range(args.epochs if root else 0):
         tickets = {}
         for n in names:
             if step < starts[n]:
@@ -159,9 +260,13 @@ def worker(args) -> int:
                 od = ores.deltas[args.query]
                 exact = exact and (
                     served[n] == canon(od.tuples, od.weights))
+    if not root and args.pump:
+        for _ in range(args.epochs):
+            pool.pump()  # rank 0's pump of each step
     pool.drain()
     note(f"served {args.epochs} steps x {args.tenants} tenants")
     stats = pool.stats()
+    timing = _timing(handles, mesh)  # before the final snapshots below
     final = {}
     for n in names:
         s = handles[n].session
@@ -169,7 +274,9 @@ def worker(args) -> int:
             "epoch": int(s.epoch),
             "num_edges": int(s.num_edges),
             "edges": _digest(np.asarray(s.edges).tobytes()),
-            "net_change": int(s[args.query].net_change)}
+            "net_change": int(s[args.query].net_change),
+            # every leaf of the store, gathered to rank 0
+            "leaves": _leaves_digest(s.snapshot())}
         if n in oracles:
             o = oracles[n]
             exact = exact and (
@@ -181,6 +288,8 @@ def worker(args) -> int:
     out = {
         "mode": "worker", "device": str(pool.device),
         "workers": args.workers, "local": args.workers <= 1,
+        "ranks": 1 if mesh is None else mesh.ranks,
+        "backend": None if mesh is None else mesh.backend,
         "tenants": args.tenants, "epochs": args.epochs,
         "starts": {n: int(s) for n, s in starts.items()},
         "oracle_exact": bool(exact) if args.oracle else None,
@@ -191,7 +300,11 @@ def worker(args) -> int:
         "elapsed_s": round(time.time() - t0, 2),
         "digests": digests,
         "final": final,
+        "timing": timing,
     }
+    _leave(mesh)
+    if not root:
+        return 0
     print(json.dumps(out))
     ok = (exact if args.oracle else True) and agg["serve_compiles"] == 0
     return 0 if ok else 1
@@ -207,7 +320,8 @@ def chaos(args) -> int:
     in the same process under ``faults.disabled()`` and apply ONLY the
     batches whose tickets resolved, so any torn commit (a rollback that
     left partial state) or lost/duplicated batch shows up as a digest
-    mismatch."""
+    mismatch.  On a mesh of ranks every rank installs the same schedule
+    and pumps once a step; the oracles and the checks are rank 0's."""
     import json
     import shutil
     import tempfile
@@ -217,34 +331,41 @@ def chaos(args) -> int:
 
     from repro_torch import faults
     from repro_torch.api import GraphSession, canon_signed as canon
-    from repro_torch.data.synthetic import EdgeUpdateStream, uniform_graph
+    from repro_torch.data.synthetic import EdgeUpdateStream
     from repro_torch.serve import SessionPool
 
     t_start = time.time()
+    mesh = _mesh(args)
+    root = _is_root(mesh)
 
     def note(msg):
-        sys.stderr.write(f"[chaos +{time.time() - t_start:7.1f}s] {msg}\n")
-        sys.stderr.flush()
+        if root:
+            sys.stderr.write(f"[chaos +{time.time() - t_start:7.1f}s] "
+                             f"{msg}\n")
+            sys.stderr.flush()
 
     names = [f"t{i}" for i in range(args.tenants)]
-    graphs = {n: uniform_graph(args.nv, args.ne, args.seed + i)
-              for i, n in enumerate(names)}
-    streams = {n: EdgeUpdateStream(args.nv, args.batch_size,
+    graphs, nv = _graphs(args, names)
+    streams = {n: EdgeUpdateStream(nv, args.batch_size,
                                    insert_frac=0.5, seed=args.seed + 100 + i)
                for i, n in enumerate(names)}
 
     oracles = {}
-    for n in names:
+    for n in names if root else ():
         o = GraphSession(graphs[n], device=args.device,
-                         mesh=_mesh(args), update_batch=args.update_batch)
+                         mesh=_oracle_mesh(args),
+                         update_batch=args.update_batch)
         o.register(args.query)
         o.prewarm(horizon=args.update_batch * (args.epochs + 2))
         oracles[n] = o
     note(f"{len(oracles)} fault-free oracles prewarmed")
 
-    tmp = args.durable_dir or tempfile.mkdtemp(prefix="serve_chaos_")
+    # rank 0 owns the durable directory: the others never touch it
+    made = not args.durable_dir and root
+    tmp = args.durable_dir or (tempfile.mkdtemp(prefix="serve_chaos_")
+                               if root else "rank-0-only")
     pool = SessionPool(
-        device=args.device, mesh=_mesh(args),
+        device=args.device, mesh=mesh,
         update_batch=args.update_batch,
         pipeline=False, durable_dir=tmp,
         snapshot_every=args.snapshot_every, fsync=not args.no_fsync,
@@ -282,6 +403,9 @@ def chaos(args) -> int:
     t0 = time.time()
     try:
         for step in range(args.epochs):
+            if not root:
+                pool.pump()  # rank 0's records of this step
+                continue
             tickets = {}
             for n in names:
                 upd, w = streams[n].batch_at(step, live=lives[n])
@@ -322,12 +446,14 @@ def chaos(args) -> int:
         with faults.disabled():
             for n in names:
                 s = handles[n].session
-                o = oracles[n]
                 final[n] = {
                     "epoch": int(s.epoch),
                     "num_edges": int(s.num_edges),
                     "edges": _digest(np.asarray(s.edges).tobytes()),
                     "net_change": int(s[args.query].net_change)}
+                if n not in oracles:
+                    continue
+                o = oracles[n]
                 exact = exact and (
                     final[n]["edges"]
                     == _digest(np.asarray(o.edges).tobytes())
@@ -337,8 +463,11 @@ def chaos(args) -> int:
         pool.close()
     finally:
         faults.clear()
-        if not args.durable_dir:
+        if made:
             shutil.rmtree(tmp, ignore_errors=True)
+    _leave(mesh)
+    if not root:
+        return 0
 
     agg = stats.aggregate()
     accounted = all(
@@ -351,6 +480,8 @@ def chaos(args) -> int:
     out = {
         "mode": "chaos", "device": str(pool.device),
         "workers": args.workers, "local": args.workers <= 1,
+        "ranks": 1 if mesh is None else mesh.ranks,
+        "backend": None if mesh is None else mesh.backend,
         "tenants": args.tenants, "epochs": args.epochs,
         "faults_injected": len(injected),
         "injected": [f"{p}@{h}" for p, h in injected[:40]],
@@ -376,7 +507,10 @@ def chaos(args) -> int:
 def supervise(args) -> int:
     """Mode B parent: oracle run beside a victim run (killed mid-stream),
     then a resume run — then diff digests.  Each run is a child process
-    of THIS module, so the victim can die by ``os._exit``."""
+    of THIS module, so the victim can die by ``os._exit``; with
+    ``--backend`` each run is a job of ``--ranks`` ranks under
+    ``torch.distributed.run``, which ends the whole job when rank 0
+    exits."""
     import json
     import shutil
     import subprocess
@@ -384,13 +518,27 @@ def supervise(args) -> int:
     import time
     from concurrent.futures import ThreadPoolExecutor
 
+    if args.backend and ("RANK" in os.environ
+                         or "WORLD_SIZE" in os.environ):
+        raise SystemExit("--supervise starts its own jobs of ranks: run it "
+                         "as a plain process, not under "
+                         "torch.distributed.run")
+    launcher = [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", str(args.ranks), "-m",
+                "repro_torch.serve._serve_check", "--backend",
+                args.backend] if args.backend else \
+        [sys.executable, "-m", "repro_torch.serve._serve_check"]
+
     def run(extra, expect=0):
-        cmd = [sys.executable, "-m", "repro_torch.serve._serve_check",
+        # a killed job of ranks exits with torch.distributed.run's code
+        # for a failed worker, not the victim's own
+        cmd = launcher + [
                "--device", args.device,
                "--tenants", str(args.tenants),
                "--workers", str(args.workers),
                "--epochs", str(args.epochs),
                "--nv", str(args.nv), "--ne", str(args.ne),
+               "--rmat-scale", str(args.rmat_scale),
                "--batch-size", str(args.batch_size),
                "--update-batch", str(args.update_batch),
                "--seed", str(args.seed), "--query", args.query,
@@ -404,11 +552,12 @@ def supervise(args) -> int:
         sys.stderr.write(f"[supervise] child {extra or ['oracle']} exited "
                          f"{p.returncode} in {time.time() - t0:.0f}s\n")
         sys.stderr.flush()
-        if p.returncode != expect:
+        if p.returncode != expect and not (
+                args.backend and expect and p.returncode):
             sys.stderr.write(p.stdout + p.stderr)
             raise SystemExit(
                 f"child {extra} exited {p.returncode}, wanted {expect}")
-        line = p.stdout.strip().splitlines()
+        line = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
         return json.loads(line[-1]) if line else None
 
     tmp = tempfile.mkdtemp(prefix="serve_check_")
@@ -444,6 +593,8 @@ def supervise(args) -> int:
         print(json.dumps({
             "mode": "supervise", "device": args.device,
             "workers": args.workers, "local": args.workers <= 1,
+            "ranks": args.ranks if args.backend else 1,
+            "backend": args.backend or None,
             "tenants": args.tenants, "epochs": args.epochs,
             "kill_at": args.kill_at, "kill_tenant": kill_tenant,
             "resume_starts": resumed["starts"],
@@ -490,6 +641,10 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--update-batch", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rmat-scale", type=int, default=0,
+                    help="each tenant's graph an R-MAT graph of this scale "
+                    "(edge factor 16) instead of the uniform --nv/--ne "
+                    "one")
     ap.add_argument("--query", default="triangle")
     ap.add_argument("--durable-dir", default=None)
     ap.add_argument("--snapshot-every", type=int, default=4)
@@ -500,7 +655,16 @@ def main(argv=None) -> int:
     ap.add_argument("--kill-at", type=int, default=0,
                     help="os._exit(9) when --kill-tenant logs this epoch")
     ap.add_argument("--kill-tenant", default="t0")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="serve on a mesh of --workers workers over the "
+                    "ranks of torch.distributed.run (--supervise: start "
+                    "jobs of --ranks ranks)")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="--supervise --backend: ranks of each job")
     args = ap.parse_args(argv)
+    if args.backend and args.workers <= 1:
+        ap.error("--backend spreads a mesh over ranks: give --workers "
+                 "above 1")
     if args.workers < 1:
         raise ValueError(f"--workers must be at least 1, got "
                          f"{args.workers}")

@@ -47,6 +47,31 @@ every kernel library of the session's path loaded) before the tenant
 serves, so steady-state serving records ZERO compile events
 (``ServeStats.serve_compiles``).  Admission, and the recovery replay in
 it, runs on the caller's thread.
+
+**On a mesh of ranks** (``mesh`` with ``ranks > 1``, from
+``launch.mesh.init_rank_mesh``) every rank builds the pool with the same
+arguments and admits the same tenants in the same order (admission, its
+recovery included, is a collective, made while rank 0 does not serve).
+Rank 0 is the ingress: ``submit`` works only there, and rank 0 alone
+coalesces, prepares and schedules.  Before each apply its apply thread
+broadcasts a schedule record (the tenant, the merged raw batch, whether
+the WAL still takes it and whether a snapshot is due, the tenants
+fenced off); the other ranks' apply loops receive it, ``prepare`` the
+batch themselves and apply it, so every rank makes the same collectives
+in the same order, and the apply thread (or the loop of ``drain``) is
+the only one of a rank that makes one.  Rank 0 decides what only it
+sees (a failed prep is never broadcast; WAL retries, degradation and
+quarantine travel in the next record), every rank fires ``pool.apply``
+and the store's and the mesh's fault points itself at the same hits,
+and every rank checks that the ranks agree on each epoch's outcome.
+Tickets resolve on rank 0.  A serving period runs from rank 0's first
+submit to a ``drain``/``pump``/``close``, which every rank calls at the
+same point of its program: rank 0's sends one stop record, and the
+other ranks' follow the records until it.  Meanwhile an idle rank 0
+sends an idle record every ``idle_s`` seconds (a quarter of the group's
+timeout), so an idle pool never trips that timeout.
+Collective reads of a session (``session.edges``, ``count()``) belong
+between serving periods, on every rank in the same order.
 """
 from __future__ import annotations
 
@@ -135,6 +160,12 @@ class TenantHandle:
     def stats(self) -> TenantStats:
         return self.pool._tenants[self.name].stats
 
+    @property
+    def durability(self) -> Optional[Durability]:
+        """The tenant's snapshot + WAL manager (None without
+        ``durable_dir``)."""
+        return self.pool._tenants[self.name].durability
+
     def submit(self, updates, weights=None, *, block: bool = True,
                timeout: Optional[float] = None) -> Optional[Ticket]:
         return self.pool.submit(self.name, updates, weights, block=block,
@@ -152,7 +183,9 @@ class SessionPool:
     ``local``, ``mesh`` and ``balance`` choose every tenant's engine as
     ``GraphSession``'s do: ``local=False`` without a ``mesh`` builds one of
     ``launch.mesh.DEFAULT_WORKERS`` (4) workers on the pool's device, and
-    every tenant's session is built on the pool's mesh."""
+    every tenant's session is built on the pool's mesh.  On a mesh of
+    ranks (module docstring) rank 0 sends an idle record after
+    ``idle_s``, a quarter of the mesh's timeout, without one."""
 
     def __init__(self, *, device=None, local: Optional[bool] = None,
                  mesh=None, balance: bool = False, update_batch: int = 2048,
@@ -177,12 +210,13 @@ class SessionPool:
             elif resolve_device(mesh.device) != self.device:
                 raise ValueError(f"the mesh's device {mesh.device} is not "
                                  f"the pool's {self.device}")
-            if mesh.ranks > 1:
-                raise NotImplementedError(
-                    f"a SessionPool on a mesh of {mesh.ranks} ranks: its "
-                    "threads, WAL and snapshots are one process's; pools "
-                    "across ranks are not ported yet")
         self.mesh = None if self.local else mesh
+        # the mesh of ranks that every apply follows (None: one process)
+        self._ranks = self.mesh if self.mesh is not None and \
+            self.mesh.ranks > 1 else None
+        self.root = self._ranks is None or self._ranks.rank == 0
+        self.idle_s = self._ranks.timeout_s / 4 if self._ranks is not None \
+            else 0.0
         self.balance = bool(balance)
         self.update_batch = int(update_batch)
         self.prewarm = bool(prewarm)
@@ -208,6 +242,7 @@ class SessionPool:
         self._rr = {"prep": 0, "apply": 0}
         self._inflight = 0
         self._stop = False
+        self._pause = False  # rank 0: end the serving period
         self._threads: List[threading.Thread] = []
         self._error: Optional[BaseException] = None
         self._prewarm_compiles = 0
@@ -225,10 +260,16 @@ class SessionPool:
         register ``queries`` (names/patterns/Query objects), run the
         optional ``setup(session)`` hook (extra relations, subscriptions),
         recover durable state if present, then prewarm — so the tenant's
-        serving path never compiles.  Returns its handle."""
+        serving path never compiles.  Returns its handle.  On a mesh of
+        ranks every rank admits the same tenants with the same arguments
+        in the same order, outside a serving period."""
         from repro_torch.api import GraphSession
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} already admitted")
+        if self._ranks is not None and self._threads:
+            raise RuntimeError(
+                "admission on a mesh of ranks is a collective: drain() "
+                "first, on every rank")
         session = GraphSession(
             initial, device=self.device, local=self.local, mesh=self.mesh,
             balance=self.balance, batch=batch, out_capacity=out_capacity,
@@ -299,7 +340,12 @@ class SessionPool:
         """Enqueue one batch for ``name``.  Bounded-queue backpressure:
         a full queue blocks this caller (``block=True``) or sheds the
         batch and returns None (``block=False`` / timeout expiry) — the
-        device and the other tenants never wait on it."""
+        device and the other tenants never wait on it.  On a mesh of
+        ranks only rank 0 takes batches."""
+        if not self.root:
+            raise ValueError(
+                f"submit on rank {self._ranks.rank}: rank 0 is the pool's "
+                "ingress on a mesh of ranks")
         t = self._tenants[name]
         if t.quarantined:
             raise RuntimeError(
@@ -502,6 +548,8 @@ class SessionPool:
         A failed apply aborts the epoch's WAL record so recovery never
         replays a batch the live run rejected; a kernel that fails to
         build or launch fails the epoch the same way."""
+        if self._ranks is not None:
+            return self._apply_ranked(t, prep, tickets, prep_ms)
         t0 = time.perf_counter()
         faults_before = len(faults.injected())
         logged = False
@@ -515,38 +563,141 @@ class SessionPool:
             with self._device_scope():
                 res = t.session.update(prepared=prep)
                 if t.durability is not None and t.durable:
-                    try:
-                        t.durability.maybe_snapshot()
-                    except Exception:
-                        # the epoch is already durable in the WAL; a
-                        # failed snapshot only skips the cadence, never
-                        # the commit
-                        with self._cv:
-                            t.stats.wal_errors += 1
+                    self._snapshot(t)
         except Exception as e:
-            if logged:
-                try:
-                    t.durability.wal.abort_last()
-                except WalError:
-                    pass
-            self._sync_robustness(t, faults_before)
-            self._fail_group(t, tickets, e)
+            self._failed(t, tickets, e, logged, faults_before)
             return
-        ms = (time.perf_counter() - t0) * 1e3
+        self._retired(t, len(tickets), prep_ms,
+                      (time.perf_counter() - t0) * 1e3, faults_before)
+        for ticket in tickets:
+            ticket._resolve(result=res)
+
+    def _snapshot(self, t: _Tenant) -> None:
+        """The snapshot cadence after a committed epoch: the epoch is
+        already durable in the WAL, so a failed snapshot only skips the
+        cadence, never the commit."""
+        try:
+            t.durability.maybe_snapshot()
+        except Exception:
+            with self._cv:
+                t.stats.wal_errors += 1
+
+    def _failed(self, t: _Tenant, tickets, error, logged: bool,
+                faults_before: int) -> None:
+        """A failed epoch: abort its WAL record (recovery must not replay
+        a batch the live run rejected) and fail its group."""
+        if logged:
+            with contextlib.suppress(WalError):
+                t.durability.wal.abort_last()
+        self._sync_robustness(t, faults_before)
+        self._fail_group(t, tickets, error)
+
+    def _retired(self, t: _Tenant, n: int, prep_ms: float, ms: float,
+                 faults_before: int) -> None:
+        """A committed epoch of ``n`` batches: the tenant's counters (and
+        on rank 0 the batches in flight)."""
         self._sync_robustness(t, faults_before)
         with self._cv:
             t.consecutive_failures = 0
             t.stats.epochs += 1
-            t.stats.retired += len(tickets)
-            t.stats.coalesced_away += len(tickets) - 1
+            t.stats.retired += n
+            t.stats.coalesced_away += n - 1
             t.stats.prep_ms.append(prep_ms)
             t.stats.apply_ms.append(ms)
             if t.durability is not None:
                 t.stats.snapshots = t.durability.snapshots
-            self._inflight -= len(tickets)
+            if self.root:
+                self._inflight -= n
             self._cv.notify_all()
+
+    # -- a mesh of ranks: the schedule records ---------------------------
+    def _send(self, op: str, **fields) -> None:
+        """Rank 0: broadcast one schedule record (``apply``, ``idle`` or
+        ``stop``) with the tenants fenced off so far."""
+        from repro_torch.core.exchange import broadcast_object
+        with self._cv:
+            fenced = [n for n in self._names if self._tenants[n].quarantined]
+        broadcast_object(dict(fields, op=op, fenced=fenced), self._ranks)
+
+    def _apply_ranked(self, t: _Tenant, prep, tickets, prep_ms):
+        """Rank 0's stage B on a mesh of ranks: the WAL append (rank 0's
+        alone; a failure there fails the group before any record), then
+        the record, then the apply every rank makes (``_run_record``)."""
+        t0 = time.perf_counter()
+        faults_before = len(faults.injected())
+        logged = False
+        try:
+            if t.durability is not None and t.durable:
+                epoch = self._wal_log(t, prep.raw)
+                logged = epoch is not None
+                if logged and self.on_logged is not None:
+                    self.on_logged(t.name, epoch)
+        except Exception as e:
+            self._failed(t, tickets, e, logged, faults_before)
+            return
+        durable = t.durability is not None and t.durable
+        snap = durable and t.durability.due(t.session.epoch + 1)
+        self._send("apply", tenant=t.name, raw=prep.raw, durable=durable,
+                   snapshot=snap, tickets=len(tickets))
+        res, err = self._run_record(t, prep, snap)
+        if err is not None:
+            self._failed(t, tickets, err, logged, faults_before)
+            return
+        self._retired(t, len(tickets), prep_ms,
+                      (time.perf_counter() - t0) * 1e3, faults_before)
         for ticket in tickets:
             ticket._resolve(result=res)
+
+    def _run_record(self, t: _Tenant, prep, snapshot: bool):
+        """One scheduled epoch on this rank, the same on every rank: the
+        ``pool.apply`` point, the update, the snapshot when the record
+        says it is due, then a check that every rank reached the same
+        outcome (a rank that diverged fails the job).  Returns (result,
+        error)."""
+        from repro_torch.core.exchange import per_rank
+        res = err = None
+        try:
+            faults.fire("pool.apply")
+            with self._device_scope():
+                res = t.session.update(prepared=prep)
+                if snapshot:
+                    self._snapshot(t)
+        except Exception as e:
+            err = e
+        outcomes = per_rank(int(err is not None), self._ranks)
+        if len(set(outcomes)) != 1:
+            raise RuntimeError(
+                f"tenant {t.name!r} epoch {t.session.epoch}: the ranks' "
+                f"outcomes differ ({outcomes}, 1 = failed)") from err
+        return res, err
+
+    def _follow(self) -> None:
+        """A rank other than 0: apply rank 0's records until a stop."""
+        from repro_torch.core.exchange import broadcast_object
+        while True:
+            rec = broadcast_object(None, self._ranks)
+            for name in rec["fenced"]:
+                self._tenants[name].quarantined = True
+                self._tenants[name].stats.quarantined = True
+            if rec["op"] == "stop":
+                return
+            if rec["op"] != "apply":
+                continue  # idle: rank 0 keeps the group alive
+            t = self._tenants[rec["tenant"]]
+            if t.durability is not None and not rec["durable"] and t.durable:
+                t.durable = False
+                t.stats.wal_degraded = True
+            t0 = time.perf_counter()
+            faults_before = len(faults.injected())
+            prep = t.session.prepare(rec["raw"])
+            _, err = self._run_record(t, prep, rec["snapshot"])
+            if err is not None:
+                self._sync_robustness(t, faults_before)
+                with self._cv:
+                    t.stats.failed += rec["tickets"]
+                continue
+            self._retired(t, rec["tickets"], 0.0,
+                          (time.perf_counter() - t0) * 1e3, faults_before)
 
     # -- threads --------------------------------------------------------
     def _ensure_started(self):
@@ -556,7 +707,8 @@ class SessionPool:
             self._threads = [
                 threading.Thread(target=self._prep_loop,
                                  name="pool-prep", daemon=True),
-                threading.Thread(target=self._apply_loop,
+                threading.Thread(target=self._apply_loop if self._ranks
+                                 is None else self._root_loop,
                                  name="pool-apply", daemon=True)]
             for th in self._threads:
                 th.start()
@@ -565,7 +717,7 @@ class SessionPool:
         while True:
             with self._cv:
                 job = None
-                while not self._stop:
+                while not (self._stop or self._pause):
                     job = self._next_prep()
                     if job is not None:
                         break
@@ -573,6 +725,43 @@ class SessionPool:
                 if job is None:
                     return
             self._prep_one(*job)
+
+    def _root_loop(self):
+        """Rank 0's apply thread on a mesh of ranks: each prepared epoch
+        behind its record, an idle record after ``idle_s`` without one,
+        and a stop record to end the serving period (``drain``/``close``)
+        once nothing is in flight, or at once when the pool closes
+        without draining."""
+        last = time.monotonic()
+        try:
+            while True:
+                with self._cv:
+                    while True:
+                        job = self._next_apply()
+                        if job is not None:
+                            break
+                        if self._stop or (self._pause
+                                          and self._inflight == 0):
+                            break
+                        left = self.idle_s - (time.monotonic() - last)
+                        if left <= 0:
+                            break
+                        self._cv.wait(min(left, 0.1))
+                    stopping = job is None and (
+                        self._stop or (self._pause and self._inflight == 0))
+                if job is not None:
+                    self._apply_one(*job)
+                elif stopping:
+                    self._send("stop")
+                    return
+                else:
+                    self._send("idle")
+                last = time.monotonic()
+        except BaseException as e:
+            with self._cv:
+                self._error = e
+                self._cv.notify_all()
+            raise
 
     def _apply_loop(self):
         while True:
@@ -596,7 +785,14 @@ class SessionPool:
     # -- lifecycle ------------------------------------------------------
     def pump(self):
         """Synchronous pipeline pump (``pipeline=False`` mode and tests):
-        run prep+apply inline on the calling thread until idle."""
+        run prep+apply inline on the calling thread until idle.  On a mesh
+        of ranks rank 0 then sends a stop record, and the other ranks
+        follow the records until it."""
+        if self._ranks is not None:
+            if not self.root:
+                return self._follow()
+            if self._threads:
+                raise RuntimeError("pump() while the pipeline threads serve")
         while True:
             with self._cv:
                 job = self._next_prep()
@@ -607,14 +803,20 @@ class SessionPool:
                 ajob = self._next_apply()
             if ajob is None:
                 if job is None:
-                    return
+                    break
                 continue
             self._apply_one(*ajob)
+        if self._ranks is not None:
+            self._send("stop")
 
     def drain(self, timeout: Optional[float] = None):
-        """Block until every accepted batch has retired (or failed)."""
+        """Block until every accepted batch has retired (or failed).  On a
+        mesh of ranks it ends the serving period, on every rank."""
         if not self.pipeline:
             self.pump()
+            return
+        if self._ranks is not None and not self.root:
+            self._follow()
             return
         self._ensure_started()
         deadline = None if timeout is None else \
@@ -631,11 +833,42 @@ class SessionPool:
                         f"{self._inflight} batches still in flight")
                 self._cv.wait(0.1 if remaining is None
                               else min(remaining, 0.1))
+        if self._ranks is not None:
+            self._end_period()
+
+    def _end_period(self) -> None:
+        """Rank 0: have the apply thread send the stop record, and end
+        both threads (the next submit starts them again)."""
+        with self._cv:
+            self._pause = True
+            self._cv.notify_all()
+        for th in self._threads:
+            th.join()
+        with self._cv:
+            self._threads = []
+            self._pause = False
+            if self._error is not None:
+                raise RuntimeError("pool apply thread died") from self._error
 
     def close(self, drain: bool = True):
-        """Drain (optionally), stop the pipeline threads, flush WALs."""
-        if drain and not self._stop:
-            self.drain()
+        """Drain (optionally), stop the pipeline threads, flush WALs.  On
+        a mesh of ranks every rank calls it: rank 0 sends one stop
+        record (after draining, or at once), the others follow until
+        it."""
+        if not self._stop:
+            if self._ranks is None:
+                if drain:
+                    self.drain()
+            elif drain or not self.root:
+                self.drain()
+            else:
+                with self._cv:
+                    self._stop = True
+                    self._cv.notify_all()
+                if self._threads:
+                    self._end_period()
+                else:
+                    self._send("stop")
         with self._cv:
             self._stop = True
             self._cv.notify_all()

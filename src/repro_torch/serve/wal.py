@@ -231,32 +231,51 @@ class Durability:
     replays surviving WAL records IN ORDER through ``session.update`` —
     deterministic normalize makes the result bit-exact with the
     uninterrupted run.  ``restore_s`` and ``replay_s`` time the two
-    steps of the last ``recover()`` on the host clock, each ended by a
-    wait for the session's device.
+    steps of the last ``recover()`` and ``snapshot_s`` the last
+    snapshot's gather, on the host clock, each ended by a wait for the
+    session's device.
+
+    On a mesh of ranks (a mesh session whose mesh has ``ranks > 1``)
+    rank 0 owns ``directory``, the WAL and the checkpoint manager, and
+    no other rank needs the directory to exist: ``log`` appends on rank
+    0 and returns the epoch on the others; ``maybe_snapshot`` and
+    ``recover`` are collectives that every rank calls at the same epochs
+    (rank 0 writes the gathered snapshot, its outcome is broadcast, and a
+    failed write raises on every rank; rank 0 reads the newest snapshot
+    and the surviving records, restores across the mesh and broadcasts
+    the records, which every rank replays).
     """
 
     def __init__(self, directory: str, session, snapshot_every: int = 8,
                  keep_last: int = 3, fsync: bool = True):
         from repro_torch.checkpoint import CheckpointManager
         mesh = getattr(session, "mesh", None)
-        if mesh is not None and mesh.ranks > 1:
-            raise NotImplementedError(
-                f"a WAL for a session on a mesh of {mesh.ranks} ranks: its "
-                "snapshots would hold one rank's shards; durability across "
-                "ranks is not ported yet")
+        self.mesh = mesh if mesh is not None and mesh.ranks > 1 else None
+        self.root = self.mesh is None or self.mesh.rank == 0
         self.directory = directory
         self.session = session
         self.snapshot_every = int(snapshot_every)
-        self.manager = CheckpointManager(
-            os.path.join(directory, "ckpt"), keep_last=keep_last)
-        self.wal = WriteAheadLog(os.path.join(directory, "wal.log"),
-                                 fsync=fsync)
+        self.manager = self.wal = None
+        if self.root:
+            self.manager = CheckpointManager(
+                os.path.join(directory, "ckpt"), keep_last=keep_last)
+            self.wal = WriteAheadLog(os.path.join(directory, "wal.log"),
+                                     fsync=fsync)
         self.snapshots = 0
         self.replayed = 0
         self.restore_s = 0.0
         self.replay_s = 0.0
+        self.snapshot_s = 0.0
         self._last_snapshot_epoch = -1
         self.wal_report: Optional[Dict[str, object]] = None
+
+    def _share(self, obj):
+        """Rank 0's ``obj`` on every rank (``obj`` itself in one
+        process)."""
+        if self.mesh is None:
+            return obj
+        from repro_torch.core.exchange import broadcast_object
+        return broadcast_object(obj, self.mesh)
 
     def recover(self) -> bool:
         """Restore snapshot + replay WAL onto ``self.session``; returns
@@ -268,30 +287,45 @@ class Durability:
         ``self.wal_report`` so callers can surface the loss, and replay
         still stops at the first bad record.
         """
-        self.wal_report = WriteAheadLog.verify(self.wal.path)
+        got = None
+        if self.root:
+            self.wal_report = WriteAheadLog.verify(self.wal.path)
         self._sync()
         t0 = time.perf_counter()
-        got = self.manager.restore_latest_raw()
-        if got is not None:
-            leaves, manifest = got
-            self.session.restore(leaves, manifest["extra"])
+        if self.root:
+            got = self.manager.restore_latest_raw()
+        found = self._share(got is not None)
+        if found:
+            leaves, extra = (got[0], got[1]["extra"]) if self.root \
+                else (None, None)
+            self.session.restore(leaves, extra)
             self._last_snapshot_epoch = self.session.epoch
         self._sync()
         t1 = time.perf_counter()
         self.restore_s = t1 - t0
         base = self.session.epoch
-        for epoch, batches in self.wal.replay():
-            if epoch <= base:
-                continue  # already inside the snapshot
-            if epoch != self.session.epoch + 1:
-                raise WalError(
-                    f"WAL gap: next record is epoch {epoch} but the "
-                    f"session is at {self.session.epoch}")
+        records, gap = [], None
+        if self.root:
+            at = base
+            for epoch, batches in self.wal.replay():
+                if epoch <= base:
+                    continue  # already inside the snapshot
+                if epoch != at + 1:
+                    gap = (f"WAL gap: next record is epoch {epoch} but the "
+                           f"session is at {at}")
+                    break
+                records.append(batches)
+                at = epoch
+        report, records, gap = self._share((self.wal_report, records, gap))
+        self.wal_report = report
+        for batches in records:
             self.session.update(batches)
             self.replayed += 1
+        if gap is not None:
+            raise WalError(gap)
         self._sync()
         self.replay_s = time.perf_counter() - t1
-        return got is not None or self.replayed > 0
+        return found or self.replayed > 0
 
     def _sync(self) -> None:
         """Wait for the session's card, so that the host clock brackets
@@ -302,34 +336,67 @@ class Durability:
             torch.cuda.synchronize(device)
 
     def log(self, raw_batches: Batches) -> int:
-        """Append the NEXT epoch's raw batches; returns its epoch number."""
+        """Append the NEXT epoch's raw batches (on rank 0 of a mesh of
+        ranks); returns its epoch number."""
         epoch = self.session.epoch + 1
-        self.wal.append(epoch, raw_batches)
+        if self.root:
+            self.wal.append(epoch, raw_batches)
         return epoch
+
+    def due(self, epoch: int, force: bool = False) -> bool:
+        """Whether a snapshot at ``epoch`` is on the cadence (or
+        ``force``) and not taken yet."""
+        return (force or (self.snapshot_every > 0 and epoch > 0
+                          and epoch % self.snapshot_every == 0)) \
+            and epoch != self._last_snapshot_epoch
 
     def maybe_snapshot(self, force: bool = False) -> bool:
         """Snapshot + WAL truncation on the cadence (or ``force``)."""
         epoch = self.session.epoch
-        due = force or (self.snapshot_every > 0 and epoch > 0
-                        and epoch % self.snapshot_every == 0)
-        if not due or epoch == self._last_snapshot_epoch:
+        if not self.due(epoch, force):
             return False
-        try:
-            faults.fire("snapshot.write")
-            leaves, meta = self.session.snapshot()
-            self.manager.save(leaves, step=epoch, extra=meta)
-        except SnapshotError:
-            raise
-        except (OSError, faults.FaultInjected) as exc:
-            raise SnapshotError(
-                f"snapshot at epoch {epoch} failed: {exc}") from exc
-        self.wal.truncate_through(epoch)
+        if self.mesh is None:
+            try:
+                faults.fire("snapshot.write")
+                leaves, meta = self._snapshot()
+                self.manager.save(leaves, step=epoch, extra=meta)
+            except SnapshotError:
+                raise
+            except (OSError, faults.FaultInjected) as exc:
+                raise SnapshotError(
+                    f"snapshot at epoch {epoch} failed: {exc}") from exc
+            self.wal.truncate_through(epoch)
+        else:
+            # every rank takes part in the gather; rank 0 alone writes,
+            # and every rank learns the outcome
+            got = self._snapshot()
+            err = None
+            if self.root:
+                try:
+                    faults.fire("snapshot.write")
+                    self.manager.save(got[0], step=epoch, extra=got[1])
+                    self.wal.truncate_through(epoch)
+                except (OSError, faults.FaultInjected) as exc:
+                    err = f"snapshot at epoch {epoch} failed: {exc}"
+            del got
+            err = self._share(err)
+            if err is not None:
+                raise SnapshotError(err)
         self._last_snapshot_epoch = epoch
         self.snapshots += 1
         return True
 
+    def _snapshot(self):
+        self._sync()
+        t0 = time.perf_counter()
+        got = self.session.snapshot()
+        self._sync()
+        self.snapshot_s = time.perf_counter() - t0
+        return got
+
     def close(self) -> None:
-        self.wal.close()
+        if self.wal is not None:
+            self.wal.close()
 
 
 def main(argv=None) -> int:

@@ -296,6 +296,28 @@ def test_cli_ok_record(tmp_path):
     assert rec["probe"]["depths"] == [2, 4]
 
 
+@pytest.mark.parametrize("multi", [False, True])
+def test_wcoj_cells_report_a_collective_time(multi):
+    """The wcoj cells' ``collective_s``: the bytes a device sends in one
+    step (the exchange count's model at the cell's shapes) over NVLink
+    within a node and NDR between nodes, a term of ``bound_s``."""
+    from repro_torch.configs import wcoj
+    from repro_torch.launch import mesh as M
+    for shape in wcoj.SHAPES:
+        rec = dryrun.run_cell("wcoj-subgraph", shape, multi, verbose=False)
+        roof = rec["roofline"]
+        chips = rec["chips"]
+        sent = wcoj.step_exchange_bytes(shape, chips)
+        assert roof["collective_bytes_per_device"] == sent > 0
+        peers = chips - 1
+        assert roof["collective_s"] == max(
+            sent * 7 / peers / M.NVLINK_BYTES_PER_S,
+            sent * (peers - 7) / peers / M.NDR_BYTES_PER_S) > 0
+        assert roof["bound_s"] == max(roof["compute_s"], roof["memory_s"],
+                                      roof["collective_s"])
+        assert roof["dominant"] in ("compute", "memory", "collective")
+
+
 def test_cli_skipped_record(tmp_path):
     out = tmp_path / "d.jsonl"
     assert dryrun.main(["--arch", "yi-34b", "--shape", "long_500k",

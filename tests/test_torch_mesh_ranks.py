@@ -164,10 +164,12 @@ def job_exchanges(mesh):
 
 
 def job_static(mesh):
+    from repro_torch.core import exchange
     from repro_torch.core import query as Q
     from repro_torch.core.bigjoin import BigJoinConfig
     from repro_torch.core.distributed import (DistConfig, distributed_join,
-                                              partition_indices)
+                                              partition_indices,
+                                              step_exchange_bytes)
     from repro_torch.core.plan import make_plan
     out = {}
     for name, (qn, rel, route, balance) in STATIC.items():
@@ -180,8 +182,20 @@ def job_static(mesh):
         for iid in sorted(indices):
             for j, d in enumerate(indices[iid].pos):
                 _put_index(out, f"{name}/index/{iid}/{j}", d)
+        # the bytes counted from one step's start to the next's: its
+        # services and the next step's psum of the queue sizes
+        at = []
+
+        def hook(i, run):
+            at.append(sum(exchange.EXCHANGE_BYTES.values()))
+            return run()
+        exchange.reset_counters()
         r = distributed_join(plan, rels, mesh=mesh, cfg=cfg,
-                             indices=indices)
+                             indices=indices, step_hook=hook)
+        if len(plan.levels) == 1 and not balance:
+            out[f"r/step_bytes/{name}"] = np.diff(at)
+            out[f"r/step_model/{name}"] = np.array(step_exchange_bytes(
+                plan, cfg, indices, 0, mesh.ranks))
         out[f"{name}/scalars"] = np.array(
             [r.count, r.proposals, r.intersections, r.steps, r.max_load,
              r.mean_load], np.float64)
@@ -208,6 +222,15 @@ def job_engine(mesh):
         _put_store(out, f"engine/{step}/store", eng.store)
         live = eng.store.edges.copy()
         out[f"engine/{step}/edges"] = live
+        if step == JAX_EPOCHS - 1:
+            # the store gathered to rank 0 at the JAX stream's end
+            snap = eng.store.snapshot()
+            if mesh.rank == 0:
+                leaves, meta = snap
+                out["r/snap/meta"] = np.array(json.dumps(meta,
+                                                         sort_keys=True))
+                for name, leaf in zip(meta["names"], leaves):
+                    out[f"r/snap/{name}"] = leaf
     return out
 
 
@@ -242,28 +265,7 @@ def job_session(mesh):
     t, wt = h.enumerate()
     out["session/enum/tuples"], out["session/enum/weights"] = t, wt
     out["session/epoch"] = np.array(s.epoch)
-    if mesh.ranks > 1:
-        out["r/one_process_only"] = np.array(_one_process_only(s, mesh))
     return out
-
-
-def _one_process_only(session, mesh):
-    """The entry points that refuse a mesh of ranks: 1 for each that
-    raised ``NotImplementedError``."""
-    import tempfile
-    from repro_torch.serve import SessionPool
-    from repro_torch.serve.wal import Durability
-    raised = []
-    calls = (session.snapshot, lambda: session.restore([], {}),
-             lambda: SessionPool(device="cpu", local=False, mesh=mesh),
-             lambda: Durability(tempfile.mkdtemp(), session))
-    for call in calls:
-        try:
-            call()
-            raised.append(0)
-        except NotImplementedError:
-            raised.append(1)
-    return raised
 
 
 def job_joins(mesh):
@@ -299,13 +301,41 @@ def job_stall(mesh):
     return {}
 
 
+def job_from_jax(mesh):
+    """The JAX engine's store snapshot (``jax.npz``, after the JAX stream's
+    epochs) restored into a ranked engine built over one edge, then the
+    stream's next epoch."""
+    from repro_torch.core import query as Q
+    from repro_torch.core.distributed import (DistDeltaBigJoin,
+                                              default_delta_config)
+    jax = np.load(OUT_DIR[0] / "jax.npz")
+    meta = json.loads(str(jax["snap/meta"]))
+    leaves = [jax[f"snap/{n}"] for n in meta["names"]]
+    eng = DistDeltaBigJoin(
+        Q.triangle(), np.array([[0, 1]], np.int32), mesh=mesh,
+        dcfg=default_delta_config(W, batch=256, out_capacity=1 << 14),
+        compact_ratio=0.3)
+    if mesh.rank == 0:
+        eng.store.restore(leaves, meta)
+    else:
+        eng.store.restore(None, None)
+    out = {}
+    _put_store(out, "restored", eng.store)
+    _, stream = _stream()
+    upd, w = stream.batch_at(JAX_EPOCHS, live=eng.store.edges)
+    _put_delta(out, "next", eng.apply(upd, w))
+    return out
+
+
 JOBS = {"all": job_all, "joins": job_joins, "crash": job_crash,
-        "stall": job_stall}
+        "stall": job_stall, "from-jax": job_from_jax}
+OUT_DIR = [None]  # a rank's output directory, for the jobs that read one
 
 
 def _rank_main(job, rank, ranks, store, out_dir, pg_timeout):
     """One rank of a job (spawned): join the group, run, save."""
     torch.set_num_threads(1)
+    OUT_DIR[0] = Path(out_dir)
     from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
     mesh = init_rank_mesh(W, "gloo", "cpu", rank=rank, ranks=ranks,
                           init_method=f"file://{store}",
@@ -410,6 +440,10 @@ for step in range(epochs):
                            (q.count, q.proposals, q.intersections, q.steps)],
         np.int64)
     live = eng.edges.copy()
+leaves, meta = eng.store.snapshot()
+res["snap/meta"] = np.array(json.dumps(meta, sort_keys=True))
+for name, leaf in zip(meta["names"], leaves):
+    res[f"snap/{name}"] = np.asarray(leaf)
 np.savez(out_path, **res)
 """
 
@@ -489,6 +523,7 @@ def runs(tmp_path_factory):
     rc, _, se = out["jax"]
     assert rc == 0, se[-4000:]
     out["jax"] = dict(np.load(tmp / "jax.npz"))
+    out["from-jax"] = _Job("from-jax", 2, tmp).results()
     return out
 
 
@@ -591,6 +626,20 @@ def test_exchange_bytes_are_the_analytic_count(runs, R):
         assert got["r/bytes/exchanges"].tolist() == [a2a, psum_b, pmax_b]
 
 
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_step_bytes_are_the_dry_run_s_model(runs, R):
+    """Each step of the plain one-level joins (a route of 64 and of 8
+    slots) hands the other ranks exactly the bytes the dry run's model
+    (``distributed.step_exchange_bytes``) counts from the buffers'
+    capacities, on every rank; none in one process."""
+    for got in ([runs["ref"]] if R == 1 else runs[R]):
+        for name in ("triangle", "triangle-defer"):
+            steps = got[f"r/step_bytes/{name}"]
+            model = int(got[f"r/step_model/{name}"])
+            assert steps.size > 2 and set(steps.tolist()) == {model}
+            assert (model > 0) == (R > 1)
+
+
 @pytest.mark.parametrize("R", [2, 4])
 def test_service_bytes_are_the_analytic_count(runs, R):
     """One service call sends, through all_to_alls, each request's words
@@ -674,13 +723,6 @@ def test_mesh_session_matches_one_process(runs):
             np.testing.assert_array_equal(got[k], ref[k])
 
 
-def test_snapshots_pools_and_wal_refuse_ranks(runs):
-    """snapshot(), restore(), SessionPool and the WAL raise
-    NotImplementedError on a mesh of ranks (never a partial snapshot)."""
-    for got in runs[2]:
-        assert got["r/one_process_only"].tolist() == [1, 1, 1, 1]
-
-
 # ---------------------------------------------------------------------------
 # against the JAX package's 4-device mesh
 # ---------------------------------------------------------------------------
@@ -706,6 +748,38 @@ def test_ranked_stream_matches_jax(runs):
                 np.testing.assert_array_equal(
                     got[f"engine/{step}/{part}"], jax[f"{step}/{part}"])
         live = runs[2][0][f"engine/{step}/edges"]
+
+
+def test_gathered_snapshot_matches_jax(runs):
+    """The engine's store after the JAX stream's epochs, gathered to rank
+    0 at R = 2 and 4 (and in one process): the JAX 4-device mesh's
+    ``store.snapshot()``, leaf for leaf and meta for meta."""
+    jax = runs["jax"]
+    want = json.loads(str(jax["snap/meta"]))
+    for got in (runs[2][0], runs[4][0], runs["ref"]):
+        assert json.loads(str(got["r/snap/meta"])) == want
+        for name in want["names"]:
+            a, b = got[f"r/snap/{name}"], jax[f"snap/{name}"]
+            assert (a.dtype, a.shape) == (b.dtype, b.shape), name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert not any(k.startswith("r/snap/") for k in runs[2][1])
+
+
+def test_jax_snapshot_restores_at_two_ranks(runs):
+    """The JAX snapshot restored over R = 2 ranks: each rank holds its
+    workers' span of the one-process store at that epoch, and the next
+    epoch's delta is the uninterrupted engine's."""
+    from repro_torch.launch.mesh import WorkerMesh
+    ref = runs["ref"]
+    src = f"engine/{JAX_EPOCHS - 1}/store/"
+    want = {k.replace(src, "restored/"): v for k, v in ref.items()
+            if k.startswith(src) or k.startswith("w/" + src)}
+    for rank, got in enumerate(runs["from-jax"]):
+        lo, hi = WorkerMesh(W, "cpu", 2, rank, "gloo").span
+        assert _held(got, want, lo, hi, "restored/") > 10
+        for part in ("tuples", "weights", "stats"):
+            np.testing.assert_array_equal(
+                got[f"next/{part}"], ref[f"engine/{JAX_EPOCHS}/{part}"])
 
 
 # ---------------------------------------------------------------------------
